@@ -1,10 +1,13 @@
-"""Solver models of the port: spectral SG and FSG, plus the solve harness."""
+"""Solver models of the port: spectral SG and FSG, FV-SIMPLE, plus the solve
+harness."""
 
-from .params import SpectralParameters, Metrics, TimeSeries, Fields  # noqa: F401
+from .params import (FVParameters, SpectralParameters, Metrics,  # noqa: F401
+                     TimeSeries, Fields)
 
 _LAZY = {
     "SGSolver": ("anap3_tpu_torch.models.spectral", "SGSolver"),
     "FSGSolver": ("anap3_tpu_torch.models.spectral", "FSGSolver"),
+    "FVSolver": ("anap3_tpu_torch.models.fv", "FVSolver"),
 }
 
 

@@ -2,7 +2,8 @@
 
 The counterpart of ``anap3_tpu/models/base.py``: ``solve()``, ``params`` /
 ``metrics`` / ``fields`` / ``time_series``, vortex metrics, validation
-errors and tables, and VTS export. Everything after the solve is numpy host
+errors and tables, and VTS export (bilinear evaluation and spline vorticity
+by default, as in the JAX base class). Everything after the solve is numpy host
 code, as in the JAX package. There is no compile cache (PyTorch runs
 eagerly; the kernels cache their own build) and no checkpointing yet.
 """
@@ -35,7 +36,7 @@ _VORTEX_KEYS = ("psi_min", "psi_min_x", "psi_min_y", "omega_center",
 class CavitySolver:
     """Base class wiring a solver core into the experiment harness."""
 
-    Parameters = None  # subclasses: SpectralParameters
+    Parameters = None  # subclasses: SpectralParameters, FVParameters
 
     def __init__(self, params=None, **kwargs):
         if params is None:
@@ -59,6 +60,18 @@ class CavitySolver:
     def solve(self, tolerance: float = None, max_iter: int = None) -> None:
         raise NotImplementedError
 
+    def _use_pallas_flag(self) -> Optional[bool]:
+        """``params.use_pallas`` as True, False or None (auto)."""
+        flag = self.params.use_pallas
+        if isinstance(flag, bool):
+            return flag
+        s = str(flag).lower()
+        if s in ("true", "1", "yes"):
+            return True
+        if s in ("false", "0", "no"):
+            return False
+        return None
+
     def _final_fields(self) -> Fields:
         raise NotImplementedError
 
@@ -69,10 +82,30 @@ class CavitySolver:
         raise NotImplementedError
 
     def _evaluate_at_points(self, x: np.ndarray, y: np.ndarray):
-        raise NotImplementedError
+        """Bilinear interpolation of the stored fields (the JAX default;
+        the spectral solvers override it); NaN outside the cell centres."""
+        from scipy.interpolate import RegularGridInterpolator
+
+        x_unique = np.sort(np.unique(self.fields.x))
+        y_unique = np.sort(np.unique(self.fields.y))
+        nx, ny = len(x_unique), len(y_unique)
+        order = np.lexsort((self.fields.x, self.fields.y))
+        pts = np.column_stack([y, x])
+        out = []
+        for f in (self.fields.u, self.fields.v):
+            interp = RegularGridInterpolator(
+                (y_unique, x_unique), f[order].reshape(ny, nx),
+                method="linear", bounds_error=False, fill_value=np.nan)
+            out.append(interp(pts))
+        return tuple(out)
 
     def _vorticity_for_export(self, U, V, x, y):
-        raise NotImplementedError
+        """Spline derivatives for VTS export (the JAX default)."""
+        from scipy.interpolate import RectBivariateSpline
+
+        U_s = RectBivariateSpline(y, x, U)
+        V_s = RectBivariateSpline(y, x, V)
+        return V_s(y, x, dx=1) - U_s(y, x, dy=1)
 
     def _store_results(self, result: IterationResult,
                        max_timeseries_points: int = 1000) -> None:

@@ -1,10 +1,10 @@
 """Parameters of the port: the JAX package's dataclasses plus a device.
 
-``SpectralParameters`` adds ``device`` to ``anap3_tpu``'s dataclass (which
-is jax-free; only its ``resolve_dtype`` imports jax, and this module does
-not use it). The device is explicit: ``"cuda"`` without a card raises, and
-the plain PyTorch path runs on the host only when ``device="cpu"`` is asked
-for.
+``SpectralParameters`` and ``FVParameters`` add ``device`` to
+``anap3_tpu``'s dataclasses (which are jax-free; only its ``resolve_dtype``
+imports jax, and this module does not use it). The device is explicit:
+``"cuda"`` without a card raises, and the plain PyTorch path runs on the
+host only when ``device="cpu"`` is asked for.
 """
 
 from __future__ import annotations
@@ -14,15 +14,23 @@ from dataclasses import dataclass
 import torch
 
 from anap3_tpu.models.params import Fields, Metrics, TimeSeries
+from anap3_tpu.models.params import FVParameters as _FVParameters
 from anap3_tpu.models.params import SpectralParameters as _SpectralParameters
 
-__all__ = ["SpectralParameters", "Metrics", "TimeSeries", "Fields",
-           "resolve_device", "resolve_dtype"]
+__all__ = ["SpectralParameters", "FVParameters", "Metrics", "TimeSeries",
+           "Fields", "resolve_device", "resolve_dtype"]
 
 
 @dataclass
 class SpectralParameters(_SpectralParameters):
     """Spectral solver parameters with the torch device they run on."""
+
+    device: str = "cuda"
+
+
+@dataclass
+class FVParameters(_FVParameters):
+    """FV-SIMPLE solver parameters with the torch device they run on."""
 
     device: str = "cuda"
 

@@ -130,15 +130,8 @@ class SGSolver(CavitySolver):
         """``use_pallas`` keeps its meaning: auto = the kernels on CUDA and
         the plain step on the CPU; true/false force the fused wrappers
         (plain on CPU tensors) or the plain step."""
-        flag = self.params.use_pallas
-        if isinstance(flag, bool):
-            return flag
-        s = str(flag).lower()
-        if s in ("true", "1", "yes"):
-            return True
-        if s in ("false", "0", "no"):
-            return False
-        return self.device.type == "cuda"
+        flag = self._use_pallas_flag()
+        return self.device.type == "cuda" if flag is None else flag
 
     def _paths(self, ops):
         if self._kernels_enabled():

@@ -180,7 +180,7 @@ def step_plain(ops, state, tau=None):
 def _step_kernel(ops, state, tau=None):
     from ._build import load_library
 
-    lib = load_library()
+    lib = load_library("sg")
     nf, ni = ops.nf, ops.nf - 2
     taus = {}
     if tau is not None:
@@ -269,7 +269,7 @@ def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
                   use_residual, metrics_every):
     from ._build import load_library
 
-    lib = load_library()
+    lib = load_library("sg")
     ws = chunk_workspace(ops, state, chunk, ref_norm)
     counts = (ctypes.c_int * 3)()
     rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _ptr_table(ws),
@@ -314,7 +314,7 @@ def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int) -> None:
     one sampled-step control launch."""
     from ._build import load_library
 
-    lib = load_library()
+    lib = load_library("sg")
     rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, _ptr_table(ws),
                           _scalars(ops), KERNELS.index(which), int(reps),
                           _stream())

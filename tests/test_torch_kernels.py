@@ -241,18 +241,25 @@ class TestWrappers:
             _build._nvcc()
 
     def test_source_hash_follows_the_sources(self, tmp_path):
-        srcs = sorted(_build.CSRC.glob("*.cu"))
-        assert len(srcs) == 4
+        srcs = _build.sources("sg")
+        assert [s.name for s in srcs] == [
+            "sg_control.cu", "sg_diag.cu", "sg_host.cu", "sg_stage.cu",
+            "sg_common.cuh"]
         h = _build._source_hash(srcs)
         edited = tmp_path / srcs[0].name
         edited.write_bytes(srcs[0].read_bytes() + b"\n// edit\n")
         assert _build._source_hash([edited] + srcs[1:]) != h
+        # an FV edit leaves the SG library's key alone
+        assert _build._library_path("sg").parent.name == h
+        assert _build._library_path("fv") != _build._library_path("sg")
+        with pytest.raises(ValueError, match="unknown kernel family"):
+            _build.sources("xx")
 
     def test_import_builds_nothing(self, repo_root):
         code = ("import anap3_tpu_torch.ops.sg_kernels, "
                 "anap3_tpu_torch.models.spectral as s; "
                 "from anap3_tpu_torch.ops import _build; "
-                "assert _build._lib is None")
+                "assert _build._libs == {}")
         proc = subprocess.run([sys.executable, "-c", code], cwd=repo_root,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
