@@ -8,12 +8,18 @@ mirror ``anap3_tpu`` so each counterpart is easy to find:
   step, metrics);
 - ``models/runner.py``: the chunked convergence runner;
 - ``models/spectral.py``: ``SGSolver`` and ``FSGSolver``;
-- ``ops/sg_kernels.py``: wrappers of the hand-written CUDA kernels in
-  ``csrc/`` (built by ``ops/_build.py``), each beside its plain version.
+- ``models/spectral_vmg.py``: ``VMGSolver`` and ``FMGSolver`` (FAS
+  V-cycles);
+- ``models/fv.py``: ``FVSolver`` (FV-SIMPLE);
+- ``ops/sg_kernels.py``, ``ops/fv_kernels.py``: wrappers of the
+  hand-written CUDA kernels in ``csrc/`` (built by ``ops/_build.py``), each
+  beside its plain version.
 
-The package imports ``torch`` and never ``jax``. From ``anap3_tpu`` it uses
-only the jax-free numpy modules (bases, corner/singular fields, transfer
-operators, validation, VTS I/O and the parameter dataclasses).
+The package imports ``torch`` and never ``jax``, and nothing of
+``anap3_tpu``: the numpy modules it needs (bases, corner and singular
+fields, transfer operators, validation, VTS I/O, the parameter
+dataclasses) are its own copies, in ``ops/``, ``analysis/``, ``utils/`` and
+``models/params.py``.
 """
 
 __version__ = "0.1.0"

@@ -36,6 +36,7 @@ enum Ptr {
   P_ROWS,     // chunk: (chunk, 7) rows in runner.METRIC_KEYS order
   P_FLAGS,    // chunk: int32 (done, conv_iter, converged)
   P_REFNORM,  // chunk: (1,) residual-criterion normalization
+  P_CU, P_CV, P_CP,  // smoother: second output ping-pong (scratch)
   P_COUNT
 };
 

@@ -7,6 +7,17 @@
 // sg_chunk_run takes the place of the Pallas fori_loop of
 // anap3_tpu/ops/pallas_aligned.py make_aligned_chunk_runner: it loops the
 // step's launches `chunk` times with no Python and no host sync per step.
+//
+// sg_smooth_run is the FAS smoothing loop of a V-cycle level: the
+// lax.scan of anap3_tpu/models/spectral_vmg.py make_v_cycle.smooth over
+// anap3_tpu/ops/pallas_aligned.py make_aligned_tau_step (x6, tau added to
+// every stage residual). It runs n_steps RK4 steps on the stream, the base
+// of each step being the previous step's output buffer (two buffers taken
+// in turn, arranged so the last step lands in the output: no copy), and
+// computes the metrics of the last step only, as the V-cycle keeps only
+// those: 9 launches per step plus 3, against 12 per step for n_steps calls
+// of sg_step_run. Bound: like the step, by the launches' latency at the
+// V-cycle's sizes (a step's products are ~0.2 GFLOP at N=192).
 #include "sg_common.cuh"
 
 namespace sg {
@@ -91,6 +102,27 @@ int step_run(const void* const* P, const double* h, int nf, int with_tau,
 }
 
 template <typename T>
+int smooth_run(const void* const* P, const double* h, int nf, int n_steps,
+               int with_tau, int* counts, cudaStream_t s) {
+  const Work<T> w = make_work<T>(P, h, nf);
+  auto m = [&](int k) { return static_cast<T*>(const_cast<void*>(P[k])); };
+  T* const outs[2][3] = {{w.bu, w.bv, w.bp}, {m(P_CU), m(P_CV), m(P_CP)}};
+  Work<T> wi = w;  // step i: base = step i-1's output (the input for i = 0)
+  for (int i = 0; i < n_steps; ++i) {
+    T* const* o = outs[(n_steps - 1 - i) % 2];
+    wi.bu = o[0]; wi.bv = o[1]; wi.bp = o[2];
+    int rc = rk4<T>(wi, nf, with_tau != 0, counts, s);
+    if (rc) return rc;
+    wi.u = wi.bu; wi.v = wi.bv; wi.p = wi.bp;
+  }
+  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, s));
+  counts[C_DIAG] += 2;
+  SG_CHECK(launch_step_finish<T>(w.part, w.qpart, w.nb, m(P_METRICS), s));
+  counts[C_CONTROL] += 1;
+  return 0;
+}
+
+template <typename T>
 int chunk_run(const void* const* P, const double* h, int nf, int chunk,
               int start_iter, int warmup, int metrics_every,
               int use_residual, double tol, int* counts, cudaStream_t s) {
@@ -166,6 +198,16 @@ int sg_step_run(int dtype, int nf, const void* const* ptrs,
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? sg::step_run<double>(ptrs, scal, nf, with_tau, counts, s)
                : sg::step_run<float>(ptrs, scal, nf, with_tau, counts, s);
+}
+
+int sg_smooth_run(int dtype, int nf, const void* const* ptrs,
+                  const double* scal, int n_steps, int with_tau, int* counts,
+                  void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? sg::smooth_run<double>(ptrs, scal, nf, n_steps, with_tau,
+                                        counts, s)
+               : sg::smooth_run<float>(ptrs, scal, nf, n_steps, with_tau,
+                                       counts, s);
 }
 
 int sg_chunk_run(int dtype, int nf, const void* const* ptrs,

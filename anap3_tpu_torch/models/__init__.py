@@ -1,5 +1,5 @@
-"""Solver models of the port: spectral SG and FSG, FV-SIMPLE, plus the solve
-harness."""
+"""Solver models of the port: spectral SG, FSG, VMG and FMG, FV-SIMPLE, plus
+the solve harness."""
 
 from .params import (FVParameters, SpectralParameters, Metrics,  # noqa: F401
                      TimeSeries, Fields)
@@ -8,6 +8,8 @@ _LAZY = {
     "SGSolver": ("anap3_tpu_torch.models.spectral", "SGSolver"),
     "FSGSolver": ("anap3_tpu_torch.models.spectral", "FSGSolver"),
     "FVSolver": ("anap3_tpu_torch.models.fv", "FVSolver"),
+    "VMGSolver": ("anap3_tpu_torch.models.spectral_vmg", "VMGSolver"),
+    "FMGSolver": ("anap3_tpu_torch.models.spectral_vmg", "FMGSolver"),
 }
 
 

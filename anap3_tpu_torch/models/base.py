@@ -15,10 +15,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from anap3_tpu.analysis import validation as validation_mod
-from anap3_tpu.utils import vts as vts_mod
-
+from ..analysis import validation as validation_mod
 from ..analysis.vortex import vortex_metrics_from_fields
+from ..utils import vts as vts_mod
 from .params import Fields, Metrics, TimeSeries, resolve_device, resolve_dtype
 from .runner import IterationResult
 

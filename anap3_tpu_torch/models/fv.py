@@ -26,12 +26,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from anap3_tpu.ops.corner import lid_profile
-
 from .base import CavitySolver
 from .params import Fields, FVParameters
 from .runner import WARMUP_ITERS, run_fixed_point
 from ..ops import fv_stencils as st
+from ..ops.corner import lid_profile
 from ..ops.poisson import (SeparablePoisson, fd_dirichlet_poisson,
                            fv_neumann_pressure_poisson)
 

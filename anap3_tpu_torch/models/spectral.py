@@ -19,25 +19,25 @@ from typing import Optional
 import numpy as np
 import torch
 
-from anap3_tpu.ops import basis as basis_ops
-from anap3_tpu.ops.singular import eval_singular_uv, singular_min_n
-from anap3_tpu.ops.transfer import (make_level_transfer_matrices,
-                                    nodal_interpolation_matrix)
-
 from . import spectral_sg as core
 from .base import CavitySolver
 from .params import Fields, SpectralParameters
 from .runner import (ENERGY_PLATEAU_CHUNKS, WARMUP_ITERS, IterationResult,
                      run_fixed_point)
+from ..ops import basis as basis_ops
 from ..ops.poisson import spectral_dirichlet_poisson
 from ..ops.sg_kernels import (ALIGNED_METRICS_EVERY, make_sg_chunk_runner,
                               make_sg_step)
+from ..ops.singular import eval_singular_uv, singular_min_n
+from ..ops.transfer import (make_level_transfer_matrices,
+                            nodal_interpolation_matrix)
 from ..analysis.vortex import solve_streamfunction
 
 log = logging.getLogger(__name__)
 
 __all__ = ["SGSolver", "FSGSolver", "make_fused_paths", "effective_chunk",
-           "scaled_plateau_chunks", "resolve_convergence_metric"]
+           "scaled_plateau_chunks", "resolve_convergence_metric",
+           "default_coarsest_n", "MAX_FUSED_N"]
 
 # "auto" resolves to the energy-plateau criterion from this order upward
 # (rel-iter false-converges there; anap3_tpu/models/spectral.py)
@@ -45,6 +45,10 @@ AUTO_ENERGY_MIN_N = 128
 # the FSG coarsest level keeps its cell Peclet number within this bound
 # (anap3_tpu/models/spectral_vmg.py PE_COARSEST_MAX)
 PE_COARSEST_MAX = 110.0
+# matmul_algorithm=x6 routes orders up to this one, smoothed lids, to the
+# contract of the x6 whole-step and chunk kernels (anap3_tpu/ops/
+# pallas_step.py, pallas_chunk.py: MAX_FUSED_N): quadratures every step
+MAX_FUSED_N = 192
 
 
 def resolve_convergence_metric(params, n: Optional[int] = None,
@@ -92,16 +96,27 @@ def _matmul_policy(params) -> None:
              "in %s", alg, params.dtype)
 
 
-def make_fused_paths(ops):
-    """``(step, chunk_runner_factory)`` of the SG kernels for this level:
-    the same pair for every N, where the JAX package picks a Pallas tier by
-    N, lid mode and matmul algorithm."""
+def make_fused_paths(ops, matmul_algorithm: str = "auto"):
+    """``(step, chunk_runner_factory)`` of the SG kernels for this level.
+
+    One step kernel and one chunk kernel serve every N, where the JAX
+    package picks a Pallas tier by N, lid mode and matmul algorithm. Only
+    the chunk's quadrature cadence follows the JAX routing
+    (``anap3_tpu/models/spectral.py:make_fused_paths``): every step for
+    ``matmul_algorithm=x6`` at N <= MAX_FUSED_N with a smoothed lid (the x6
+    chunk kernel's rows), else every ALIGNED_METRICS_EVERY-th step. The x6
+    chunk kernel takes rel_iter only and JAX runs the residual criterion
+    per step there; the port's chunk kernel takes both."""
     step = make_sg_step(ops)
+    alg = str(matmul_algorithm or "auto").lower()
+    m_every = ALIGNED_METRICS_EVERY
+    if alg == "x6" and ops.nf - 1 <= MAX_FUSED_N and not ops.singular:
+        m_every = 1
 
     def factory(chunk, tol_, metric_):
         return make_sg_chunk_runner(ops, chunk, tol_, WARMUP_ITERS,
                                     convergence_metric=metric_,
-                                    metrics_every=ALIGNED_METRICS_EVERY)
+                                    metrics_every=m_every)
 
     return step, factory
 
@@ -135,7 +150,7 @@ class SGSolver(CavitySolver):
 
     def _paths(self, ops):
         if self._kernels_enabled():
-            return make_fused_paths(ops)
+            return make_fused_paths(ops, self.params.matmul_algorithm)
         return (lambda s: core.sg_step(ops, s)), None
 
     def _check_options(self) -> None:

@@ -26,10 +26,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from anap3_tpu.ops import basis as basis_ops
-from anap3_tpu.ops.corner import lid_profile
-from anap3_tpu.ops.singular import singular_fields_on_grid
-
+from ..ops import basis as basis_ops
+from ..ops.corner import lid_profile
+from ..ops.singular import singular_fields_on_grid
 from .params import SpectralParameters
 
 __all__ = ["SpectralOps", "SpectralState", "build_spectral_ops", "ops_from_jax",
@@ -135,8 +134,6 @@ def build_spectral_ops(params: SpectralParameters, n: Optional[int] = None,
     (build_spectral_ops, float64 on the host); the result is cast to
     ``dtype`` (default ``params.dtype``) on ``device`` (default
     ``params.device``)."""
-    # the port's products run in the working dtype, never in TF32
-    torch.backends.cuda.matmul.allow_tf32 = False
     n = int(params.nx if n is None else n)
     if params.nx != params.ny:
         raise ValueError(

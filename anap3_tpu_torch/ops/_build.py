@@ -91,6 +91,8 @@ def _bind_sg(lib: ctypes.CDLL) -> None:
     lib.sg_step_run.restype = i
     lib.sg_chunk_run.argtypes = [i, i, pp, dp, i, i, i, i, i, d, ip, vp]
     lib.sg_chunk_run.restype = i
+    lib.sg_smooth_run.argtypes = [i, i, pp, dp, i, i, ip, vp]
+    lib.sg_smooth_run.restype = i
     lib.sg_bench_run.argtypes = [i, i, pp, dp, i, i, vp]
     lib.sg_bench_run.restype = i
     lib.sg_error_string.argtypes = [i]

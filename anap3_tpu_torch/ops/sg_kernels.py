@@ -2,7 +2,7 @@
 PyTorch version.
 
 ``csrc/`` holds three kernels (sg_stage.cu, sg_diag.cu, sg_control.cu; see
-the note at the top of each) and two C host entries (sg_host.cu) that this
+the note at the top of each) and three C host entries (sg_host.cu) that this
 module calls through ``ctypes``:
 
 - ``make_sg_step(ops, with_tau=False)`` has the contract of
@@ -12,7 +12,15 @@ module calls through ``ctypes``:
   metrics_every)`` has the contract of ``make_aligned_chunk_runner`` /
   ``make_tiled_chunk_runner``: ``chunk_fn(state, start_iter, ref_norm) ->
   (state, done, conv_iter, converged, rows[chunk, 7], ref_norm)``, rows in
-  runner.METRIC_KEYS order and in the working dtype.
+  runner.METRIC_KEYS order and in the working dtype. With
+  ``metrics_every=1`` the rows are those of
+  ``anap3_tpu/ops/pallas_chunk.py:make_pallas_chunk_runner`` (the x6 chunk,
+  quadratures every step).
+- ``make_sg_smoother(ops)`` is the FAS smoothing loop of a
+  V-cycle level: ``smooth(state, tau, n_steps) -> (state, metrics)``,
+  ``n_steps`` steps of ``anap3_tpu/ops/pallas_aligned.py:
+  make_aligned_tau_step`` (tau, when given, added to every stage residual)
+  with the metrics of the last step, in one host entry (sg_smooth_run).
 
 Dispatch is by the state's device and nothing else: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernels or raises (a failed build
@@ -41,8 +49,9 @@ from ..models import spectral_sg as core
 from ..models.runner import WARMUP_ITERS, control_step, freeze, rel_change
 from ..models.spectral_sg import SpectralOps, SpectralState
 
-__all__ = ["make_sg_step", "make_sg_chunk_runner", "step_plain", "chunk_plain",
-           "LAUNCHES", "PLAIN_CALLS",
+__all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
+           "step_plain", "chunk_plain", "smooth_plain", "LAUNCHES",
+           "PLAIN_CALLS",
            "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS", "bench_kernel",
            "chunk_workspace"]
 
@@ -51,7 +60,7 @@ ALIGNED_METRICS_EVERY = 16
 
 KERNELS = ("sg_stage", "sg_diag", "sg_control")
 LAUNCHES = {k: 0 for k in KERNELS}
-PLAIN_CALLS = {"sg_step": 0, "sg_chunk": 0}
+PLAIN_CALLS = {"sg_step": 0, "sg_chunk": 0, "sg_smooth": 0}
 
 # pointer-table order of csrc/sg_common.cuh:Ptr
 _PTR_NAMES = (
@@ -60,8 +69,10 @@ _PTR_NAMES = (
     "sing_dvdy", "sing_w", "sing_dwx", "sing_dwy",
     "u", "v", "p", "au", "av", "ap", "bu", "bv", "bp",
     "left", "omega", "part", "qpart", "scal", "tau_u", "tau_v", "tau_p",
-    "metrics", "rows", "flags", "ref_norm")
+    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp")
 _OP_NAMES = _PTR_NAMES[:20]
+_STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
+              "palinstrophy")
 _NPART, _NQPART, _NSCAL = 5, 3, 6  # csrc/sg_common.cuh
 _TILE = 16
 
@@ -177,17 +188,23 @@ def step_plain(ops, state, tau=None):
     return core.sg_step(ops, state, tau)
 
 
+def _taus(ops, tau) -> dict:
+    """The FAS forcing's pointer-table entries, checked; none without it."""
+    if tau is None:
+        return {}
+    nf, ni = ops.nf, ops.nf - 2
+    for name, t, shape in zip(("tau_u", "tau_v", "tau_p"), tau,
+                              ((nf, nf), (nf, nf), (ni, ni))):
+        _check(name, t, shape, ops.dtype, ops.device)
+    return dict(zip(("tau_u", "tau_v", "tau_p"), tau))
+
+
 def _step_kernel(ops, state, tau=None):
     from ._build import load_library
 
     lib = load_library("sg")
-    nf, ni = ops.nf, ops.nf - 2
-    taus = {}
-    if tau is not None:
-        for name, t, shape in zip(("tau_u", "tau_v", "tau_p"), tau,
-                                  ((nf, nf), (nf, nf), (ni, ni))):
-            _check(name, t, shape, ops.dtype, ops.device)
-            taus[name] = t
+    nf = ops.nf
+    taus = _taus(ops, tau)
     out = SpectralState(torch.empty_like(state.u), torch.empty_like(state.v),
                         torch.empty_like(state.p))
     metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
@@ -199,9 +216,7 @@ def _step_kernel(ops, state, tau=None):
                          _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_step_run")
-    keys = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
-            "palinstrophy")
-    return out, dict(zip(keys, metrics.unbind()))
+    return out, dict(zip(_STEP_KEYS, metrics.unbind()))
 
 
 def make_sg_step(ops: SpectralOps, with_tau: bool = False):
@@ -216,6 +231,68 @@ def make_sg_step(ops: SpectralOps, with_tau: bool = False):
         return step_plain(ops, state, tau)
 
     return run if with_tau else (lambda state: run(state, None))
+
+
+# ---------------------------------------------------------------- smoother
+
+
+def smooth_plain(ops, state, tau, n_steps):
+    """The smoothing loop's plain version: ``n_steps`` calls of
+    ``models/spectral_sg.sg_step`` and the last step's metrics (the scan of
+    ``anap3_tpu/models/spectral_vmg.py:make_v_cycle``'s ``smooth``)."""
+    PLAIN_CALLS["sg_smooth"] += 1
+    metrics = None
+    for _ in range(n_steps):
+        state, metrics = core.sg_step(ops, state, tau)
+    return state, metrics
+
+
+def make_sg_smoother(ops: SpectralOps):
+    """``n_steps`` RK4 steps in one host entry: ``smooth(state, tau,
+    n_steps) -> (state, metrics)`` with the six metrics of the last step;
+    ``tau`` (tau_u, tau_v, tau_p) is added to every stage residual, or is
+    None for an unforced level.
+
+    Every call returns fresh state and metrics tensors (a V-cycle keeps the
+    smoother's input and output side by side); the per-step scratch, which
+    never leaves the call, is allocated once per smoother and reused in
+    stream order."""
+    _check_ops(ops)
+    scratch = {}
+
+    def kernel(state, taus, n_steps):
+        from ._build import load_library
+
+        lib = load_library("sg")
+        if not scratch:
+            scratch.update(_workspace(ops))
+            for name, like in (("cu", state.u), ("cv", state.v),
+                               ("cp", state.p)):
+                scratch[name] = torch.empty_like(like)
+        out = SpectralState(torch.empty_like(state.u),
+                            torch.empty_like(state.v),
+                            torch.empty_like(state.p))
+        metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
+        ws = dict(scratch, u=state.u, v=state.v, p=state.p, bu=out.u,
+                  bv=out.v, bp=out.p, metrics=metrics, **taus)
+        counts = (ctypes.c_int * 3)()
+        rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf,
+                               _ptr_table(ws), _scalars(ops), int(n_steps),
+                               int(bool(taus)), counts, _stream())
+        _count(counts)
+        _raise_on(lib, rc, "sg_smooth_run")
+        return out, dict(zip(_STEP_KEYS, metrics.unbind()))
+
+    def run(state, tau, n_steps):
+        if int(n_steps) < 1:
+            raise ValueError(f"n_steps must be >= 1, not {n_steps}")
+        on_cuda = _on_cuda(ops, state)
+        taus = _taus(ops, tau)  # checked on both paths
+        if on_cuda:
+            return kernel(state, taus, n_steps)
+        return smooth_plain(ops, state, tau, int(n_steps))
+
+    return run
 
 
 # ---------------------------------------------------------------- chunk

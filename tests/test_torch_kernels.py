@@ -191,10 +191,16 @@ class TestWrappers:
         assert all(torch.equal(a, b) for a, b in zip(s1, s2))
         assert all(torch.equal(m1[k], m2[k]) for k in m2)
         sgk.make_sg_chunk_runner(ops, 4, 1e-30)(st, 0, np.inf)
-        assert sgk.PLAIN_CALLS == {"sg_step": 1, "sg_chunk": 1}
+        s3, m3 = sgk.make_sg_smoother(ops)(st, None, 2)
+        s4, m4 = T.sg_step(ops, T.sg_step(ops, st)[0])
+        assert all(torch.equal(a, b) for a, b in zip(s3, s4))
+        assert all(torch.equal(m3[k], m4[k]) for k in m4)
+        assert sgk.PLAIN_CALLS == {"sg_step": 1, "sg_chunk": 1,
+                                   "sg_smooth": 1}
         assert sgk.LAUNCHES == {k: 0 for k in sgk.KERNELS}
         sgk.reset_counts()
-        assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0}
+        assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
+                                   "sg_smooth": 0}
 
     def test_plain_chunk_matches_generic_runner_rel_iter(self):
         """With metrics every step, the kernel's plain chunk is the generic
@@ -232,6 +238,10 @@ class TestWrappers:
             sgk.make_sg_chunk_runner(ops, 4, 1e-3, convergence_metric="energy")
         with pytest.raises(TypeError, match="float32 or float64"):
             sgk._dtype_code(torch.float16)
+        with pytest.raises(ValueError, match="n_steps"):
+            sgk.make_sg_smoother(ops)(st, None, 0)
+        with pytest.raises(ValueError, match="shape"):
+            sgk.make_sg_smoother(ops)(st, (st.u, st.v, st.u), 1)
 
     def test_build_needs_nvcc(self, monkeypatch):
         monkeypatch.setattr(_build.shutil, "which", lambda name: None)
@@ -401,7 +411,51 @@ class TestOnCard:
         # 2 sampled steps (i=0, idx=16) run the two quadrature launches
         assert sgk.LAUNCHES == {"sg_stage": 160, "sg_diag": 24,
                                 "sg_control": 20}
-        assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0}
+        assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
+                                   "sg_smooth": 0}
+        sgk.reset_counts()
+        sgk.make_sg_smoother(ops)(st, None, 5)
+        # 9 launches a step (dt, 4 stage pairs) and 3 at the end
+        # (quadratures, metrics)
+        assert sgk.LAUNCHES == {"sg_stage": 40, "sg_diag": 7,
+                                "sg_control": 1}
+        assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
+                                   "sg_smooth": 0}
+
+    @pytest.mark.parametrize("n", [20, 48])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("corner", ["smoothing", "singular"])
+    @pytest.mark.parametrize("n_steps", [1, 2, 5])
+    def test_smoother_matches_plain(self, cuda, n, dtype, corner, n_steps):
+        """The smoothing loop against its plain version, forced by a tau
+        that is zero on the velocity boundary ring (as a V-cycle's is), and
+        unforced."""
+        ops = cuda_ops(n, dtype, corner)
+        st = random_state(ops, n)
+        ring = ops.interior.to(dtype)
+        tu, tv, tp = random_state(ops, n + 1)
+        tau = (0.2 * tu * ring, 0.2 * tv * ring, 0.2 * tp)
+        for forcing in (tau, None):
+            s_k, m_k = sgk.make_sg_smoother(ops)(st, forcing, n_steps)
+            torch.cuda.synchronize()
+            s_p, m_p = sgk.smooth_plain(ops, st, forcing, n_steps)
+            for a, b in zip(s_k, s_p):
+                assert rel_t(a, b) <= tol_of(dtype)
+            for k in m_p:
+                assert rel_t(m_k[k], m_p[k]) <= tol_of(dtype), k
+
+    def test_smoother_leaves_its_input_and_returns_fresh_tensors(self, cuda):
+        ops = cuda_ops(20, torch.float64)
+        st = random_state(ops, 3)
+        kept = [t.clone() for t in st]
+        smooth = sgk.make_sg_smoother(ops)
+        a, _ = smooth(st, None, 3)
+        b, _ = smooth(st, None, 3)
+        for x, y, z in zip(st, kept, a):
+            assert torch.equal(x, y)
+            assert x.data_ptr() != z.data_ptr()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y) and x.data_ptr() != y.data_ptr()
 
     def test_state_on_another_device_raises(self, cuda):
         ops = cuda_ops(20, torch.float32)
