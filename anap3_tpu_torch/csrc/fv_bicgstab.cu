@@ -27,6 +27,10 @@
 //   the update launch applies x and r and writes the next <rh,r>, ||r||^2
 //   partials. p and v alternate between two buffers so no block overwrites
 //   a value another block still reads.
+// Lanes: the lane is the grid's z axis. Each lane reduces its own partials
+//   into its own slots, so its rho, alpha, omega and breakdown guard are its
+//   own (the per-lane scalars of anap3_tpu/ops/pallas_fv_lanes.py
+//   make_fv_lane_runner's bicg_iter).
 #include "fv_common.cuh"
 
 namespace fv {
@@ -38,6 +42,14 @@ constexpr double kGuard = 1e-16;
 template <typename T>
 __device__ T* slot(const Work<T>& w, int k) {
   return w.slots + (size_t)k * SL_COUNT;
+}
+
+// One of the two alternating p (or v) buffers. A select, not an index: an
+// array member indexed at run time would put the kernel's lane-shifted
+// copy of the whole Work on the stack.
+template <typename T>
+__device__ __forceinline__ T* buf(T* const (&pair)[2], int parity) {
+  return (parity & 1) ? pair[1] : pair[0];
 }
 
 // 5-point apply on a shared haloed tile (zero outside the grid)
@@ -83,10 +95,10 @@ __device__ void direction(int k, const Grid<T>& g, const Work<T>& w,
   const T rho_k = old[SL_RHO], alpha_k = old[SL_ALPHA], omega_k = old[SL_OMEGA];
   const T rho1 = active ? rhr : rho_k;
   const T beta = (rho1 / (rho_k + eps)) * (alpha_k / (omega_k + eps));
-  const T* pv_old = w.pv[k & 1];
-  const T* vv_old = w.vv[k & 1];
-  T* pv_new = w.pv[(k + 1) & 1];
-  T* vv_new = w.vv[(k + 1) & 1];
+  const T* pv_old = buf(w.pv, k);
+  const T* vv_old = buf(w.vv, k);
+  T* pv_new = buf(w.pv, k + 1);
+  T* vv_new = buf(w.vv, k + 1);
   for (int h = c.tid; h < HT * HT; h += NT) {
     const int hj = h / HT, hi = h % HT;
     const int jj = c.j0 - 1 + hj, ii = c.i0 - 1 + hi;
@@ -139,7 +151,7 @@ __device__ void stabilize(int k, const Grid<T>& g, const Work<T>& w,
   const T* nw = slot(w, k + 1);
   const bool active = nw[SL_ACTIVE] != T(0);
   const T alpha = active ? nw[SL_RHO] / (rvv + eps) : slot(w, k)[SL_ALPHA];
-  const T* vv_new = w.vv[(k + 1) & 1];
+  const T* vv_new = buf(w.vv, k + 1);
   for (int h = c.tid; h < HT * HT; h += NT) {
     const int hj = h / HT, hi = h % HT;
     const int jj = c.j0 - 1 + hj, ii = c.i0 - 1 + hi;
@@ -188,7 +200,7 @@ __device__ void update(int k, const Grid<T>& g, const Work<T>& w, T* red) {
   const bool active = nw[SL_ACTIVE] != T(0);
   const T omega = active ? ts / (tt + eps) : slot(w, k)[SL_OMEGA];
   const T alpha = nw[SL_ALPHA];
-  const T* pv_new = w.pv[(k + 1) & 1];
+  const T* pv_new = buf(w.pv, k + 1);
   T pr[4] = {0, 0, 0, 0};
   if (own_cell(g, c)) {
     const size_t k0 = (size_t)c.j * g.nx + c.i;
@@ -212,7 +224,9 @@ __device__ void update(int k, const Grid<T>& g, const Work<T>& w, T* red) {
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
-bicg_kernel(int phase, int k, Grid<T> g, Work<T> w) {
+bicg_kernel(int phase, int k, Grid<T> g0, Work<T> w0) {
+  const Grid<T> g = at_lane(g0, blockIdx.z);
+  const Work<T> w = at_lane(w0, blockIdx.z, g.ny, g.nx, g.nb, g.K);
   __shared__ T sm[4][HT][HT];
   __shared__ T red[NT];
   if (phase == BP_DIRECTION)
@@ -228,7 +242,8 @@ bicg_kernel(int phase, int k, Grid<T> g, Work<T> w) {
 template <typename T>
 cudaError_t launch_bicg(int phase, int k, const Grid<T>& g, const Work<T>& w,
                         cudaStream_t s) {
-  const dim3 grid((g.nx + TILE - 1) / TILE, (g.ny + TILE - 1) / TILE);
+  const dim3 grid((g.nx + TILE - 1) / TILE, (g.ny + TILE - 1) / TILE,
+                  g.lanes);
   bicg_kernel<T><<<grid, dim3(TILE, TILE), 0, s>>>(phase, k, g, w);
   return cudaGetLastError();
 }

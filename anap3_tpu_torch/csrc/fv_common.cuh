@@ -14,6 +14,18 @@
 // no launch needs a grid-wide sync. Grid-wide sums go through per-block
 // partials that the NEXT launch reduces, in a fixed order, in every block:
 // no atomics, and a run repeats bit for bit.
+//
+// Lanes: every kernel runs B independent solves ("lanes") of one grid in one
+// launch, the lane being the grid's z axis (blockIdx.x of the one-block
+// control kernel). The pressure solve's operators (V1, V2, inv_lam, A1, A2)
+// are shared; the scalars (mu, alpha_uv, alpha_p, rho, lid), the boundary
+// statics aP_bc and b_bc_u, the state, every work array, partial table,
+// BiCGSTAB slot, flag and row are per lane, lane b at b times the lane
+// stride of its buffer (at_lane below). A lane reads and writes nothing of
+// another lane (its halo reads stop at its own grid's edge), and its
+// arithmetic does not depend on B, so lane b of a B-lane call gives the
+// bits of a one-lane call on its data. The single solves (step, chunk) are
+// the B = 1 case.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -44,13 +56,16 @@ enum Ptr {
   P_PART_Q,    // (nb, 3) |div|^2, omega^2, |grad omega|^2
   P_SLOTS,     // (K+1) * SL_COUNT BiCGSTAB scalars (see Slot)
   P_METRICS,   // step: (6,)
-  P_ROWS,      // chunk: (chunk, 7) rows in runner.METRIC_KEYS order
-  P_FLAGS,     // chunk: int32 (done, conv_iter, converged)
+  P_ROWS,      // chunk: (chunk, lanes, 7) rows in runner.METRIC_KEYS order
+  P_FLAGS,     // chunk: int32 (lanes, 3): done, conv_iter, converged
+  P_REF,       // chunk: (lanes,) the residual criterion's normalization
+  P_LSC,       // (lanes, H_COUNT) per-lane scalars in the working type
   P_COUNT
 };
 
-// Host scalars, in the order of fv_kernels.py:statics()["host_scalars"].
-enum Scal { H_MU, H_DX, H_DY, H_AUV, H_AP, H_RHO, H_LID, H_COUNT };
+// Columns of the per-lane scalar table, in the order of
+// fv_kernels.py:scalar_table (each the host double cast to T by torch).
+enum Scal { H_MU, H_DX, H_DY, H_AUV, H_AP, H_RHO, H_LID, H_PAD, H_COUNT };
 
 // The scalars of BiCGSTAB iteration k live in slot k + 1 (slot 0 holds the
 // start values 1, 1, 1, and in SL_ACTIVE ||rhs||^2 + eps, the guard's
@@ -68,20 +83,34 @@ enum Count { C_STENCIL, C_BICG, C_DENSE, C_CONTROL, C_COUNT };
 
 template <typename T>
 struct Grid {
-  int ny, nx, nb;
+  int ny, nx, nb, K, lanes;
+  const T* lsc;  // (lanes, H_COUNT)
+  // lane b's scalars, set by at_lane
   T mu, dx, dy, auv, ap, rho, lid;
   T vol, Dxc, Dyc;
 };
 
 template <typename T>
-Grid<T> make_grid(const double* h, int ny, int nx) {
+Grid<T> make_grid(const void* const* P, int ny, int nx, int K, int lanes) {
   Grid<T> g;
   g.ny = ny;
   g.nx = nx;
   g.nb = ((ny + TILE - 1) / TILE) * ((nx + TILE - 1) / TILE);
-  g.mu = T(h[H_MU]); g.dx = T(h[H_DX]); g.dy = T(h[H_DY]);
-  g.auv = T(h[H_AUV]); g.ap = T(h[H_AP]); g.rho = T(h[H_RHO]);
-  g.lid = T(h[H_LID]);
+  g.K = K;
+  g.lanes = lanes;
+  g.lsc = static_cast<const T*>(P[P_LSC]);
+  g.mu = g.dx = g.dy = g.auv = g.ap = g.rho = g.lid = T(0);
+  g.vol = g.Dxc = g.Dyc = T(0);
+  return g;
+}
+
+// The grid as lane b sees it: its scalars, and the derived ones in the
+// working type (the same IEEE operations as a host computation in T).
+template <typename T>
+__device__ __forceinline__ Grid<T> at_lane(Grid<T> g, int b) {
+  const T* s = g.lsc + (size_t)b * H_COUNT;
+  g.mu = s[H_MU]; g.dx = s[H_DX]; g.dy = s[H_DY];
+  g.auv = s[H_AUV]; g.ap = s[H_AP]; g.rho = s[H_RHO]; g.lid = s[H_LID];
   g.vol = g.dx * g.dy;
   g.Dxc = g.mu * g.dy / g.dx;
   g.Dyc = g.mu * g.dx / g.dy;
@@ -102,6 +131,44 @@ struct Work {
   T *metrics, *rows;
   int* flags;
 };
+
+// The buffers as lane b sees them (shared operators stay). Rows are lane
+// b's slot of row 0: row r is r * lanes * 7 further on. Lane 0 takes the
+// pointers as they are, with no arithmetic: the one-lane entries pass null
+// for the outputs they do not write, and a lane b > 0 exists only in a lane
+// chunk, whose buffers are all allocated. (A null test per pointer would
+// put a chain of ~50 branches in front of every block.)
+template <typename T>
+__device__ __forceinline__ Work<T> at_lane(Work<T> w, int b, int ny, int nx,
+                                           int nb, int K) {
+  if (b == 0) return w;
+  const size_t c = (size_t)ny * nx, B = (size_t)b;
+  auto off = [&](auto* p, size_t stride) { return p + B * stride; };
+  w.aP_bc = off(w.aP_bc, c); w.b_bc_u = off(w.b_bc_u, c);
+  w.u = off(w.u, c); w.v = off(w.v, c); w.p = off(w.p, c);
+  w.mx = off(w.mx, (size_t)ny * (nx - 1));
+  w.my = off(w.my, (size_t)(ny - 1) * nx);
+  w.gpx = off(w.gpx, c); w.gpy = off(w.gpy, c); w.aPr = off(w.aPr, c);
+  w.aE = off(w.aE, c); w.aW = off(w.aW, c); w.aN = off(w.aN, c);
+  w.aS = off(w.aS, c); w.Du = off(w.Du, c);
+  w.x = off(w.x, 2 * c); w.r = off(w.r, 2 * c); w.rh = off(w.rh, 2 * c);
+  w.pv[0] = off(w.pv[0], 2 * c); w.pv[1] = off(w.pv[1], 2 * c);
+  w.vv[0] = off(w.vv[0], 2 * c); w.vv[1] = off(w.vv[1], 2 * c);
+  w.s = off(w.s, 2 * c); w.t = off(w.t, 2 * c);
+  w.mxs = off(w.mxs, c); w.mys = off(w.mys, c); w.rhsp = off(w.rhsp, c);
+  w.res = off(w.res, c); w.g1 = off(w.g1, c); w.g2 = off(w.g2, c);
+  w.g3 = off(w.g3, c); w.pp = off(w.pp, c);
+  const size_t n = (size_t)nb;
+  w.part_rhs = off(w.part_rhs, 2 * n); w.part_r = off(w.part_r, 4 * n);
+  w.part_v = off(w.part_v, 2 * n); w.part_t = off(w.part_t, 4 * n);
+  w.part_m = off(w.part_m, n); w.part_m2 = off(w.part_m2, n);
+  w.part_c = off(w.part_c, NPART_C * n); w.part_q = off(w.part_q, NPART_Q * n);
+  w.slots = off(w.slots, (size_t)(K + 1) * SL_COUNT);
+  w.metrics = off(w.metrics, 6);
+  w.rows = off(w.rows, 7);
+  w.flags = off(w.flags, 3);
+  return w;
+}
 
 // max that propagates NaN from either side (torch.maximum / jnp.maximum)
 template <typename T>
@@ -152,7 +219,8 @@ __device__ __forceinline__ TileCell tile_cell() {
 }
 
 // Launchers, defined and instantiated for float and double in the .cu file
-// of each kernel. None synchronizes; each returns cudaGetLastError().
+// of each kernel, each for g.lanes lanes at once (pointers are lane 0's).
+// None synchronizes; each returns cudaGetLastError().
 enum StencilPhase { PH_ASSEMBLE, PH_RHIE_CHOW, PH_RESIDUAL, PH_CORRECT,
                     PH_METRICS };
 enum BicgPhase { BP_DIRECTION, BP_STABILIZE, BP_UPDATE };
@@ -165,13 +233,19 @@ cudaError_t launch_bicg(int phase, int k, const Grid<T>& g, const Work<T>& w,
                         cudaStream_t s);
 // C (M x N) = op(A) op(B), op = transpose when trans*; B minus the mean of
 // a partial column when mean_part is set; epilogue * scale, or += into C.
+// For `lanes` lanes: lane b's A, B, mean_part and C lie b times their lane
+// stride (sA, sB, sM, sC elements; 0 for a shared operand) further on.
 template <typename T>
 cudaError_t launch_dense(int M, int N, int K, const T* A, int transA,
-                         const T* B, int transB, const T* mean_part, int nb,
-                         int n_total, const T* scale, int accumulate, T* C,
-                         cudaStream_t s);
+                         size_t sA, const T* B, int transB, size_t sB,
+                         const T* mean_part, size_t sM, int nb, int n_total,
+                         const T* scale, int accumulate, T* C, size_t sC,
+                         int lanes, cudaStream_t s);
+// ref_norm: (lanes,) normalizations of the residual criterion, read and
+// written only when use_residual is set.
 template <typename T>
 cudaError_t launch_control(const Grid<T>& g, const Work<T>& w, int row,
-                           int idx, int warmup, T tol, cudaStream_t s);
+                           int idx, int warmup, T tol, int use_residual,
+                           T* ref_norm, cudaStream_t s);
 
 }  // namespace fv

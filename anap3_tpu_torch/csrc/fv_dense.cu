@@ -21,6 +21,10 @@
 //   the fixed-order reduction of the previous launch's partials, as in every
 //   FV kernel), the second multiplies by inv_lam in its epilogue, and the
 //   last accumulates into p' for the refinement step.
+// Lanes: the lane is the grid's z axis; each operand carries a lane stride
+//   (0 for the shared bases and eigenvalue inverses), which replaces the
+//   per-lane left dots and batched right dots of the row-stacked psolve of
+//   anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner.
 #include "fv_common.cuh"
 
 namespace fv {
@@ -29,8 +33,14 @@ namespace {
 template <typename T>
 __global__ void __launch_bounds__(NT)
 dense_kernel(int M, int N, int K, const T* __restrict__ A, int transA,
-             const T* __restrict__ B, int transB, const T* mean_part, int nb,
-             int n_total, const T* __restrict__ scale, int accumulate, T* C) {
+             size_t sA, const T* __restrict__ B, int transB, size_t sB,
+             const T* mean_part, size_t sM, int nb, int n_total,
+             const T* __restrict__ scale, int accumulate, T* C, size_t sC) {
+  const size_t lane = blockIdx.z;
+  A += lane * sA;
+  B += lane * sB;
+  C += lane * sC;
+  if (mean_part != nullptr) mean_part += lane * sM;
   __shared__ T As[TILE][TILE + 1];
   __shared__ T Bs[TILE][TILE + 1];
   __shared__ T red[NT];
@@ -69,20 +79,22 @@ dense_kernel(int M, int N, int K, const T* __restrict__ A, int transA,
 
 template <typename T>
 cudaError_t launch_dense(int M, int N, int K, const T* A, int transA,
-                         const T* B, int transB, const T* mean_part, int nb,
-                         int n_total, const T* scale, int accumulate, T* C,
-                         cudaStream_t s) {
-  const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
+                         size_t sA, const T* B, int transB, size_t sB,
+                         const T* mean_part, size_t sM, int nb, int n_total,
+                         const T* scale, int accumulate, T* C, size_t sC,
+                         int lanes, cudaStream_t s) {
+  const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE, lanes);
   dense_kernel<T><<<grid, dim3(TILE, TILE), 0, s>>>(
-      M, N, K, A, transA, B, transB, mean_part, nb, n_total, scale,
-      accumulate, C);
+      M, N, K, A, transA, sA, B, transB, sB, mean_part, sM, nb, n_total,
+      scale, accumulate, C, sC);
   return cudaGetLastError();
 }
 
 #define FV_INSTANTIATE(T)                                                    \
-  template cudaError_t launch_dense<T>(int, int, int, const T*, int,         \
-                                       const T*, int, const T*, int, int,    \
-                                       const T*, int, T*, cudaStream_t);
+  template cudaError_t launch_dense<T>(int, int, int, const T*, int, size_t, \
+                                       const T*, int, size_t, const T*,      \
+                                       size_t, int, int, const T*, int, T*,  \
+                                       size_t, int, cudaStream_t);
 FV_INSTANTIATE(float)
 FV_INSTANTIATE(double)
 #undef FV_INSTANTIATE

@@ -11,6 +11,14 @@
 // place of the Pallas fori_loop of anap3_tpu/ops/pallas_fv.py
 // make_pallas_fv_chunk_runner: it loops the iteration `chunk` times with no
 // Python and no host sync per iteration.
+//
+// fv_lanes_chunk_run is fv_chunk_run for B sweep lanes at once (each lane's
+// flags carried in from its previous chunk): it takes the place of the
+// Pallas fori_loop of anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner.
+// Every launch covers all lanes, so a B-lane iteration costs the launches of
+// one iteration (62 at K=16 in float32), not B times as many, and the chain
+// of dependent grid-wide reductions that bounds one solve is paid once for
+// all lanes. fv_chunk_run and fv_step_run are its B = 1 case.
 #include "fv_common.cuh"
 
 namespace fv {
@@ -49,19 +57,22 @@ Work<T> make_work(const void* const* P) {
   return w;
 }
 
-// p' (+)= V1 ((V1^T (f - mean) V2) * inv_lam) V2^T
+// p' (+)= V1 ((V1^T (f - mean) V2) * inv_lam) V2^T, for every lane: the
+// bases are shared (lane stride 0), f, the mean's partials and the
+// products per lane
 template <typename T>
 int psolve(const Grid<T>& g, const Work<T>& w, const T* f,
            const T* mean_part, int accumulate, int* counts, cudaStream_t s) {
-  const int ny = g.ny, nx = g.nx, n = ny * nx;
-  FV_CHECK(launch_dense<T>(ny, nx, ny, w.V1, 1, f, 0, mean_part, g.nb, n,
-                           nullptr, 0, w.g1, s));
-  FV_CHECK(launch_dense<T>(ny, nx, nx, w.g1, 0, w.V2, 0, nullptr, g.nb, n,
-                           w.inv_lam, 0, w.g2, s));
-  FV_CHECK(launch_dense<T>(ny, nx, ny, w.V1, 0, w.g2, 0, nullptr, g.nb, n,
-                           nullptr, 0, w.g3, s));
-  FV_CHECK(launch_dense<T>(ny, nx, nx, w.g3, 0, w.V2, 1, nullptr, g.nb, n,
-                           nullptr, accumulate, w.pp, s));
+  const int ny = g.ny, nx = g.nx, n = ny * nx, L = g.lanes;
+  const size_t c = (size_t)n, m = (size_t)g.nb;
+  FV_CHECK(launch_dense<T>(ny, nx, ny, w.V1, 1, 0, f, 0, c, mean_part, m,
+                           g.nb, n, nullptr, 0, w.g1, c, L, s));
+  FV_CHECK(launch_dense<T>(ny, nx, nx, w.g1, 0, c, w.V2, 0, 0, nullptr, 0,
+                           g.nb, n, w.inv_lam, 0, w.g2, c, L, s));
+  FV_CHECK(launch_dense<T>(ny, nx, ny, w.V1, 0, 0, w.g2, 0, c, nullptr, 0,
+                           g.nb, n, nullptr, 0, w.g3, c, L, s));
+  FV_CHECK(launch_dense<T>(ny, nx, nx, w.g3, 0, c, w.V2, 1, 0, nullptr, 0,
+                           g.nb, n, nullptr, accumulate, w.pp, c, L, s));
   counts[C_DENSE] += 4;
   return 0;
 }
@@ -92,29 +103,31 @@ int iterate(const Grid<T>& g, const Work<T>& w, int K, int n_refine,
 }
 
 template <typename T>
-int step_run(const void* const* P, const double* h, int ny, int nx, int K,
-             int n_refine, int upwind, int* counts, cudaStream_t s) {
-  const Grid<T> g = make_grid<T>(h, ny, nx);
+int step_run(const void* const* P, int ny, int nx, int K, int n_refine,
+             int upwind, int* counts, cudaStream_t s) {
+  const Grid<T> g = make_grid<T>(P, ny, nx, K, 1);
   Work<T> w = make_work<T>(P);
   w.flags = nullptr;  // a step always commits
   w.rows = nullptr;   // control writes the six metrics
   const int rc = iterate<T>(g, w, K, n_refine, upwind, counts, s);
   if (rc) return rc;
-  FV_CHECK(launch_control<T>(g, w, 0, 0, 0, T(0), s));
+  FV_CHECK(launch_control<T>(g, w, 0, 0, 0, T(0), 0, nullptr, s));
   counts[C_CONTROL] += 1;
   return 0;
 }
 
 template <typename T>
-int chunk_run(const void* const* P, const double* h, int ny, int nx, int K,
+int chunk_run(const void* const* P, int ny, int nx, int lanes, int K,
               int n_refine, int upwind, int chunk, int start_iter, int warmup,
-              double tol, int* counts, cudaStream_t s) {
-  const Grid<T> g = make_grid<T>(h, ny, nx);
+              int use_residual, double tol, int* counts, cudaStream_t s) {
+  const Grid<T> g = make_grid<T>(P, ny, nx, K, lanes);
   const Work<T> w = make_work<T>(P);
+  T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REF]));
   for (int i = 0; i < chunk; ++i) {
     const int rc = iterate<T>(g, w, K, n_refine, upwind, counts, s);
     if (rc) return rc;
-    FV_CHECK(launch_control<T>(g, w, i, start_iter + i, warmup, T(tol), s));
+    FV_CHECK(launch_control<T>(g, w, i, start_iter + i, warmup, T(tol),
+                               use_residual, ref_norm, s));
     counts[C_CONTROL] += 1;
   }
   return 0;
@@ -124,9 +137,9 @@ int chunk_run(const void* const* P, const double* h, int ny, int nx, int K,
 // iteration (0: fv_stencil's phases, 1: fv_bicgstab's 3K launches,
 // 2: fv_dense's products, 3: one fv_control launch). Not part of a solve.
 template <typename T>
-int bench_run(const void* const* P, const double* h, int ny, int nx, int K,
+int bench_run(const void* const* P, int ny, int nx, int lanes, int K,
               int n_refine, int upwind, int which, int reps, cudaStream_t s) {
-  const Grid<T> g = make_grid<T>(h, ny, nx);
+  const Grid<T> g = make_grid<T>(P, ny, nx, K, lanes);
   const Work<T> w = make_work<T>(P);
   int counts[C_COUNT] = {0, 0, 0, 0};
   for (int r = 0; r < reps; ++r) {
@@ -150,7 +163,8 @@ int bench_run(const void* const* P, const double* h, int ny, int nx, int K,
         if (rc) return rc;
       }
     } else {
-      FV_CHECK(launch_control<T>(g, w, 0, 0, 1 << 30, T(0), s));
+      FV_CHECK(launch_control<T>(g, w, 0, 0, 1 << 30, T(0), 0, nullptr,
+                                 s));
     }
   }
   return 0;
@@ -161,38 +175,50 @@ int bench_run(const void* const* P, const double* h, int ny, int nx, int K,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64.
-int fv_step_run(int dtype, int ny, int nx, const void* const* ptrs,
-                const double* scal, int K, int n_refine, int upwind,
-                int* counts, void* stream) {
+// dtype: 0 = float32, 1 = float64. The per-lane scalars are the table in
+// the pointer table's P_LSC slot.
+int fv_step_run(int dtype, int ny, int nx, const void* const* ptrs, int K,
+                int n_refine, int upwind, int* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? fv::step_run<double>(ptrs, scal, ny, nx, K, n_refine,
-                                      upwind, counts, s)
-               : fv::step_run<float>(ptrs, scal, ny, nx, K, n_refine, upwind,
+  return dtype ? fv::step_run<double>(ptrs, ny, nx, K, n_refine, upwind,
+                                      counts, s)
+               : fv::step_run<float>(ptrs, ny, nx, K, n_refine, upwind,
                                      counts, s);
 }
 
-int fv_chunk_run(int dtype, int ny, int nx, const void* const* ptrs,
-                 const double* scal, int K, int n_refine, int upwind,
-                 int chunk, int start_iter, int warmup, double tol,
-                 int* counts, void* stream) {
+// use_residual: 0 for the rel_iter criterion, 1 for the residual criterion
+// (each lane's continuity norm over its value at the warmup iteration, the
+// normalization carried in the P_REF slot).
+int fv_lanes_chunk_run(int dtype, int ny, int nx, int lanes,
+                       const void* const* ptrs, int K, int n_refine,
+                       int upwind, int chunk, int start_iter, int warmup,
+                       int use_residual, double tol, int* counts,
+                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? fv::chunk_run<double>(ptrs, scal, ny, nx, K, n_refine,
-                                       upwind, chunk, start_iter, warmup, tol,
-                                       counts, s)
-               : fv::chunk_run<float>(ptrs, scal, ny, nx, K, n_refine, upwind,
-                                      chunk, start_iter, warmup, tol, counts,
-                                      s);
+  return dtype ? fv::chunk_run<double>(ptrs, ny, nx, lanes, K, n_refine,
+                                       upwind, chunk, start_iter, warmup,
+                                       use_residual, tol, counts, s)
+               : fv::chunk_run<float>(ptrs, ny, nx, lanes, K, n_refine,
+                                      upwind, chunk, start_iter, warmup,
+                                      use_residual, tol, counts, s);
 }
 
-int fv_bench_run(int dtype, int ny, int nx, const void* const* ptrs,
-                 const double* scal, int K, int n_refine, int upwind,
+int fv_chunk_run(int dtype, int ny, int nx, const void* const* ptrs, int K,
+                 int n_refine, int upwind, int chunk, int start_iter,
+                 int warmup, double tol, int* counts, void* stream) {
+  return fv_lanes_chunk_run(dtype, ny, nx, 1, ptrs, K, n_refine, upwind,
+                            chunk, start_iter, warmup, 0, tol, counts,
+                            stream);
+}
+
+int fv_bench_run(int dtype, int ny, int nx, int lanes,
+                 const void* const* ptrs, int K, int n_refine, int upwind,
                  int which, int reps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? fv::bench_run<double>(ptrs, scal, ny, nx, K, n_refine,
+  return dtype ? fv::bench_run<double>(ptrs, ny, nx, lanes, K, n_refine,
                                        upwind, which, reps, s)
-               : fv::bench_run<float>(ptrs, scal, ny, nx, K, n_refine, upwind,
-                                      which, reps, s);
+               : fv::bench_run<float>(ptrs, ny, nx, lanes, K, n_refine,
+                                      upwind, which, reps, s);
 }
 
 const char* fv_error_string(int code) {

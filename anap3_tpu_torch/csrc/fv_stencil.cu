@@ -22,6 +22,11 @@
 //   is the tridiagonal stencil it is, summed in the dense product's order
 //   (k ascending, FMA), not a dense product: the rounding differs from
 //   fv_dense's by the zero terms it skips, which are exact.
+// Lanes: the lane is the grid's z axis; lane b's blocks run the one-lane
+//   code on lane b's buffers and scalars (fv_common.cuh), which replaces
+//   the row-stacked layout and the where-selects of
+//   anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner: a halo read
+//   outside a lane's grid is a zero, never a neighbour lane's cell.
 #include "fv_common.cuh"
 
 namespace fv {
@@ -348,7 +353,9 @@ __device__ void metrics(const Grid<T>& g, const Work<T>& w, T (*sm)[HT][HT],
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
-stencil_kernel(int phase, Grid<T> g, Work<T> w, int upwind) {
+stencil_kernel(int phase, Grid<T> g0, Work<T> w0, int upwind) {
+  const Grid<T> g = at_lane(g0, blockIdx.z);
+  const Work<T> w = at_lane(w0, blockIdx.z, g.ny, g.nx, g.nb, g.K);
   __shared__ T sm[2][HT][HT];
   __shared__ T red[NT];
   switch (phase) {
@@ -365,7 +372,8 @@ stencil_kernel(int phase, Grid<T> g, Work<T> w, int upwind) {
 template <typename T>
 cudaError_t launch_stencil(int phase, const Grid<T>& g, const Work<T>& w,
                            int upwind, cudaStream_t s) {
-  const dim3 grid((g.nx + TILE - 1) / TILE, (g.ny + TILE - 1) / TILE);
+  const dim3 grid((g.nx + TILE - 1) / TILE, (g.ny + TILE - 1) / TILE,
+                  g.lanes);
   stencil_kernel<T><<<grid, dim3(TILE, TILE), 0, s>>>(phase, g, w, upwind);
   return cudaGetLastError();
 }

@@ -5,6 +5,16 @@
 // the pressure p on the (ni, ni) inner grid, ni = nf - 2, all row-major and
 // dense, exactly as anap3_tpu/models/spectral_sg.py holds them. Every kernel
 // is templated on the working type T (float or double) and accumulates in T.
+//
+// Lanes: every kernel runs B independent solves ("lanes") of one order in
+// one launch, the lane being a grid axis (blockIdx.z of the tile kernels,
+// blockIdx.x of the one-block kernels). Operator matrices are shared; the
+// boundary values, the singular fields, the scalars (nu, beta^2, CFL, lid,
+// 1/dx, 1/dy), the states and every scratch buffer are per lane, lane b at
+// b times the lane stride of its buffer (lane_* below). A lane reads and
+// writes nothing of another lane, and its arithmetic does not depend on B,
+// so lane b of a B-lane call gives the bits of a one-lane call on its data.
+// The single solves (step, chunk, smoother) are the B = 1 case.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,10 +47,12 @@ enum Ptr {
   P_FLAGS,    // chunk: int32 (done, conv_iter, converged)
   P_REFNORM,  // chunk: (1,) residual-criterion normalization
   P_CU, P_CV, P_CP,  // smoother: second output ping-pong (scratch)
+  P_LSC,      // (lanes, H_COUNT) per-lane scalars in the working type
   P_COUNT
 };
 
-// Host scalars, in the order of sg_kernels.py:_scalars.
+// Columns of the per-lane scalar table, in the order of
+// sg_kernels.py:scalar_table (each the host double cast to T by torch).
 enum Scal { H_NU, H_BETA, H_CFL, H_LID, H_IDX, H_IDY, H_COUNT };
 
 // Device scalars: the step's dt, the base state's squared norms, and the
@@ -56,15 +68,34 @@ constexpr int NQPART = 3;
 // Kernel counts reported to the wrapper's launch counters.
 enum Count { C_STAGE, C_DIAG, C_CONTROL, C_COUNT };
 
+// Lane strides (elements) of the per-lane buffers at order nf - 1.
+__host__ __device__ inline int tiles(int n) { return (n + TILE - 1) / TILE; }
+__host__ __device__ inline size_t lane_full(int nf) { return (size_t)nf * nf; }
+__host__ __device__ inline size_t lane_inner(int nf) {
+  return (size_t)(nf - 2) * (nf - 2);
+}
+__host__ __device__ inline size_t lane_left(int nf) {
+  return 4 * lane_full(nf) + 2 * (size_t)nf * (nf - 2);
+}
+__host__ __device__ inline size_t lane_blocks(int nf) {
+  return (size_t)tiles(nf) * tiles(nf);
+}
+
 template <typename T>
 struct Ops {
-  const T *Dx, *DyT, *Dxx, *DyyT, *Ix, *IyT, *Gx, *GyT, *bc_u, *bc_v, *W2d;
+  // shared by every lane
+  const T *Dx, *DyT, *Dxx, *DyyT, *Ix, *IyT, *Gx, *GyT, *W2d;
+  // per lane (lane stride lane_full); the singular fields are null in the
+  // regularized-lid modes
+  const T *bc_u, *bc_v;
   const T *su, *sv, *sdudx, *sdudy, *sdvdx, *sdvdy, *sw, *sdwx, *sdwy;
+  const T* lsc;  // (lanes, H_COUNT)
+  // lane b's scalars, set by at_lane
   T nu, beta_sq, cfl, lid, inv_dx, inv_dy;
 };
 
 template <typename T>
-Ops<T> make_ops(const void* const* P, const double* h) {
+Ops<T> make_ops(const void* const* P) {
   auto c = [&](int k) { return static_cast<const T*>(P[k]); };
   Ops<T> o;
   o.Dx = c(P_DX); o.DyT = c(P_DYT); o.Dxx = c(P_DXX); o.DyyT = c(P_DYYT);
@@ -73,12 +104,30 @@ Ops<T> make_ops(const void* const* P, const double* h) {
   o.su = c(P_SU); o.sv = c(P_SV); o.sdudx = c(P_SDUDX); o.sdudy = c(P_SDUDY);
   o.sdvdx = c(P_SDVDX); o.sdvdy = c(P_SDVDY); o.sw = c(P_SW);
   o.sdwx = c(P_SDWX); o.sdwy = c(P_SDWY);
-  o.nu = T(h[H_NU]); o.beta_sq = T(h[H_BETA]); o.cfl = T(h[H_CFL]);
-  o.lid = T(h[H_LID]); o.inv_dx = T(h[H_IDX]); o.inv_dy = T(h[H_IDY]);
+  o.lsc = c(P_LSC);
+  o.nu = o.beta_sq = o.cfl = o.lid = o.inv_dx = o.inv_dy = T(0);
   return o;
 }
 
-// One RK stage: state (u_in, v_in, p_in) -> (u_out, ...), base (u0, v0, p0).
+// The operators as lane b sees them: its boundary values, singular fields
+// and scalars.
+template <typename T>
+__device__ __forceinline__ Ops<T> at_lane(Ops<T> o, int b, int nf) {
+  const size_t f = (size_t)b * lane_full(nf);
+  o.bc_u += f;
+  o.bc_v += f;
+  if (o.su) {
+    o.su += f; o.sv += f; o.sdudx += f; o.sdudy += f; o.sdvdx += f;
+    o.sdvdy += f; o.sw += f; o.sdwx += f; o.sdwy += f;
+  }
+  const T* s = o.lsc + (size_t)b * H_COUNT;
+  o.nu = s[H_NU]; o.beta_sq = s[H_BETA]; o.cfl = s[H_CFL];
+  o.lid = s[H_LID]; o.inv_dx = s[H_IDX]; o.inv_dy = s[H_IDY];
+  return o;
+}
+
+// One RK stage: state (u_in, v_in, p_in) -> (u_out, ...), base (u0, v0, p0);
+// every pointer is lane 0's.
 template <typename T>
 struct StageArgs {
   const T *u_in, *v_in, *p_in;
@@ -91,7 +140,21 @@ struct StageArgs {
   T* part;        // non-null on the last stage
 };
 
-inline int tiles(int n) { return (n + TILE - 1) / TILE; }
+template <typename T>
+__device__ __forceinline__ StageArgs<T> at_lane(StageArgs<T> a, int b,
+                                               int nf) {
+  const size_t f = (size_t)b * lane_full(nf), q = (size_t)b * lane_inner(nf);
+  a.u_in += f; a.v_in += f; a.p_in += q;
+  a.u0 += f; a.v0 += f; a.p0 += q;
+  a.u_out += f; a.v_out += f; a.p_out += q;
+  a.left += (size_t)b * lane_left(nf);
+  if (a.tau_u) {
+    a.tau_u += f; a.tau_v += f; a.tau_p += q;
+  }
+  a.scal += (size_t)b * S_COUNT;
+  if (a.part) a.part += (size_t)b * lane_blocks(nf) * NPART;
+  return a;
+}
 
 // max that propagates NaN from either side (jnp.maximum / torch.maximum)
 template <typename T>
@@ -142,24 +205,28 @@ __device__ T block_max(T v, T* sh, int tid, int nthreads) {
 }
 
 // Launchers, defined (and instantiated for float and double) in the .cu
-// file of each kernel. None synchronizes; each returns cudaGetLastError().
+// file of each kernel, each for `lanes` lanes at once; pointers are lane 0's.
+// None synchronizes; each returns cudaGetLastError().
 template <typename T>
 cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
-                         cudaStream_t s);
+                         int lanes, cudaStream_t s);
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
-                      int nf, cudaStream_t s);
+                      int nf, int lanes, cudaStream_t s);
 template <typename T>
 cudaError_t launch_quadratures(const Ops<T>& o, const T* u, const T* v,
-                               T* omega, T* qpart, int nf, cudaStream_t s);
+                               T* omega, T* qpart, int nf, int lanes,
+                               cudaStream_t s);
+// rows: (chunk, lanes, 7), row `row` written; flags: (lanes, 3); ref_norm:
+// (lanes,)
 template <typename T>
-cudaError_t launch_control(const T* part, const T* qpart, int nb, int sampled,
+cudaError_t launch_control(const T* part, const T* qpart, int sampled,
                            T* scal, T* rows, int row, int idx, int warmup,
                            T tol, int use_residual, int* flags, T* ref_norm,
                            T* u, T* v, T* p, const T* u_new, const T* v_new,
-                           const T* p_new, int nf, cudaStream_t s);
+                           const T* p_new, int nf, int lanes, cudaStream_t s);
 template <typename T>
-cudaError_t launch_step_finish(const T* part, const T* qpart, int nb,
-                               T* metrics, cudaStream_t s);
+cudaError_t launch_step_finish(const T* part, const T* qpart, T* metrics,
+                               int nf, int lanes, cudaStream_t s);
 
 }  // namespace sg

@@ -19,6 +19,11 @@
 //   (converged or diverged) state is never overwritten; the host loop keeps
 //   launching without reading any flag. sg_step_finish is the per-step
 //   variant that writes the six metrics of make_sg_step instead.
+// Lanes: one block per lane, each with its own partials, device scalars,
+//   flags, residual normalization and row slot rows[row, lane, :]; a lane
+//   that is done keeps its state and writes NaN rows while the others run
+//   on (the per-lane freeze of anap3_tpu/ops/pallas_lanes.py and
+//   pallas_lanes_aligned.py).
 #include "sg_common.cuh"
 
 namespace sg {
@@ -37,12 +42,22 @@ __device__ void reduce_partials(const T* part, int nparts, int nb, T* out,
 }
 
 template <typename T>
-__global__ void control_kernel(const T* part, const T* qpart, int nb,
-                               int sampled, T* scal, T* rows, int row,
-                               int idx, int warmup, T tol, int use_residual,
+__global__ void control_kernel(const T* part, const T* qpart, int sampled,
+                               T* scal, T* rows, int row, int idx,
+                               int warmup, T tol, int use_residual,
                                int* flags, T* ref_norm, T* u, T* v, T* p,
                                const T* u_new, const T* v_new,
                                const T* p_new, int nf) {
+  const int lane = blockIdx.x, nb = (int)lane_blocks(nf);
+  const size_t f = lane * lane_full(nf), q = lane * lane_inner(nf);
+  part += (size_t)lane * nb * NPART;
+  qpart += (size_t)lane * nb * NQPART;
+  scal += (size_t)lane * S_COUNT;
+  rows += ((size_t)row * gridDim.x + lane) * 7;
+  flags += 3 * lane;
+  ref_norm += lane;
+  u += f; v += f; p += q;
+  u_new += f; v_new += f; p_new += q;
   __shared__ T sh[RED_THREADS];
   __shared__ T sums[NPART];
   __shared__ T qsums[NQPART];
@@ -61,7 +76,7 @@ __global__ void control_kernel(const T* part, const T* qpart, int nb,
     const T vals[7] = {rel, sqrt(sums[0]), sqrt(sums[1]), sqrt(sums[2]),
                        scal[S_E], scal[S_Z], scal[S_P]};
     const T nan = T(NAN);
-    for (int c = 0; c < 7; ++c) rows[(size_t)row * 7 + c] = done ? nan : vals[c];
+    for (int c = 0; c < 7; ++c) rows[c] = done ? nan : vals[c];
     // the row's values (NaN once done) feed the criteria, as in
     // runner.make_chunk_runner
     const T rel_row = done ? nan : rel;
@@ -99,8 +114,12 @@ __global__ void control_kernel(const T* part, const T* qpart, int nb,
 }
 
 template <typename T>
-__global__ void step_finish_kernel(const T* part, const T* qpart, int nb,
-                                   T* metrics) {
+__global__ void step_finish_kernel(const T* part, const T* qpart,
+                                   T* metrics, int nf) {
+  const int lane = blockIdx.x, nb = (int)lane_blocks(nf);
+  part += (size_t)lane * nb * NPART;
+  qpart += (size_t)lane * nb * NQPART;
+  metrics += 6 * lane;
   __shared__ T sh[RED_THREADS];
   __shared__ T sums[NPART];
   __shared__ T qsums[NQPART];
@@ -119,30 +138,32 @@ __global__ void step_finish_kernel(const T* part, const T* qpart, int nb,
 }  // namespace
 
 template <typename T>
-cudaError_t launch_control(const T* part, const T* qpart, int nb, int sampled,
+cudaError_t launch_control(const T* part, const T* qpart, int sampled,
                            T* scal, T* rows, int row, int idx, int warmup,
                            T tol, int use_residual, int* flags, T* ref_norm,
                            T* u, T* v, T* p, const T* u_new, const T* v_new,
-                           const T* p_new, int nf, cudaStream_t s) {
-  control_kernel<T><<<1, RED_THREADS, 0, s>>>(
-      part, qpart, nb, sampled, scal, rows, row, idx, warmup, tol,
-      use_residual, flags, ref_norm, u, v, p, u_new, v_new, p_new, nf);
+                           const T* p_new, int nf, int lanes,
+                           cudaStream_t s) {
+  control_kernel<T><<<lanes, RED_THREADS, 0, s>>>(
+      part, qpart, sampled, scal, rows, row, idx, warmup, tol, use_residual,
+      flags, ref_norm, u, v, p, u_new, v_new, p_new, nf);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_step_finish(const T* part, const T* qpart, int nb,
-                               T* metrics, cudaStream_t s) {
-  step_finish_kernel<T><<<1, RED_THREADS, 0, s>>>(part, qpart, nb, metrics);
+cudaError_t launch_step_finish(const T* part, const T* qpart, T* metrics,
+                               int nf, int lanes, cudaStream_t s) {
+  step_finish_kernel<T><<<lanes, RED_THREADS, 0, s>>>(part, qpart, metrics,
+                                                       nf);
   return cudaGetLastError();
 }
 
 #define SG_INSTANTIATE(T)                                                   \
   template cudaError_t launch_control<T>(                                   \
-      const T*, const T*, int, int, T*, T*, int, int, int, T, int, int*,    \
-      T*, T*, T*, T*, const T*, const T*, const T*, int, cudaStream_t);     \
-  template cudaError_t launch_step_finish<T>(const T*, const T*, int, T*,   \
-                                             cudaStream_t);
+      const T*, const T*, int, T*, T*, int, int, int, T, int, int*, T*,     \
+      T*, T*, T*, const T*, const T*, const T*, int, int, cudaStream_t);    \
+  template cudaError_t launch_step_finish<T>(const T*, const T*, T*, int,   \
+                                             int, cudaStream_t);
 SG_INSTANTIATE(float)
 SG_INSTANTIATE(double)
 #undef SG_INSTANTIATE

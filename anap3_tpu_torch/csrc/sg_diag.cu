@@ -20,13 +20,21 @@
 //   and sg_control finishes them in a second pass, without atomics.
 //   The |u-u0|^2 / |v-v0|^2 partials ride the last stage's epilogue
 //   (sg_stage.cu), which already holds both states.
+// Lanes: dt_kernel runs one block per lane, the quadrature kernels take the
+//   lane as the grid's z axis (see sg_common.cuh).
 #include "sg_common.cuh"
 
 namespace sg {
 namespace {
 
 template <typename T>
-__global__ void dt_kernel(Ops<T> o, const T* u, const T* v, T* scal, int nf) {
+__global__ void dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal,
+                          int nf) {
+  const int lane = blockIdx.x;
+  const Ops<T> o = at_lane(o0, lane, nf);
+  u += lane * lane_full(nf);
+  v += lane * lane_full(nf);
+  scal += (size_t)lane * S_COUNT;
   __shared__ T sh[RED_THREADS];
   const int tid = threadIdx.x;
   const int n = nf * nf;
@@ -62,8 +70,14 @@ __global__ void dt_kernel(Ops<T> o, const T* u, const T* v, T* scal, int nf) {
 // omega = Dx v - u DyT (smooth part) into scratch, plus the energy and
 // enstrophy partials over the TOTAL fields.
 template <typename T>
-__global__ void omega_kernel(Ops<T> o, const T* u, const T* v, T* omega,
+__global__ void omega_kernel(Ops<T> o0, const T* u, const T* v, T* omega,
                              T* qpart, int nf) {
+  const int lane = blockIdx.z;
+  const Ops<T> o = at_lane(o0, lane, nf);
+  u += lane * lane_full(nf);
+  v += lane * lane_full(nf);
+  omega += lane * lane_full(nf);
+  qpart += lane * lane_blocks(nf) * NQPART;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int i = blockIdx.y * TILE + ty;
   const int j = blockIdx.x * TILE + tx;
@@ -110,7 +124,11 @@ __global__ void omega_kernel(Ops<T> o, const T* u, const T* v, T* omega,
 // grad(omega) = (Dx omega, omega DyT) of the smooth vorticity plus the
 // sampled singular gradients; palinstrophy partials.
 template <typename T>
-__global__ void grad_kernel(Ops<T> o, const T* omega, T* qpart, int nf) {
+__global__ void grad_kernel(Ops<T> o0, const T* omega, T* qpart, int nf) {
+  const int lane = blockIdx.z;
+  const Ops<T> o = at_lane(o0, lane, nf);
+  omega += lane * lane_full(nf);
+  qpart += lane * lane_blocks(nf) * NQPART;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int i = blockIdx.y * TILE + ty;
   const int j = blockIdx.x * TILE + tx;
@@ -148,15 +166,16 @@ __global__ void grad_kernel(Ops<T> o, const T* omega, T* qpart, int nf) {
 
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
-                      int nf, cudaStream_t s) {
-  dt_kernel<T><<<1, RED_THREADS, 0, s>>>(o, u, v, scal, nf);
+                      int nf, int lanes, cudaStream_t s) {
+  dt_kernel<T><<<lanes, RED_THREADS, 0, s>>>(o, u, v, scal, nf);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_quadratures(const Ops<T>& o, const T* u, const T* v,
-                               T* omega, T* qpart, int nf, cudaStream_t s) {
-  const dim3 grid(tiles(nf), tiles(nf)), block(TILE, TILE);
+                               T* omega, T* qpart, int nf, int lanes,
+                               cudaStream_t s) {
+  const dim3 grid(tiles(nf), tiles(nf), lanes), block(TILE, TILE);
   omega_kernel<T><<<grid, block, 0, s>>>(o, u, v, omega, qpart, nf);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -165,18 +184,19 @@ cudaError_t launch_quadratures(const Ops<T>& o, const T* u, const T* v,
 }
 
 template cudaError_t launch_dt<float>(const Ops<float>&, const float*,
-                                      const float*, float*, int,
+                                      const float*, float*, int, int,
                                       cudaStream_t);
 template cudaError_t launch_dt<double>(const Ops<double>&, const double*,
-                                       const double*, double*, int,
+                                       const double*, double*, int, int,
                                        cudaStream_t);
 template cudaError_t launch_quadratures<float>(const Ops<float>&,
                                                const float*, const float*,
-                                               float*, float*, int,
+                                               float*, float*, int, int,
                                                cudaStream_t);
 template cudaError_t launch_quadratures<double>(const Ops<double>&,
                                                 const double*,
                                                 const double*, double*,
-                                                double*, int, cudaStream_t);
+                                                double*, int, int,
+                                                cudaStream_t);
 
 }  // namespace sg

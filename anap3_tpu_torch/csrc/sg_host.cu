@@ -18,6 +18,14 @@
 // those: 9 launches per step plus 3, against 12 per step for n_steps calls
 // of sg_step_run. Bound: like the step, by the launches' latency at the
 // V-cycle's sizes (a step's products are ~0.2 GFLOP at N=192).
+//
+// sg_lanes_chunk_run is sg_chunk_run for B sweep lanes at once (the lanes'
+// state machines are independent, their flags carried in from the previous
+// chunk): it takes the place of the Pallas fori_loops of
+// anap3_tpu/ops/pallas_lanes.py make_lane_chunk_runner and
+// pallas_lanes_aligned.py make_aligned_lane_runner. Every launch covers all
+// lanes, so a B-lane step costs the launches of one step (10, 12 on a
+// sampled step), not B times as many; sg_chunk_run is its B = 1 case.
 #include "sg_common.cuh"
 
 namespace sg {
@@ -35,21 +43,21 @@ struct Work {
   T *u, *v, *p, *au, *av, *ap, *bu, *bv, *bp, *left, *omega, *part, *qpart,
       *scal;
   const T *tau_u, *tau_v, *tau_p;
-  int nb;
+  int lanes;
 };
 
 template <typename T>
-Work<T> make_work(const void* const* P, const double* h, int nf) {
+Work<T> make_work(const void* const* P, int lanes) {
   auto m = [&](int k) { return static_cast<T*>(const_cast<void*>(P[k])); };
   Work<T> w;
-  w.o = make_ops<T>(P, h);
+  w.o = make_ops<T>(P);
   w.u = m(P_U); w.v = m(P_V); w.p = m(P_P);
   w.au = m(P_AU); w.av = m(P_AV); w.ap = m(P_AP);
   w.bu = m(P_BU); w.bv = m(P_BV); w.bp = m(P_BP);
   w.left = m(P_LEFT); w.omega = m(P_OMEGA);
   w.part = m(P_PART); w.qpart = m(P_QPART); w.scal = m(P_SCAL);
   w.tau_u = m(P_TAUU); w.tau_v = m(P_TAUV); w.tau_p = m(P_TAUP);
-  w.nb = tiles(nf) * tiles(nf);
+  w.lanes = lanes;
   return w;
 }
 
@@ -60,7 +68,7 @@ const double kAlphas[4] = {0.25, 1.0 / 3.0, 0.5, 1.0};
 template <typename T>
 int rk4(const Work<T>& w, int nf, bool with_tau, int* counts,
         cudaStream_t s) {
-  SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, s));
+  SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, w.lanes, s));
   counts[C_DIAG] += 1;
   const T* in_u[4] = {w.u, w.au, w.bu, w.au};
   const T* in_v[4] = {w.v, w.av, w.bv, w.av};
@@ -80,31 +88,32 @@ int rk4(const Work<T>& w, int nf, bool with_tau, int* counts,
     a.scal = w.scal;
     a.alpha = T(kAlphas[st]);
     a.part = st == 3 ? w.part : nullptr;
-    SG_CHECK(launch_stage<T>(w.o, a, nf, s));
+    SG_CHECK(launch_stage<T>(w.o, a, nf, w.lanes, s));
     counts[C_STAGE] += 2;
   }
   return 0;
 }
 
 template <typename T>
-int step_run(const void* const* P, const double* h, int nf, int with_tau,
-             int* counts, cudaStream_t s) {
-  const Work<T> w = make_work<T>(P, h, nf);
+int step_run(const void* const* P, int nf, int with_tau, int* counts,
+             cudaStream_t s) {
+  const Work<T> w = make_work<T>(P, 1);
   int rc = rk4<T>(w, nf, with_tau != 0, counts, s);
   if (rc) return rc;
-  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, s));
-  counts[C_DIAG] += 2;
-  SG_CHECK(launch_step_finish<T>(w.part, w.qpart, w.nb,
-                                 static_cast<T*>(const_cast<void*>(P[P_METRICS])),
+  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, 1,
                                  s));
+  counts[C_DIAG] += 2;
+  SG_CHECK(launch_step_finish<T>(
+      w.part, w.qpart, static_cast<T*>(const_cast<void*>(P[P_METRICS])), nf,
+      1, s));
   counts[C_CONTROL] += 1;
   return 0;
 }
 
 template <typename T>
-int smooth_run(const void* const* P, const double* h, int nf, int n_steps,
-               int with_tau, int* counts, cudaStream_t s) {
-  const Work<T> w = make_work<T>(P, h, nf);
+int smooth_run(const void* const* P, int nf, int n_steps, int with_tau,
+               int* counts, cudaStream_t s) {
+  const Work<T> w = make_work<T>(P, 1);
   auto m = [&](int k) { return static_cast<T*>(const_cast<void*>(P[k])); };
   T* const outs[2][3] = {{w.bu, w.bv, w.bp}, {m(P_CU), m(P_CV), m(P_CP)}};
   Work<T> wi = w;  // step i: base = step i-1's output (the input for i = 0)
@@ -115,18 +124,19 @@ int smooth_run(const void* const* P, const double* h, int nf, int n_steps,
     if (rc) return rc;
     wi.u = wi.bu; wi.v = wi.bv; wi.p = wi.bp;
   }
-  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, s));
+  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, 1,
+                                 s));
   counts[C_DIAG] += 2;
-  SG_CHECK(launch_step_finish<T>(w.part, w.qpart, w.nb, m(P_METRICS), s));
+  SG_CHECK(launch_step_finish<T>(w.part, w.qpart, m(P_METRICS), nf, 1, s));
   counts[C_CONTROL] += 1;
   return 0;
 }
 
 template <typename T>
-int chunk_run(const void* const* P, const double* h, int nf, int chunk,
+int chunk_run(const void* const* P, int nf, int lanes, int chunk,
               int start_iter, int warmup, int metrics_every,
               int use_residual, double tol, int* counts, cudaStream_t s) {
-  const Work<T> w = make_work<T>(P, h, nf);
+  const Work<T> w = make_work<T>(P, lanes);
   T* rows = static_cast<T*>(const_cast<void*>(P[P_ROWS]));
   int* flags = static_cast<int*>(const_cast<void*>(P[P_FLAGS]));
   T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REFNORM]));
@@ -135,29 +145,29 @@ int chunk_run(const void* const* P, const double* h, int nf, int chunk,
     int rc = rk4<T>(w, nf, false, counts, s);
     if (rc) return rc;
     // the aligned kernel's cadence: the first step of every chunk and
-    // every metrics_every-th global iteration
+    // every metrics_every-th global iteration (one decision for all lanes)
     const int sampled = (i == 0) || (idx % metrics_every == 0);
     if (sampled) {
       SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf,
-                                     s));
+                                     lanes, s));
       counts[C_DIAG] += 2;
     }
-    SG_CHECK(launch_control<T>(w.part, w.qpart, w.nb, sampled, w.scal, rows,
-                               i, idx, warmup, T(tol), use_residual, flags,
+    SG_CHECK(launch_control<T>(w.part, w.qpart, sampled, w.scal, rows, i,
+                               idx, warmup, T(tol), use_residual, flags,
                                ref_norm, w.u, w.v, w.p, w.bu, w.bv, w.bp, nf,
-                               s));
+                               lanes, s));
     counts[C_CONTROL] += 1;
   }
   return 0;
 }
 
-// Timing aid: `reps` launches of one kernel group on a chunk workspace
-// (0: one last-stage sg_stage pair, 1: sg_diag dt + quadratures,
-// 2: sg_control on a sampled step). Not part of any solve.
+// Timing aid: `reps` launches of one kernel group on a chunk workspace of
+// `lanes` lanes (0: one last-stage sg_stage pair, 1: sg_diag dt +
+// quadratures, 2: sg_control on a sampled step). Not part of any solve.
 template <typename T>
-int bench_run(const void* const* P, const double* h, int nf, int which,
-              int reps, cudaStream_t s) {
-  const Work<T> w = make_work<T>(P, h, nf);
+int bench_run(const void* const* P, int nf, int lanes, int which, int reps,
+              cudaStream_t s) {
+  const Work<T> w = make_work<T>(P, lanes);
   T* rows = static_cast<T*>(const_cast<void*>(P[P_ROWS]));
   int* flags = static_cast<int*>(const_cast<void*>(P[P_FLAGS]));
   T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REFNORM]));
@@ -172,15 +182,15 @@ int bench_run(const void* const* P, const double* h, int nf, int which,
       a.scal = w.scal;
       a.alpha = T(1);
       a.part = w.part;
-      SG_CHECK(launch_stage<T>(w.o, a, nf, s));
+      SG_CHECK(launch_stage<T>(w.o, a, nf, lanes, s));
     } else if (which == 1) {
-      SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, s));
+      SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, lanes, s));
       SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf,
-                                     s));
+                                     lanes, s));
     } else {
-      SG_CHECK(launch_control<T>(w.part, w.qpart, w.nb, 1, w.scal, rows, 0,
-                                 0, 1 << 30, T(0), 0, flags, ref_norm, w.u,
-                                 w.v, w.p, w.bu, w.bv, w.bp, nf, s));
+      SG_CHECK(launch_control<T>(w.part, w.qpart, 1, w.scal, rows, 0, 0,
+                                 1 << 30, T(0), 0, flags, ref_norm, w.u, w.v,
+                                 w.p, w.bu, w.bv, w.bp, nf, lanes, s));
     }
   }
   return 0;
@@ -191,43 +201,49 @@ int bench_run(const void* const* P, const double* h, int nf, int which,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64.
-int sg_step_run(int dtype, int nf, const void* const* ptrs,
-                const double* scal, int with_tau, int* counts,
-                void* stream) {
+// dtype: 0 = float32, 1 = float64. The per-lane scalars are the table in
+// the pointer table's P_LSC slot.
+int sg_step_run(int dtype, int nf, const void* const* ptrs, int with_tau,
+                int* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? sg::step_run<double>(ptrs, scal, nf, with_tau, counts, s)
-               : sg::step_run<float>(ptrs, scal, nf, with_tau, counts, s);
+  return dtype ? sg::step_run<double>(ptrs, nf, with_tau, counts, s)
+               : sg::step_run<float>(ptrs, nf, with_tau, counts, s);
 }
 
-int sg_smooth_run(int dtype, int nf, const void* const* ptrs,
-                  const double* scal, int n_steps, int with_tau, int* counts,
-                  void* stream) {
+int sg_smooth_run(int dtype, int nf, const void* const* ptrs, int n_steps,
+                  int with_tau, int* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? sg::smooth_run<double>(ptrs, scal, nf, n_steps, with_tau,
-                                        counts, s)
-               : sg::smooth_run<float>(ptrs, scal, nf, n_steps, with_tau,
-                                       counts, s);
+  return dtype ? sg::smooth_run<double>(ptrs, nf, n_steps, with_tau, counts,
+                                        s)
+               : sg::smooth_run<float>(ptrs, nf, n_steps, with_tau, counts,
+                                       s);
 }
 
-int sg_chunk_run(int dtype, int nf, const void* const* ptrs,
-                 const double* scal, int chunk, int start_iter, int warmup,
-                 int metrics_every, int use_residual, double tol,
-                 int* counts, void* stream) {
+int sg_lanes_chunk_run(int dtype, int nf, int lanes, const void* const* ptrs,
+                       int chunk, int start_iter, int warmup,
+                       int metrics_every, int use_residual, double tol,
+                       int* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? sg::chunk_run<double>(ptrs, scal, nf, chunk, start_iter,
+  return dtype ? sg::chunk_run<double>(ptrs, nf, lanes, chunk, start_iter,
                                        warmup, metrics_every, use_residual,
                                        tol, counts, s)
-               : sg::chunk_run<float>(ptrs, scal, nf, chunk, start_iter,
+               : sg::chunk_run<float>(ptrs, nf, lanes, chunk, start_iter,
                                       warmup, metrics_every, use_residual,
                                       tol, counts, s);
 }
 
-int sg_bench_run(int dtype, int nf, const void* const* ptrs,
-                 const double* scal, int which, int reps, void* stream) {
+int sg_chunk_run(int dtype, int nf, const void* const* ptrs, int chunk,
+                 int start_iter, int warmup, int metrics_every,
+                 int use_residual, double tol, int* counts, void* stream) {
+  return sg_lanes_chunk_run(dtype, nf, 1, ptrs, chunk, start_iter, warmup,
+                            metrics_every, use_residual, tol, counts, stream);
+}
+
+int sg_bench_run(int dtype, int nf, int lanes, const void* const* ptrs,
+                 int which, int reps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? sg::bench_run<double>(ptrs, scal, nf, which, reps, s)
-               : sg::bench_run<float>(ptrs, scal, nf, which, reps, s);
+  return dtype ? sg::bench_run<double>(ptrs, nf, lanes, which, reps, s)
+               : sg::bench_run<float>(ptrs, nf, lanes, which, reps, s);
 }
 
 const char* sg_error_string(int code) {

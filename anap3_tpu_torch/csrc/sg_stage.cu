@@ -27,20 +27,26 @@
 //   R_u^2, R_v^2, R_p^2, |u-u0|^2 and |v-v0|^2; sg_control reduces them in
 //   a second pass without atomics, so a run is reproducible bit for bit.
 //   Ragged tile edges of both extents (nf and ni) are masked.
+// Lanes: the lane is the grid's z axis (stage_left: 6 products per lane),
+//   so one launch pair advances every lane of a sweep by one stage
+//   (anap3_tpu/ops/pallas_lanes.py make_lane_chunk_runner,
+//   pallas_lanes_aligned.py make_aligned_lane_runner); lane b's blocks run
+//   the one-lane code on lane b's buffers and scalars.
 #include "sg_common.cuh"
 
 namespace sg {
 namespace {
 
 template <typename T>
-__global__ void stage_left(Ops<T> o, StageArgs<T> a, int nf) {
+__global__ void stage_left(Ops<T> o, StageArgs<T> a0, int nf) {
   const int ni = nf - 2;
   const size_t nn = (size_t)nf * nf;
+  const StageArgs<T> a = at_lane(a0, blockIdx.z / 6, nf);
   const T* A;
   const T* B;
   T* C;
   int K;
-  switch (blockIdx.z) {
+  switch (blockIdx.z % 6) {
     case 0: A = o.Dx; B = a.u_in; C = a.left; K = nf; break;
     case 1: A = o.Dxx; B = a.u_in; C = a.left + nn; K = nf; break;
     case 2: A = o.Dx; B = a.v_in; C = a.left + 2 * nn; K = nf; break;
@@ -69,7 +75,9 @@ __global__ void stage_left(Ops<T> o, StageArgs<T> a, int nf) {
 }
 
 template <typename T>
-__global__ void stage_row(Ops<T> o, StageArgs<T> a, int nf) {
+__global__ void stage_row(Ops<T> o0, StageArgs<T> a0, int nf) {
+  const Ops<T> o = at_lane(o0, blockIdx.z, nf);
+  const StageArgs<T> a = at_lane(a0, blockIdx.z, nf);
   const int ni = nf - 2;
   const size_t nn = (size_t)nf * nf;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -171,20 +179,21 @@ __global__ void stage_row(Ops<T> o, StageArgs<T> a, int nf) {
 
 template <typename T>
 cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
-                         cudaStream_t s) {
+                         int lanes, cudaStream_t s) {
   const dim3 block(TILE, TILE);
-  stage_left<T><<<dim3(tiles(nf), tiles(nf), 6), block, 0, s>>>(o, a, nf);
+  stage_left<T><<<dim3(tiles(nf), tiles(nf), 6 * lanes), block, 0, s>>>(
+      o, a, nf);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  stage_row<T><<<dim3(tiles(nf), tiles(nf)), block, 0, s>>>(o, a, nf);
+  stage_row<T><<<dim3(tiles(nf), tiles(nf), lanes), block, 0, s>>>(o, a, nf);
   return cudaGetLastError();
 }
 
 template cudaError_t launch_stage<float>(const Ops<float>&,
-                                         const StageArgs<float>&, int,
+                                         const StageArgs<float>&, int, int,
                                          cudaStream_t);
 template cudaError_t launch_stage<double>(const Ops<double>&,
-                                          const StageArgs<double>&, int,
+                                          const StageArgs<double>&, int, int,
                                           cudaStream_t);
 
 }  // namespace sg

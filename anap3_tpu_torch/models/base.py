@@ -18,7 +18,8 @@ import numpy as np
 from ..analysis import validation as validation_mod
 from ..analysis.vortex import vortex_metrics_from_fields
 from ..utils import vts as vts_mod
-from .params import Fields, Metrics, TimeSeries, resolve_device, resolve_dtype
+from .params import (Fields, Metrics, TimeSeries, resolve_device, resolve_dtype,
+                     use_pallas_flag)
 from .runner import IterationResult
 
 log = logging.getLogger(__name__)
@@ -61,15 +62,7 @@ class CavitySolver:
 
     def _use_pallas_flag(self) -> Optional[bool]:
         """``params.use_pallas`` as True, False or None (auto)."""
-        flag = self.params.use_pallas
-        if isinstance(flag, bool):
-            return flag
-        s = str(flag).lower()
-        if s in ("true", "1", "yes"):
-            return True
-        if s in ("false", "0", "no"):
-            return False
-        return None
+        return use_pallas_flag(self.params.use_pallas)
 
     def _final_fields(self) -> Fields:
         raise NotImplementedError

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 __all__ = ["Parameters", "SpectralParameters", "FVParameters", "Metrics",
-           "TimeSeries", "Fields", "resolve_device", "resolve_dtype"]
+           "TimeSeries", "Fields", "resolve_device", "resolve_dtype",
+           "use_pallas_flag"]
 
 
 @dataclass
@@ -236,3 +237,15 @@ def resolve_dtype(dtype, device) -> str:
     if s != "auto":
         return str(dtype)
     return "float32" if torch.device(device).type == "cuda" else "float64"
+
+
+def use_pallas_flag(flag) -> Optional[bool]:
+    """The ``use_pallas`` knob as True, False or None (auto)."""
+    if isinstance(flag, bool):
+        return flag
+    s = str(flag).lower()
+    if s in ("true", "1", "yes"):
+        return True
+    if s in ("false", "0", "no"):
+        return False
+    return None

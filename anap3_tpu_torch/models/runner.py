@@ -23,7 +23,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,8 +31,8 @@ import torch
 log = logging.getLogger(__name__)
 
 __all__ = ["IterationResult", "run_fixed_point", "make_chunk_runner",
-           "control_step", "freeze", "rel_change", "METRIC_KEYS",
-           "WARMUP_ITERS", "ENERGY_PLATEAU_CHUNKS"]
+           "control_step", "freeze", "rel_change", "LaneCarry", "fresh_carry",
+           "METRIC_KEYS", "WARMUP_ITERS", "ENERGY_PLATEAU_CHUNKS"]
 
 WARMUP_ITERS = 10  # convergence gate + history start (reference base.py)
 # consecutive plateaued chunks required by convergence_metric="energy"
@@ -59,6 +59,26 @@ class IterationResult:
     # the criterion plateaued above tolerance and stall detection stopped
     stalled: bool = False
     history_iters: Optional[np.ndarray] = None
+    # FSG sweeps: the lane's per-level records (order, iterations, converged)
+    levels: Optional[list] = None
+
+
+class LaneCarry(NamedTuple):
+    """The per-lane state machine that one chunk of a batched sweep hands
+    to the next: ``flags`` (B, 3) int32 rows (done, conv_iter, converged)
+    and the residual criterion's normalization ``ref_norm`` (B,). A lane
+    done in one chunk stays done, frozen, in the next."""
+
+    flags: torch.Tensor
+    ref_norm: torch.Tensor
+
+
+def fresh_carry(lanes: int, dtype, device) -> LaneCarry:
+    """The carry of a sweep's first chunk: no lane done, no normalization."""
+    flags = torch.tensor([[0, -1, 0]] * int(lanes), dtype=torch.int32,
+                         device=device)
+    return LaneCarry(flags, torch.full((int(lanes),), float("inf"),
+                                       dtype=dtype, device=device))
 
 
 def rel_change(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:

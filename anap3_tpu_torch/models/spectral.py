@@ -37,7 +37,8 @@ log = logging.getLogger(__name__)
 
 __all__ = ["SGSolver", "FSGSolver", "make_fused_paths", "effective_chunk",
            "scaled_plateau_chunks", "resolve_convergence_metric",
-           "default_coarsest_n", "MAX_FUSED_N"]
+           "default_coarsest_n", "fsg_level_orders", "prolongate",
+           "MAX_FUSED_N", "FSG_COARSEST_N"]
 
 # "auto" resolves to the energy-plateau criterion from this order upward
 # (rel-iter false-converges there; anap3_tpu/models/spectral.py)
@@ -49,6 +50,8 @@ PE_COARSEST_MAX = 110.0
 # contract of the x6 whole-step and chunk kernels (anap3_tpu/ops/
 # pallas_step.py, pallas_chunk.py: MAX_FUSED_N): quadratures every step
 MAX_FUSED_N = 192
+# the reference's coarsest FSG order
+FSG_COARSEST_N = 12
 
 
 def resolve_convergence_metric(params, n: Optional[int] = None,
@@ -83,6 +86,48 @@ def default_coarsest_n(Re: float) -> int:
     """Coarsest order whose cell Peclet number stays within
     PE_COARSEST_MAX."""
     return max(12, int(np.ceil(float(Re) * np.pi / (2.0 * PE_COARSEST_MAX))))
+
+
+def fsg_level_orders(params) -> list:
+    """The FSG ladder, coarsest first: ``params.n_levels`` halvings of the
+    fine order, stopped above the coarsest-level floor. The floor is the
+    reference's order 12, raised by the cell-Peclet bound at high Re and,
+    in singular mode, by the sharp-lid cold-start floor (the coarsest level
+    starts from rest)."""
+    floor = max(FSG_COARSEST_N, default_coarsest_n(float(params.Re)))
+    if str(params.corner_treatment).lower() == "singular":
+        floor = max(floor, singular_min_n(params.Re))
+    orders = []
+    n = int(params.nx)
+    for _ in range(int(params.n_levels)):
+        orders.append(n)
+        if n // 2 < floor:
+            break
+        n = n // 2
+    return orders[::-1]
+
+
+def prolongate(params, state, n_coarse: int, n_fine: int, ops_fine):
+    """Coarse -> fine transfer of one state with BC re-enforcement: the
+    configured (DCT/polynomial) operator on the full grids, exact nodal
+    interpolation on the inner pressure grid, as 2-D products in the
+    working dtype. The FSG solver and the batched FSG sweep (lane by lane)
+    share it, so a sweep lane repeats its single solve bit for bit."""
+    bx = basis_ops.make_basis(params.basis_type, (0.0, params.Lx))
+    P_full, _ = make_level_transfer_matrices(
+        bx.nodes(n_coarse + 1), bx.nodes(n_fine + 1),
+        params.prolongation_method, params.restriction_method,
+        chebyshev=str(params.basis_type).lower().startswith("cheb"))
+    P_inner = nodal_interpolation_matrix(
+        bx.nodes(n_coarse + 1)[1:-1], bx.nodes(n_fine + 1)[1:-1])
+    as_t = lambda a: torch.as_tensor(a, dtype=ops_fine.dtype,
+                                     device=ops_fine.device)
+    Pf, Pi = as_t(P_full), as_t(P_inner)
+    u = Pf @ state.u @ Pf.T
+    v = Pf @ state.v @ Pf.T
+    p = Pi @ state.p @ Pi.T
+    u, v = core.enforce_bc(ops_fine, u, v)
+    return core.SpectralState(u, v, p)
 
 
 def _matmul_policy(params) -> None:
@@ -295,27 +340,8 @@ class SGSolver(CavitySolver):
 class FSGSolver(SGSolver):
     """Full-single-grid nested-iteration multigrid spectral solver."""
 
-    COARSEST_N = 12
-
-    def _coarsest_floor(self) -> int:
-        """The reference's coarsest order 12, raised by the cell-Peclet
-        bound at high Re and, in singular mode, by the sharp-lid cold-start
-        floor (the coarsest level starts from rest)."""
-        floor = max(self.COARSEST_N, default_coarsest_n(float(self.params.Re)))
-        if self._is_singular():
-            floor = max(floor, singular_min_n(self.params.Re))
-        return floor
-
     def _level_orders(self) -> list:
-        orders = []
-        n = int(self.params.nx)
-        floor = self._coarsest_floor()
-        for _ in range(int(self.params.n_levels)):
-            orders.append(n)
-            if n // 2 < floor:
-                break
-            n = n // 2
-        return orders[::-1]  # coarsest first
+        return fsg_level_orders(self.params)
 
     def solve(self, tolerance: float = None, max_iter: int = None) -> None:
         tol = self.params.tolerance if tolerance is None else tolerance
@@ -412,21 +438,4 @@ class FSGSolver(SGSolver):
                  wall, total_iters, converged)
 
     def _prolongate(self, state, n_coarse, n_fine, ops_fine):
-        """Coarse -> fine transfer with BC re-enforcement: the configured
-        (DCT/polynomial) operator on the full grids, exact nodal
-        interpolation on the inner pressure grid."""
-        bx = basis_ops.make_basis(self.params.basis_type, (0.0, self.params.Lx))
-        P_full, _ = make_level_transfer_matrices(
-            bx.nodes(n_coarse + 1), bx.nodes(n_fine + 1),
-            self.params.prolongation_method, self.params.restriction_method,
-            chebyshev=str(self.params.basis_type).lower().startswith("cheb"))
-        P_inner = nodal_interpolation_matrix(
-            bx.nodes(n_coarse + 1)[1:-1], bx.nodes(n_fine + 1)[1:-1])
-        as_t = lambda a: torch.as_tensor(a, dtype=ops_fine.dtype,
-                                         device=ops_fine.device)
-        Pf, Pi = as_t(P_full), as_t(P_inner)
-        u = Pf @ state.u @ Pf.T
-        v = Pf @ state.v @ Pf.T
-        p = Pi @ state.p @ Pi.T
-        u, v = core.enforce_bc(ops_fine, u, v)
-        return core.SpectralState(u, v, p)
+        return prolongate(self.params, state, n_coarse, n_fine, ops_fine)

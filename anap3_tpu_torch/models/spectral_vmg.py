@@ -142,7 +142,8 @@ def check_fp32_matmul(device: torch.device) -> None:
             f"{exc}") from exc
     if torch.backends.cuda.matmul.allow_tf32 or precision != "highest":
         raise RuntimeError(
-            "VMG/FMG on CUDA needs full-float32 matmuls: set "
+            "VMG/FMG and the FSG sweep's prolongations on CUDA need "
+            "full-float32 matmuls: set "
             "torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest') (found "
             f"allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "

@@ -85,15 +85,16 @@ def _build(out: Path, srcs, info: dict) -> None:
 def _bind_sg(lib: ctypes.CDLL) -> None:
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     pp = ctypes.POINTER(ctypes.c_void_p)
-    dp = ctypes.POINTER(ctypes.c_double)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.sg_step_run.argtypes = [i, i, pp, dp, i, ip, vp]
+    lib.sg_step_run.argtypes = [i, i, pp, i, ip, vp]
     lib.sg_step_run.restype = i
-    lib.sg_chunk_run.argtypes = [i, i, pp, dp, i, i, i, i, i, d, ip, vp]
+    lib.sg_chunk_run.argtypes = [i, i, pp, i, i, i, i, i, d, ip, vp]
     lib.sg_chunk_run.restype = i
-    lib.sg_smooth_run.argtypes = [i, i, pp, dp, i, i, ip, vp]
+    lib.sg_lanes_chunk_run.argtypes = [i, i, i, pp, i, i, i, i, i, d, ip, vp]
+    lib.sg_lanes_chunk_run.restype = i
+    lib.sg_smooth_run.argtypes = [i, i, pp, i, i, ip, vp]
     lib.sg_smooth_run.restype = i
-    lib.sg_bench_run.argtypes = [i, i, pp, dp, i, i, vp]
+    lib.sg_bench_run.argtypes = [i, i, i, pp, i, i, vp]
     lib.sg_bench_run.restype = i
     lib.sg_error_string.argtypes = [i]
     lib.sg_error_string.restype = ctypes.c_char_p
@@ -102,14 +103,16 @@ def _bind_sg(lib: ctypes.CDLL) -> None:
 def _bind_fv(lib: ctypes.CDLL) -> None:
     vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     pp = ctypes.POINTER(ctypes.c_void_p)
-    dp = ctypes.POINTER(ctypes.c_double)
     ip = ctypes.POINTER(ctypes.c_int)
-    common = [i, i, i, pp, dp, i, i, i]  # dtype ny nx ptrs scal K n_ref upw
+    common = [i, i, i, pp, i, i, i]  # dtype ny nx ptrs K n_refine upwind
+    lanes = [i, i, i, i, pp, i, i, i]  # dtype ny nx lanes ptrs K n_ref upw
     lib.fv_step_run.argtypes = common + [ip, vp]
     lib.fv_step_run.restype = i
     lib.fv_chunk_run.argtypes = common + [i, i, i, d, ip, vp]
     lib.fv_chunk_run.restype = i
-    lib.fv_bench_run.argtypes = common + [i, i, vp]
+    lib.fv_lanes_chunk_run.argtypes = lanes + [i, i, i, i, d, ip, vp]
+    lib.fv_lanes_chunk_run.restype = i
+    lib.fv_bench_run.argtypes = lanes + [i, i, vp]
     lib.fv_bench_run.restype = i
     lib.fv_error_string.argtypes = [i]
     lib.fv_error_string.restype = ctypes.c_char_p

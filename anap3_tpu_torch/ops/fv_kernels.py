@@ -29,6 +29,11 @@ Dispatch is by the state's device and nothing else: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernels or raises (a failed build
 or launch is an error, never a fall-back).
 
+The kernels take B lanes per launch (``ops/fv_lane_kernels.py`` runs sweep
+lanes through them); the wrappers here are the B = 1 case. The scalars (mu,
+dx, dy, alpha_uv, alpha_p, rho, lid) reach the kernels as a device table in
+the working dtype (``scalar_table``).
+
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
 by kernel; ``PLAIN_CALLS`` counts calls of the plain versions ("fv_step",
 "fv_chunk") and of the unfused ``models/fv.fv_step`` on a CUDA solve
@@ -43,13 +48,14 @@ import numpy as np
 import torch
 
 from ..models.fv import FVOps, FVState, _fd_gradient, fd_vorticity, fv_step
-from ..models.runner import WARMUP_ITERS
+from ..models.runner import WARMUP_ITERS, control_step
 from . import fv_stencils as st
 from .fv_stencils import shift_e, shift_n, shift_s, shift_w
 
 __all__ = ["make_fv_step", "make_fv_chunk_runner", "fv_iterate_plain",
-           "step_plain", "chunk_plain", "validate", "statics",
-           "chunk_workspace", "unfused_step", "bench_workspace",
+           "step_plain", "chunk_plain", "chunk_body", "validate", "statics",
+           "scalar_table", "workspace", "chunk_workspace", "unfused_step",
+           "bench_workspace",
            "bench_kernel", "pad_state", "unpad_state", "LAUNCHES",
            "PLAIN_CALLS", "KERNELS", "reset_counts", "METRIC_NAMES"]
 
@@ -70,7 +76,8 @@ _PTR_NAMES = (
     "x", "r", "rh", "pv0", "pv1", "vv0", "vv1", "s", "t",
     "mxs", "mys", "rhsp", "res", "g1", "g2", "g3", "pp",
     "part_rhs", "part_r", "part_v", "part_t", "part_m", "part_m2",
-    "part_c", "part_q", "slots", "metrics", "rows", "flags")
+    "part_c", "part_q", "slots", "metrics", "rows", "flags", "ref_norm",
+    "lsc")
 _PARTS = {"part_rhs": 2, "part_r": 4, "part_v": 2, "part_t": 4,
           "part_m": 1, "part_m2": 1, "part_c": 7, "part_q": 3}
 _NSLOT = 4  # rho, alpha, omega, active per BiCGSTAB iteration
@@ -140,7 +147,18 @@ def statics(params, ops: FVOps) -> dict:
                          float(ops.rho), lid)
     S["upwind"] = str(ops.scheme).lower() == "upwind"
     S["n_refine"] = int(ops.n_refine)
+    S["lsc"] = scalar_table([S])
     return S
+
+
+def scalar_table(S_list) -> torch.Tensor:
+    """The (lanes, 8) table of per-lane scalars in csrc/fv_common.cuh:Scal
+    order (mu, dx, dy, alpha_uv, alpha_p, rho, lid, 0), in the working dtype
+    on the statics' device: each value is the host double cast to the
+    working type."""
+    like = S_list[0]["mu"]
+    return torch.tensor([list(S["host_scalars"]) + [0.0] for S in S_list],
+                        dtype=like.dtype, device=like.device)
 
 
 # ------------------------------------------------------------ plain version
@@ -339,11 +357,28 @@ def chunk_plain(S, state: FVState, start_iter, ref_norm, chunk: int,
                 tolerance: float, warmup: int, K: int):
     """The chunk kernel's plain version (pallas_fv.py:471-541)."""
     PLAIN_CALLS["fv_chunk"] += 1
+    return chunk_body(S, state, start_iter, ref_norm, chunk, tolerance,
+                      warmup, K)
+
+
+def chunk_body(S, state: FVState, start_iter, ref_norm, chunk: int,
+               tolerance: float, warmup: int, K: int,
+               use_residual: bool = False, carry=None):
+    """``chunk_plain`` without its count, starting from the flags ``carry``
+    = (done, conv_iter, converged) of a previous chunk (fresh when None): a
+    lane of ``ops/fv_lane_kernels.lanes_plain``. The rel_iter criterion, or
+    with ``use_residual`` the residual criterion (``runner.control_step``)
+    normalized by ``ref_norm``. Returns (state, done, conv_iter, converged,
+    rows, ref_norm)."""
     cur = pad_state(state)
     dev, dt = state.u.device, state.u.dtype
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    conv_iter = torch.full((), -1, dtype=torch.int32, device=dev)
-    nan = torch.full((), float("nan"), dtype=dt, device=dev)
+    if carry is None:
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        conv_iter = torch.full((), -1, dtype=torch.int32, device=dev)
+        converged = torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        done, conv_iter, converged = carry
+    ref_norm = torch.as_tensor(ref_norm, dtype=dt, device=dev)
     nrm = lambda a: torch.sqrt(torch.sum(a * a))
     rows = []
     for i in range(int(chunk)):
@@ -351,20 +386,14 @@ def chunk_plain(S, state: FVState, start_iter, ref_norm, chunk: int,
         new, m = _iterate_padded(S, K, *cur)
         rel = torch.maximum(nrm(new[0] - cur[0]) / (nrm(cur[0]) + 1e-12),
                             nrm(new[1] - cur[1]) / (nrm(cur[1]) + 1e-12))
-        rows.append(torch.where(done, nan, torch.cat([rel.reshape(1), m])))
-        finite = torch.isfinite(rel)
-        newly_conv = (idx >= warmup) & (rel < tolerance) & finite
-        now_done = done | newly_conv | (~finite & ~done)
-        conv_iter = torch.where(~done & now_done,
-                                torch.full_like(conv_iter, idx + 1),
-                                conv_iter)
+        row, now_done, conv_iter, converged, ref_norm = control_step(
+            torch.cat([rel.reshape(1), m]), idx, done, conv_iter, converged,
+            ref_norm, tolerance, warmup, use_residual)
+        rows.append(row)
         cur = tuple(torch.where(done, a, b) for a, b in zip(cur, new))
         done = now_done
-    rows = torch.stack(rows)
-    at = torch.clamp_min(conv_iter - 1 - int(start_iter), 0).long()
-    converged = done & torch.isfinite(rows[at, 0])
-    ref = torch.as_tensor(ref_norm, dtype=dt, device=dev)
-    return unpad_state(*cur), done, conv_iter, converged, rows, ref
+    return (unpad_state(*cur), done, conv_iter, converged, torch.stack(rows),
+            ref_norm)
 
 
 # ------------------------------------------------------------ CUDA path
@@ -407,40 +436,52 @@ def _tiles(n: int) -> int:
     return (n + _TILE - 1) // _TILE
 
 
-def chunk_workspace(S, ops: FVOps, state: FVState, K: int, chunk: int = 0
-                    ) -> dict:
-    """Every buffer of one kernel call: the state cloned in (the kernels
-    update it in place), scratch, partial sums, the BiCGSTAB scalar slots,
-    and the outputs (rows and flags for a chunk, metrics for a step)."""
+def workspace(S, ops: FVOps, state: FVState, K: int, chunk: int, lsc,
+              flags, lanes=None, ref_norm=None, **statics) -> dict:
+    """Every buffer of one kernel call for ``lanes`` lanes (None: one, with
+    no lane axis): the state cloned in (the kernels update it in place),
+    scratch, partial sums, the BiCGSTAB scalar slots, the scalar table
+    ``lsc``, the flags and the residual normalizations ``ref_norm`` (cloned
+    in; inf when None) and the outputs (rows for a chunk, metrics for a
+    step). The shared operators come from ``S``; the per-lane statics aP_bc
+    and b_bc_u from ``statics`` (default ``S``'s)."""
     ny, nx = ops.ny, ops.nx
+    lead = () if lanes is None else (int(lanes),)
     kw = dict(dtype=ops.dtype, device=ops.device)
     nb = _tiles(ny) * _tiles(nx)
     ws = {k: S[k] for k in ("V1", "V2", "inv_lam", "A1", "A2", "aP_bc",
                             "b_bc_u")}
+    ws.update(statics)
     ws.update(zip(FVState._fields, (t.clone() for t in state)))
     for k in ("gpx", "gpy", "aPr", "aE", "aW", "aN", "aS", "Du", "mxs",
               "mys", "rhsp", "res", "g1", "g2", "g3", "pp"):
-        ws[k] = torch.empty((ny, nx), **kw)
+        ws[k] = torch.empty(lead + (ny, nx), **kw)
     for k in ("x", "r", "rh", "pv0", "pv1", "vv0", "vv1", "s", "t"):
-        ws[k] = torch.empty((2, ny, nx), **kw)
+        ws[k] = torch.empty(lead + (2, ny, nx), **kw)
     for k, ncol in _PARTS.items():
-        ws[k] = torch.empty((nb, ncol), **kw)
-    ws["slots"] = torch.empty((int(K) + 1) * _NSLOT, **kw)
-    ws["metrics"] = torch.empty(6, **kw)
-    ws["rows"] = torch.empty((max(int(chunk), 1), N_COLS), **kw)
-    ws["flags"] = torch.tensor([0, -1, 0], dtype=torch.int32,
-                               device=ops.device)
+        ws[k] = torch.empty(lead + (nb, ncol), **kw)
+    ws["slots"] = torch.empty(lead + ((int(K) + 1) * _NSLOT,), **kw)
+    ws["metrics"] = torch.empty(lead + (6,), **kw)
+    ws["rows"] = torch.empty((max(int(chunk), 1),) + lead + (N_COLS,), **kw)
+    ws["flags"] = flags.clone()
+    ws["ref_norm"] = (torch.full((int(lanes or 1),), float("inf"), **kw)
+                      if ref_norm is None else ref_norm.clone())
+    ws["lsc"] = lsc
     return ws
+
+
+def chunk_workspace(S, ops: FVOps, state: FVState, K: int, chunk: int = 0,
+                    lsc=None) -> dict:
+    """The one-lane ``workspace`` from fresh flags; ``lsc`` is the scalar
+    table (``S["lsc"]`` when not given)."""
+    flags = torch.tensor([0, -1, 0], dtype=torch.int32, device=ops.device)
+    return workspace(S, ops, state, K, chunk,
+                     S["lsc"] if lsc is None else lsc, flags)
 
 
 def _ptr_table(ws: dict):
     ptrs = [ws[n].data_ptr() for n in _PTR_NAMES]
     return (ctypes.c_void_p * len(ptrs))(*ptrs)
-
-
-def _scalars(S):
-    vals = S["host_scalars"]
-    return (ctypes.c_double * len(vals))(*vals)
 
 
 def _stream() -> ctypes.c_void_p:
@@ -465,8 +506,8 @@ def _lib():
 
 
 def _common_args(S, ops, ws, K):
-    return (_dtype_code(ops.dtype), ops.ny, ops.nx, _ptr_table(ws),
-            _scalars(S), int(K), S["n_refine"], int(S["upwind"]))
+    return (_dtype_code(ops.dtype), ops.ny, ops.nx, _ptr_table(ws), int(K),
+            S["n_refine"], int(S["upwind"]))
 
 
 def _run_step(S, ops, state, K):
@@ -544,13 +585,15 @@ def bench_workspace(S, ops: FVOps, state: FVState, K: int) -> dict:
 
 
 def bench_kernel(S, ops: FVOps, ws: dict, which: str, K: int,
-                 reps: int) -> None:
+                 reps: int, lanes: int = 1) -> None:
     """Enqueue ``reps`` times the launches one kernel makes in one SIMPLE
-    iteration, on a workspace of ``bench_workspace``, for timing only (not
-    counted in LAUNCHES):
+    iteration, on a workspace of ``bench_workspace`` (or of ``workspace``
+    for ``lanes`` lanes), for timing only (not counted in LAUNCHES):
     fv_stencil its 4-5 phases, fv_bicgstab its 3K phases, fv_dense the
     4(1 + n_refine) products, fv_control one control launch."""
     lib = _lib()
-    rc = lib.fv_bench_run(*_common_args(S, ops, ws, K),
-                          KERNELS.index(which), int(reps), _stream())
+    rc = lib.fv_bench_run(_dtype_code(ops.dtype), ops.ny, ops.nx, int(lanes),
+                          _ptr_table(ws), int(K), S["n_refine"],
+                          int(S["upwind"]), KERNELS.index(which), int(reps),
+                          _stream())
     _raise_on(lib, rc, f"fv_bench_run({which})")

@@ -26,6 +26,12 @@ Dispatch is by the state's device and nothing else: a CPU tensor takes the
 plain version; a CUDA tensor launches the kernels or raises (a failed build
 or launch is an error, never a fall-back).
 
+The kernels take B lanes per launch (``ops/sg_lane_kernels.py`` runs sweep
+lanes through them); the wrappers here are the B = 1 case. The scalars of
+the operators (nu, beta^2, CFL, lid, 1/dx, 1/dy) reach the kernels as a
+device table in the working dtype (``scalar_table``), built once per
+wrapper.
+
 Cadence of the chunk rows: the quadratures (energy, enstrophy,
 palinstrophy) are computed on the first step of a chunk and on every step
 whose global index is a multiple of ``metrics_every`` (the aligned kernel's
@@ -51,9 +57,8 @@ from ..models.spectral_sg import SpectralOps, SpectralState
 
 __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "step_plain", "chunk_plain", "smooth_plain", "LAUNCHES",
-           "PLAIN_CALLS",
-           "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS", "bench_kernel",
-           "chunk_workspace"]
+           "PLAIN_CALLS", "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS",
+           "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
@@ -69,7 +74,7 @@ _PTR_NAMES = (
     "sing_dvdy", "sing_w", "sing_dwx", "sing_dwy",
     "u", "v", "p", "au", "av", "ap", "bu", "bv", "bp",
     "left", "omega", "part", "qpart", "scal", "tau_u", "tau_v", "tau_p",
-    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp")
+    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc")
 _OP_NAMES = _PTR_NAMES[:20]
 _STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
               "palinstrophy")
@@ -84,10 +89,14 @@ def reset_counts() -> None:
         PLAIN_CALLS[k] = 0
 
 
-def _scalars(ops: SpectralOps):
-    vals = (ops.nu, ops.beta_sq, ops.CFL, ops.lid_velocity, ops.inv_dx_min,
-            ops.inv_dy_min)
-    return (ctypes.c_double * len(vals))(*vals)
+def scalar_table(ops_list) -> torch.Tensor:
+    """The (lanes, 6) table of per-lane scalars in csrc/sg_common.cuh:Scal
+    order, in the working dtype on the operators' device: each value is the
+    host double cast to the working type."""
+    o0 = ops_list[0]
+    return torch.tensor([[o.nu, o.beta_sq, o.CFL, o.lid_velocity,
+                          o.inv_dx_min, o.inv_dy_min] for o in ops_list],
+                        dtype=o0.dtype, device=o0.device)
 
 
 def _dtype_code(dtype: torch.dtype) -> int:
@@ -131,20 +140,23 @@ def _check_state(ops: SpectralOps, state: SpectralState):
         _check(f"state.{name}", t, shape, ops.dtype, ops.device)
 
 
-def _workspace(ops: SpectralOps, **bufs) -> dict:
+def _workspace(ops: SpectralOps, lanes: int = 1, **bufs) -> dict:
+    """The pointer table's operators and per-step scratch for ``lanes``
+    lanes (lane-major), updated with ``bufs``."""
     nf, ni = ops.nf, ops.nf - 2
     tiles = (nf + _TILE - 1) // _TILE
     nb = tiles * tiles
     kw = dict(dtype=ops.dtype, device=ops.device)
     ws = {name: getattr(ops, name) for name in _OP_NAMES}
     ws.update(
-        au=torch.empty((nf, nf), **kw), av=torch.empty((nf, nf), **kw),
-        ap=torch.empty((ni, ni), **kw),
-        left=torch.empty(4 * nf * nf + 2 * nf * ni, **kw),
-        omega=torch.empty((nf, nf), **kw),
-        part=torch.empty((nb, _NPART), **kw),
-        qpart=torch.empty((nb, _NQPART), **kw),
-        scal=torch.zeros(_NSCAL, **kw))
+        au=torch.empty((lanes, nf, nf), **kw),
+        av=torch.empty((lanes, nf, nf), **kw),
+        ap=torch.empty((lanes, ni, ni), **kw),
+        left=torch.empty((lanes, 4 * nf * nf + 2 * nf * ni), **kw),
+        omega=torch.empty((lanes, nf, nf), **kw),
+        part=torch.empty((lanes, nb, _NPART), **kw),
+        qpart=torch.empty((lanes, nb, _NQPART), **kw),
+        scal=torch.zeros((lanes, _NSCAL), **kw))
     ws.update(bufs)
     return ws
 
@@ -199,7 +211,7 @@ def _taus(ops, tau) -> dict:
     return dict(zip(("tau_u", "tau_v", "tau_p"), tau))
 
 
-def _step_kernel(ops, state, tau=None):
+def _step_kernel(ops, state, tau, lsc):
     from ._build import load_library
 
     lib = load_library("sg")
@@ -209,11 +221,10 @@ def _step_kernel(ops, state, tau=None):
                         torch.empty_like(state.p))
     metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
     ws = _workspace(ops, u=state.u, v=state.v, p=state.p, bu=out.u,
-                    bv=out.v, bp=out.p, metrics=metrics, **taus)
+                    bv=out.v, bp=out.p, metrics=metrics, lsc=lsc, **taus)
     counts = (ctypes.c_int * 3)()
     rc = lib.sg_step_run(_dtype_code(ops.dtype), nf, _ptr_table(ws),
-                         _scalars(ops), int(tau is not None), counts,
-                         _stream())
+                         int(tau is not None), counts, _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_step_run")
     return out, dict(zip(_STEP_KEYS, metrics.unbind()))
@@ -224,10 +235,11 @@ def make_sg_step(ops: SpectralOps, with_tau: bool = False):
     metrics)``, or ``step(state, (tau_u, tau_v, tau_p))`` with the FAS
     forcing added to every stage residual when ``with_tau``."""
     _check_ops(ops)
+    lsc = scalar_table([ops])
 
     def run(state, tau):
         if _on_cuda(ops, state):
-            return _step_kernel(ops, state, tau)
+            return _step_kernel(ops, state, tau, lsc)
         return step_plain(ops, state, tau)
 
     return run if with_tau else (lambda state: run(state, None))
@@ -265,7 +277,7 @@ def make_sg_smoother(ops: SpectralOps):
 
         lib = load_library("sg")
         if not scratch:
-            scratch.update(_workspace(ops))
+            scratch.update(_workspace(ops, lsc=scalar_table([ops])))
             for name, like in (("cu", state.u), ("cv", state.v),
                                ("cp", state.p)):
                 scratch[name] = torch.empty_like(like)
@@ -277,8 +289,8 @@ def make_sg_smoother(ops: SpectralOps):
                   bv=out.v, bp=out.p, metrics=metrics, **taus)
         counts = (ctypes.c_int * 3)()
         rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf,
-                               _ptr_table(ws), _scalars(ops), int(n_steps),
-                               int(bool(taus)), counts, _stream())
+                               _ptr_table(ws), int(n_steps), int(bool(taus)),
+                               counts, _stream())
         _count(counts)
         _raise_on(lib, rc, "sg_smooth_run")
         return out, dict(zip(_STEP_KEYS, metrics.unbind()))
@@ -302,10 +314,22 @@ def chunk_plain(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
                  use_residual, metrics_every):
     """The chunk kernel's arithmetic in plain torch, at its cadence."""
     PLAIN_CALLS["sg_chunk"] += 1
+    return chunk_body(ops, state, start_iter, ref_norm, chunk, tolerance,
+                      warmup, use_residual, metrics_every)
+
+
+def chunk_body(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
+               use_residual, metrics_every, carry=None):
+    """``chunk_plain`` without its count, starting from the flags ``carry``
+    = (done, conv_iter, converged) of a previous chunk (fresh when None):
+    a lane of ``ops/sg_lane_kernels.lanes_plain``."""
     dev, dtype = ops.device, ops.dtype
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    converged = torch.zeros((), dtype=torch.bool, device=dev)
-    conv_iter = torch.full((), -1, dtype=torch.int32, device=dev)
+    if carry is None:
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        converged = torch.zeros((), dtype=torch.bool, device=dev)
+        conv_iter = torch.full((), -1, dtype=torch.int32, device=dev)
+    else:
+        done, conv_iter, converged = carry
     ref_norm = torch.as_tensor(ref_norm, dtype=dtype, device=dev)
     held = None
     rows = []
@@ -329,9 +353,10 @@ def chunk_plain(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
 
 
 def chunk_workspace(ops: SpectralOps, state: SpectralState, chunk: int,
-                    ref_norm) -> dict:
+                    ref_norm, lsc=None) -> dict:
     """Fresh output tensors (the chunk's state starts as a copy of
-    ``state``) plus scratch, for one kernel chunk."""
+    ``state``) plus scratch, for one kernel chunk; ``lsc`` is the scalar
+    table (built here when not given)."""
     kw = dict(dtype=ops.dtype, device=ops.device)
     flags = torch.tensor([0, -1, 0], dtype=torch.int32, device=ops.device)
     return _workspace(
@@ -339,19 +364,20 @@ def chunk_workspace(ops: SpectralOps, state: SpectralState, chunk: int,
         bu=torch.empty_like(state.u), bv=torch.empty_like(state.v),
         bp=torch.empty_like(state.p), rows=torch.empty((chunk, 7), **kw),
         flags=flags,
-        ref_norm=torch.as_tensor(ref_norm, **kw).reshape(1).clone())
+        ref_norm=torch.as_tensor(ref_norm, **kw).reshape(1).clone(),
+        lsc=scalar_table([ops]) if lsc is None else lsc)
 
 
 def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
-                  use_residual, metrics_every):
+                  use_residual, metrics_every, lsc):
     from ._build import load_library
 
     lib = load_library("sg")
-    ws = chunk_workspace(ops, state, chunk, ref_norm)
+    ws = chunk_workspace(ops, state, chunk, ref_norm, lsc)
     counts = (ctypes.c_int * 3)()
     rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _ptr_table(ws),
-                          _scalars(ops), int(chunk), int(start_iter),
-                          int(warmup), int(metrics_every), int(use_residual),
+                          int(chunk), int(start_iter), int(warmup),
+                          int(metrics_every), int(use_residual),
                           float(tolerance), counts, _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_chunk_run")
@@ -375,24 +401,27 @@ def make_sg_chunk_runner(ops: SpectralOps, chunk: int, tolerance: float,
                 warmup=int(warmup),
                 use_residual=convergence_metric == "residual",
                 metrics_every=max(1, int(metrics_every)))
+    lsc = scalar_table([ops])
 
     def chunk_fn(state, start_iter, ref_norm):
         if _on_cuda(ops, state):
-            return _chunk_kernel(ops, state, start_iter, ref_norm, **args)
+            return _chunk_kernel(ops, state, start_iter, ref_norm, lsc=lsc,
+                                 **args)
         return chunk_plain(ops, state, start_iter, ref_norm, **args)
 
     return chunk_fn
 
 
-def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int) -> None:
-    """Enqueue ``reps`` launches of one kernel on a chunk workspace, for
-    timing only (not counted in LAUNCHES): "sg_stage" is one last-stage
-    left+row pair, "sg_diag" the dt and quadrature launches, "sg_control"
-    one sampled-step control launch."""
+def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int,
+                 lanes: int = 1) -> None:
+    """Enqueue ``reps`` launches of one kernel on a chunk workspace of
+    ``lanes`` lanes, for timing only (not counted in LAUNCHES): "sg_stage"
+    is one last-stage left+row pair, "sg_diag" the dt and quadrature
+    launches, "sg_control" one sampled-step control launch."""
     from ._build import load_library
 
     lib = load_library("sg")
-    rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, _ptr_table(ws),
-                          _scalars(ops), KERNELS.index(which), int(reps),
+    rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, int(lanes),
+                          _ptr_table(ws), KERNELS.index(which), int(reps),
                           _stream())
     _raise_on(lib, rc, f"sg_bench_run({which})")

@@ -1,0 +1,351 @@
+"""Batched parameter sweeps: many (Re, corner_smoothing, ...) solves of one
+grid, run side by side as lanes.
+
+The counterpart of ``anap3_tpu/parallel/sweep.py``. Lanes share the operator
+matrices (same N); per-lane scalars, boundary values and singular fields
+ride a ``StackedOps``; every chunk advances every lane. A lane that goes
+NaN/Inf is frozen without touching the others and reported as diverged
+(the reference's divergence handling, multigrid/fsg.py:1184-1190).
+
+Two things differ from the JAX package, both on purpose:
+
+- The per-lane state machine is carried from chunk to chunk
+  (``runner.LaneCarry``): a lane that converged or diverged stays frozen,
+  and its iteration count is the step it converged at. The JAX batched
+  chunk restarts every chunk with no lane done, so a lane that converged in
+  an earlier chunk takes one more step in every later chunk and reports the
+  first step of the last chunk as its iterations (ROADMAP Queue 3).
+- ``convergence_metric="residual"`` is honoured per lane, each lane with
+  its own normalization, as the B=1 runner does; the JAX sweep supports
+  rel_iter and energy only, and ``main.py`` downgrades residual to rel_iter.
+
+A batched chunk function has the contract of ``ops/sg_lane_kernels.py``:
+``chunk_fn(states, start_iter, carry) -> (states, carry, rows[chunk, B, 7])``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from ..models.runner import (ENERGY_PLATEAU_CHUNKS, METRIC_KEYS, WARMUP_ITERS,
+                             LaneCarry, control_step, fresh_carry, freeze,
+                             rel_change)
+
+__all__ = ["SweepResult", "StackedOps", "stack_ops", "stack_states",
+           "lane_state", "make_batched_chunk_runner", "run_batched_sweep",
+           "PLAIN_CALLS", "reset_counts"]
+
+# chunks of the plain batched path (the sweep without lane kernels)
+PLAIN_CALLS = {"batched_chunk": 0}
+
+
+def reset_counts() -> None:
+    PLAIN_CALLS["batched_chunk"] = 0
+
+
+@dataclass
+class SweepResult:
+    """Per-lane outcome of a batched sweep."""
+
+    states: Any                     # batched final state, (B, ...) fields
+    iterations: np.ndarray          # (B,)
+    converged: np.ndarray           # (B,) bool
+    diverged: np.ndarray            # (B,) bool
+    wall_time: float
+    history: Dict[str, np.ndarray]  # key -> (B, n_recorded)
+    # global iteration of each recorded history column (stride-decimated
+    # on long sweeps, so not necessarily consecutive)
+    history_iters: np.ndarray = None
+    first_chunk_time: float = 0.0
+
+
+class StackedOps:
+    """The operators of B lanes (one dataclass type, e.g. ``SpectralOps`` or
+    ``FVOps``), field by field: a tensor equal in every lane is kept once
+    (the operator matrices), a tensor that differs is stacked to (B, ...)
+    (boundary values, singular fields, FV's 0-d mu and lid), a float
+    becomes a (B,) tensor (nu, beta_sq, CFL, lid_velocity, inv_dx_min,
+    inv_dy_min; FV's alpha_uv, alpha_p) and anything else (strings, solver
+    objects) is kept from lane 0. ``lane(b)`` is lane b's own operators."""
+
+    def __init__(self, ops_list: Sequence[Any]):
+        if not ops_list:
+            raise ValueError("need at least one lane")
+        self.lanes = list(ops_list)
+        o0 = self.lanes[0]
+        like = next(v for v in (getattr(o0, f.name)
+                                for f in dataclasses.fields(o0))
+                    if isinstance(v, torch.Tensor) and v.is_floating_point())
+        self.shared: Dict[str, Any] = {}
+        self.stacked: Dict[str, torch.Tensor] = {}
+        for f in dataclasses.fields(o0):
+            vals = [getattr(o, f.name) for o in self.lanes]
+            v0 = vals[0]
+            if isinstance(v0, torch.Tensor):
+                if all(v.shape == v0.shape and torch.equal(v, v0)
+                       for v in vals[1:]):
+                    self.shared[f.name] = v0
+                else:
+                    self.stacked[f.name] = torch.stack(vals)
+            elif isinstance(v0, float):
+                self.stacked[f.name] = torch.tensor(
+                    vals, dtype=like.dtype, device=like.device)
+            else:
+                self.shared[f.name] = v0
+
+    def __len__(self) -> int:
+        return len(self.lanes)
+
+    def __getattr__(self, name):
+        for table in ("stacked", "shared"):
+            d = self.__dict__.get(table, {})
+            if name in d:
+                return d[name]
+        raise AttributeError(name)
+
+    def lane(self, b: int):
+        return self.lanes[b]
+
+
+def stack_ops(ops_list: Sequence[Any]) -> StackedOps:
+    """The lanes' operators as one ``StackedOps``."""
+    return StackedOps(ops_list)
+
+
+def stack_states(states: Sequence[Any]):
+    """B states (NamedTuples of tensors) as one state of (B, ...) fields."""
+    return type(states[0])(*(torch.stack(f) for f in zip(*states)))
+
+
+def lane_state(states, b: int):
+    """Lane b's state of a batched state."""
+    return type(states)(*(t[b] for t in states))
+
+
+def make_batched_chunk_runner(step_fn: Callable, get_uv: Callable, ops,
+                              chunk: int, tolerance: float,
+                              warmup: int = WARMUP_ITERS,
+                              convergence_metric: str = "rel_iter"):
+    """The plain batched chunk (``sweep.py:53-104``): every lane computes
+    every step with ``step_fn(ops.lane(b), state_b) -> (state, metrics)``
+    and runs the B=1 state machine (``runner.control_step``) on its own
+    flags; a done lane keeps its state by a select and records NaN rows.
+    ``parallel/batched.py`` takes it for FV lanes (``fv_step``); SG lanes
+    take ``ops/sg_lane_kernels.plain_lane_runner``, which gives its bits
+    with ``sg_step``. Counted in PLAIN_CALLS["batched_chunk"]."""
+    if convergence_metric not in ("rel_iter", "residual"):
+        raise ValueError(
+            f"chunk runners take the mapped criterion (rel_iter or "
+            f"residual), not {convergence_metric!r}")
+    use_residual = convergence_metric == "residual"
+    B = len(ops)
+
+    def chunk_fn(states, start_iter, carry=None):
+        PLAIN_CALLS["batched_chunk"] += 1
+        lanes = [lane_state(states, b) for b in range(B)]
+        u0 = get_uv(lanes[0])[0]
+        if carry is None:
+            carry = fresh_carry(B, u0.dtype, u0.device)
+        done = [carry.flags[b, 0] > 0 for b in range(B)]
+        conv_iter = [carry.flags[b, 1] for b in range(B)]
+        converged = [carry.flags[b, 2] > 0 for b in range(B)]
+        ref = [carry.ref_norm[b] for b in range(B)]
+        rows = []
+        for offset in range(int(chunk)):
+            idx = int(start_iter) + offset
+            step_rows = []
+            for b in range(B):
+                state = lanes[b]
+                u_prev, v_prev = get_uv(state)
+                new, m = step_fn(ops.lane(b), state)
+                u_new, v_new = get_uv(new)
+                rel = torch.maximum(rel_change(u_new, u_prev),
+                                    rel_change(v_new, v_prev))
+                row = torch.stack([rel] + [m[k] for k in METRIC_KEYS[1:]]
+                                  ).to(u_prev.dtype)
+                row, now_done, conv_iter[b], converged[b], ref[b] = \
+                    control_step(row, idx, done[b], conv_iter[b],
+                                 converged[b], ref[b], tolerance, warmup,
+                                 use_residual)
+                lanes[b] = freeze(done[b], state, new)
+                done[b] = now_done
+                step_rows.append(row)
+            rows.append(torch.stack(step_rows))
+        flags = torch.stack([torch.stack([d.to(torch.int32),
+                                          c.to(torch.int32),
+                                          v.to(torch.int32)])
+                             for d, c, v in zip(done, conv_iter, converged)])
+        return (stack_states(lanes), LaneCarry(flags, torch.stack(ref)),
+                torch.stack(rows))
+
+    return chunk_fn
+
+
+class _Pending:
+    """A dispatched batched chunk whose flags and rows are on their way to
+    the host: one bundled copy each, waited for by one event."""
+
+    def __init__(self, out):
+        self.out = out
+        _, carry, rows = out
+        self.flags = carry.flags.to("cpu", non_blocking=True)
+        self.rows = rows.to("cpu", non_blocking=True)
+        self.event = None
+        if rows.is_cuda:
+            self.event = torch.cuda.Event()
+            self.event.record()
+
+    def read(self):
+        if self.event is not None:
+            self.event.synchronize()
+        return self.flags.numpy(), self.rows.numpy()
+
+
+def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
+                      max_iterations: int, chunk: int = 200,
+                      warmup: int = WARMUP_ITERS, mesh=None,
+                      max_history_points: int = 4000, chunk_runner=None,
+                      convergence_metric: str = "rel_iter",
+                      energy_plateau_chunks: int = None) -> SweepResult:
+    """Drive a batch of solves to convergence (``sweep.py:107-297``).
+
+    ``ops`` is a ``StackedOps`` and ``states`` a state of (B, ...) fields.
+    ``chunk_runner`` is a factory ``(chunk, tol, warmup, metric) ->
+    chunk_fn`` of lane kernels (``ops/sg_lane_kernels.maybe_lane_runner``,
+    ``ops/fv_lane_kernels.maybe_fv_lane_runner``); without one the plain
+    batched chunk runs ``step_fn``.
+
+    Chunk k+1 is dispatched before chunk k's flags are read, with fresh
+    output buffers per chunk. The host history is stride-decimated once it
+    holds more than twice ``max_history_points`` rows. Criteria:
+    "rel_iter" and "residual" on the device, per lane; "energy" runs the
+    device chunk at tolerance 0 (divergence freezing only) and the per-lane
+    kinetic-energy plateau with its net-drift gate on the host: a
+    plateaued lane is recorded converged at that chunk's end and keeps
+    integrating until the batch finishes. ``mesh`` (multi-GPU sweeps) is
+    not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharding a sweep over several cards is not ported to "
+            "anap3_tpu_torch yet (ROADMAP Queue 1 item 11)")
+    if convergence_metric not in ("rel_iter", "residual", "energy"):
+        raise ValueError(
+            f"unknown convergence_metric {convergence_metric!r}: expected "
+            "'rel_iter', 'residual' or 'energy'")
+    chunk = int(min(chunk, max(1, max_iterations)))
+    plateau_target = int(energy_plateau_chunks or ENERGY_PLATEAU_CHUNKS)
+    use_energy = convergence_metric == "energy"
+    inner_metric = "rel_iter" if use_energy else convergence_metric
+    inner_tol = 0.0 if use_energy else tolerance
+    if chunk_runner is not None:
+        runner = chunk_runner(chunk, inner_tol, warmup, inner_metric)
+    else:
+        runner = make_batched_chunk_runner(step_fn, get_uv, ops, chunk,
+                                           inner_tol, warmup, inner_metric)
+
+    B = len(ops)
+    rows_buf: List[np.ndarray] = []
+    idx_buf: List[np.ndarray] = []
+    n_kept = 0
+    stride = 1
+    energy_col = METRIC_KEYS.index("energy")
+    e_prev = None                # (B,) previous chunk-end energies
+    plateau = None               # (B,) consecutive plateaued chunks
+    conv_it_energy = None        # (B,) iteration of energy convergence
+    e_w0 = None
+    flags_h = np.tile(np.array([0, -1, 0], np.int64), (B, 1))
+    first_chunk_time = 0.0
+    t0 = time.time()
+    it = 0
+    cur = None
+    if it < max_iterations:
+        cur = _Pending(runner(states, it, None))
+    while cur is not None:
+        states, carry, _ = cur.out
+        nxt = None
+        if it + chunk < max_iterations:
+            nxt = _Pending(runner(states, it + chunk, carry))
+        flags_h, rows_h = cur.read()
+        if first_chunk_time == 0.0:
+            first_chunk_time = time.time() - t0
+        n_ran = min(chunk, max_iterations - it)
+        rows_h = rows_h[:n_ran]  # (n, B, K)
+        gis = np.arange(it, it + n_ran)
+        keep = (gis >= warmup) & ((gis - warmup) % stride == 0)
+        if keep.any():
+            rows_buf.append(rows_h[keep])
+            idx_buf.append(gis[keep])
+            n_kept += int(keep.sum())
+        if n_kept > 2 * max_history_points:
+            all_rows = np.concatenate(rows_buf, axis=0)[::2]
+            all_idx = np.concatenate(idx_buf)[::2]
+            rows_buf, idx_buf = [all_rows], [all_idx]
+            n_kept = all_rows.shape[0]
+            stride *= 2
+        it += n_ran
+        if use_energy and it > warmup:
+            e_rows = rows_h[:, :, energy_col]  # (n, B)
+            if plateau is None:
+                plateau = np.zeros(B, np.int64)
+                conv_it_energy = np.full(B, -1, np.int64)
+                e_w0 = np.full(B, np.nan)
+            # last finite energy per lane (done lanes record NaN)
+            e_last = np.full(B, np.nan)
+            for b in range(B):
+                finite = np.isfinite(e_rows[:, b])
+                if finite.any():
+                    e_last[b] = e_rows[np.flatnonzero(finite)[-1], b]
+            if e_prev is not None:
+                flat = (np.abs(e_last - e_prev)
+                        <= tolerance * np.maximum(np.abs(e_last), 1e-30))
+                flat &= np.isfinite(e_last)
+                e_w0 = np.where(flat & (plateau == 0), e_prev, e_w0)
+                plateau = np.where(flat, plateau + 1, 0)
+                reached = plateau >= plateau_target
+                # net-drift gate: the window's net change within
+                # sqrt(window) per-chunk budgets
+                net_ok = (np.abs(e_last - e_w0)
+                          <= tolerance * np.maximum(np.abs(e_last), 1e-30)
+                          * max(1.0, plateau_target ** 0.5))
+                newly = reached & net_ok & (conv_it_energy < 0)
+                conv_it_energy[newly] = it
+                plateau = np.where(reached & ~net_ok, 0, plateau)
+            e_prev = np.where(np.isfinite(e_last), e_last,
+                              e_prev if e_prev is not None else e_last)
+        lane_done = flags_h[:, 0] > 0
+        if use_energy and conv_it_energy is not None:
+            lane_done = lane_done | (conv_it_energy >= 0)
+        if lane_done.all():
+            break  # a speculated chunk is dropped
+        cur = nxt
+    wall = time.time() - t0
+
+    done_h = flags_h[:, 0] > 0
+    conv_iter_h = flags_h[:, 1]
+    if use_energy:
+        if conv_it_energy is None:
+            conv_it_energy = np.full(B, -1, np.int64)
+        converged = conv_it_energy >= 0
+        iterations = np.where(converged, conv_it_energy, it)
+    else:
+        converged = flags_h[:, 2] > 0
+        iterations = np.where(conv_iter_h > 0, conv_iter_h, it)
+    diverged = done_h & ~converged
+
+    if rows_buf:
+        rows_all = np.concatenate(rows_buf, axis=0)  # (T', B, K)
+        idx_all = np.concatenate(idx_buf)
+    else:
+        rows_all = np.zeros((0, B, len(METRIC_KEYS)))
+        idx_all = np.zeros((0,), np.int64)
+    hist = {key: rows_all[:, :, ki].T for ki, key in enumerate(METRIC_KEYS)}
+    return SweepResult(states=states, iterations=iterations,
+                       converged=converged, diverged=diverged,
+                       wall_time=wall, history=hist, history_iters=idx_all,
+                       first_chunk_time=first_chunk_time)

@@ -59,9 +59,40 @@ when it fails:
    and the Ghia Re=100 u-centerline max error within 0.005 of the JAX
    value.
 
-Phases 3 to 9 are the main paths: before each, the launch counters of both
-kernel families are zeroed, and after it every kernel of its family must
-have launched and no plain version run. The line before the last is the
+2d. SG lane kernels (sg_lanes_chunk_run, the sweep lanes): B = 3 lanes
+   with Re, corner_smoothing, CFL and beta_squared varying, at N = 20
+   (quadratures every step: the tiled lane kernel's cadence), 40 and 96
+   (every 16th: the aligned lane kernel's), float32 and float64, smoothed
+   and singular lids, and B = 8 in float32, against lanes_plain on the same
+   CUDA tensors (the bounds of phase 2, flags equal); every lane against a
+   one-lane sg_chunk_run of its own, bit for bit; a lane driven to NaN by a
+   huge CFL flagged diverged and frozen while the others keep their bits; a
+   tolerance met by one lane mid-chunk; ms per step of the N=128 B=8 and
+   N=20 B=8 lane chunks beside 8 one-lane chunks and beside plain;
+2e. FV lane kernels (fv_lanes_chunk_run): B = 3 lanes with Re, alpha_uv,
+   alpha_p and the lid speed varying, at 20x20, ny=12 x nx=16 and 128x128,
+   float32 and float64, TVD and upwind, against lanes_plain (the bounds of
+   phase 2b), every lane against a one-lane fv_chunk_run bit for bit, a NaN
+   lane isolated; ms per iteration at 128x128 for B = 1, 3 and 8;
+10. fsg sweep N=40: one round of the corner-smoothing optimization
+   (conf/experiment/optimization/corner_smoothing.yaml at N=40: FSG
+   Re=1000 tol 1e-6 float32, ladder [20, 40]) as 8 lanes, corner_smoothing
+   0.03 to 0.10, through parallel.batched.run_batched; each lane's levels,
+   iterations, FV-truth L2 (the optimization's objective), the shared wall
+   and the aggregate lane-steps/s; lanes 0 and 7 again as one-lane
+   FSGSolver.solve(): the same levels, iterations and bits (the sweep and
+   the solver share one prolongation routine);
+11. sg sweep N=128: 8 lanes (Re 100, 400, 1000, 3200 x corner_smoothing
+   0.15, 0.10), 5,000 steps from rest at tolerance 0 in chunks of 1,000;
+   aggregate lane-steps/s net of the first chunk; the Re=1000 / 0.15 lane
+   bit-equal to a one-lane SGSolver run;
+12. fv sweep N=128: 3 lanes, Re 100, 400, 1000, tol 1e-6 float32: the
+   Re=100 and Re=1000 lanes take the iterations phases 5 and 6 took; L2
+   against the stored truths within 0.003, 0.004 and 0.004.
+
+Phases 3 to 12 are the main paths: before each, the launch counters of
+every kernel family are zeroed, and after it every kernel the path runs
+must have launched and no plain version run. The line before the last is the
 kernels' JSON summary (launches summed over the main paths; bound_ms the
 least time the card could take for the timed work, from the shapes and the
 card's published peaks); the last line is the result object.
@@ -99,8 +130,13 @@ from anap3_tpu_torch.models import spectral_vmg as vmg  # noqa: E402
 from anap3_tpu_torch.models.spectral import (FSGSolver, SGSolver,  # noqa: E402
                                              make_fused_paths)
 from anap3_tpu_torch.ops import fv_kernels as fvk  # noqa: E402
+from anap3_tpu_torch.ops import fv_lane_kernels as fvl  # noqa: E402
 from anap3_tpu_torch.ops import sg_kernels as sgk  # noqa: E402
+from anap3_tpu_torch.ops import sg_lane_kernels as sgl  # noqa: E402
 from anap3_tpu_torch.ops._build import build_all, build_info  # noqa: E402
+from anap3_tpu_torch.parallel import batched as TB  # noqa: E402
+from anap3_tpu_torch.parallel import sweep as TS  # noqa: E402
+from anap3_tpu_torch.parallel.sweep import stack_states  # noqa: E402
 
 JAX_FSG_ITERATIONS = 176_389  # JAX record for the flagship FSG config
 GHIA_MAX_ERR = 0.027
@@ -128,7 +164,27 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     "fv_dense": "anap3_tpu/ops/pallas_fv.py:415",
     # the chunk's state machine (and the step's metrics vector)
     "fv_control": "anap3_tpu/ops/pallas_fv.py:515",
+    # the sweep lanes: the kernels above with a lane axis, looped by the
+    # lane entries of csrc/sg_host.cu and csrc/fv_host.cu
+    "sg_lanes_tiled": "anap3_tpu/ops/pallas_lanes.py:364",
+    "sg_lanes_aligned": "anap3_tpu/ops/pallas_lanes_aligned.py:612",
+    "fv_lanes": "anap3_tpu/ops/pallas_fv_lanes.py:524",
 }
+SOURCES = {"sg_lanes_tiled": "anap3_tpu_torch/csrc/sg_host.cu",
+           "sg_lanes_aligned": "anap3_tpu_torch/csrc/sg_host.cu",
+           "fv_lanes": "anap3_tpu_torch/csrc/fv_host.cu"}
+# sweep lanes: (Re, corner_smoothing, CFL, beta_squared); singular lanes
+# take the first three (Re <= 1000 from rest at N=20)
+SG_LANES = [(100.0, 0.15, 1.5, 5.0), (400.0, 0.10, 1.2, 4.0),
+            (1000.0, 0.05, 1.0, 6.0), (3200.0, 0.20, 1.5, 5.0),
+            (100.0, 0.08, 1.3, 5.5), (400.0, 0.12, 1.5, 4.5),
+            (1000.0, 0.15, 1.1, 5.0), (200.0, 0.03, 1.4, 6.0)]
+# (Re, alpha_uv, alpha_p, lid_velocity)
+FV_LANES = [(100.0, 0.4, 0.2, 1.0), (400.0, 0.6, 0.3, 1.0),
+            (1000.0, 0.5, 0.25, 1.5)]
+# one-lane FV N=128 iterations of phases 5 and 6, by Re (the fv sweep
+# repeats them)
+FV_B1_ITERATIONS = {}
 FV_K = 16  # conf/solver/fv.yaml fv_inner_iters
 # (JAX record of iterations, STATUS.md:190-199; L2 bound against the
 # stored N=128 FV truth)
@@ -261,10 +317,13 @@ def phase_device():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = [int(b) for b in
                   re.findall(r"(\d+) bytes spill stores", report)]
+        stacks = [int(b) for b in
+                  re.findall(r"(\d+) bytes stack frame", report)]
         print(f"[device] {family} kernels: nvcc {info['build_seconds']:.1f}s "
               f"(cached={info.get('cached')}); ptxas: {len(regs)} kernels, "
               f"max {max(regs, default=0)} registers, {sum(spills)} bytes of "
-              f"spill stores (report: {Path(info['path']).parent / 'build.log'})",
+              f"spill stores, largest stack frame {max(stacks, default=0)} "
+              f"bytes (report: {Path(info['path']).parent / 'build.log'})",
               flush=True)
     return card
 
@@ -495,6 +554,300 @@ def phase_smoother():
               f"{t_loop:.4f} ms/step, sg_step_run calls {t_steps:.4f}, plain "
               f"{t_plain:.4f}; bound {b_ms / 30:.5f} ms/step ({b_by})",
               flush=True)
+
+
+def lane_ops(n, dtype, lanes, corner="smoothing"):
+    """The CUDA operators of sweep lanes of (Re, corner_smoothing, CFL,
+    beta_squared) at order n."""
+    return [core.build_spectral_ops(params(
+        n, dtype, corner, Re=Re, corner_smoothing=cs, CFL=cfl,
+        beta_squared=beta))[0] for Re, cs, cfl, beta in lanes]
+
+
+def lane_of(states, b):
+    return type(states)(*(t[b] for t in states))
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))) and bool(torch.equal(
+        torch.where(nan, 0, a), torch.where(nan, 0, b)))
+
+
+def max_abs(outs_k, outs_p) -> float:
+    return max(float((a.double() - b.double()).abs().nan_to_num(0).max())
+               for a, b in zip(outs_k, outs_p))
+
+
+def check_lanes(what, run_k, run_plain, run_one, states, err_tol):
+    """A lane chunk (``run_k(states)`` -> (states, carry, rows)) against
+    its plain version on the same tensors (relative error per field and
+    per row column, flags equal), and every lane against a one-lane kernel
+    chunk of its own (``run_one(b, lane_state)`` -> the B=1 chunk tuple),
+    bit for bit. Returns the kernel output, the plain output, the worst
+    relative error and the largest absolute error of the states (the rows'
+    quadratures reach 1e10 and more; their error is printed)."""
+    out_k = run_k(states)
+    torch.cuda.synchronize()  # a fault shows where it happened
+    out_p = run_plain(states)
+    err = max([rel_err(a, b) for a, b in zip(out_k[0], out_p[0])]
+              + [rel_err(out_k[2][..., c], out_p[2][..., c])
+                 for c in range(7)])
+    flags_k, flags_p = out_k[1].flags.tolist(), out_p[1].flags.tolist()
+    bitwise = True
+    for b in range(len(flags_k)):
+        one = run_one(b, lane_of(states, b))
+        bitwise &= all(same_bits(a[b], c) for a, c in zip(out_k[0], one[0]))
+        bitwise &= same_bits(out_k[2][:, b], one[4])
+        bitwise &= flags_k[b] == [int(one[i]) for i in (1, 2, 3)]
+    abs_err = max_abs(out_k[0], out_p[0])
+    print(f"[lanes] {what}: relative error {err:.2e} (tol {err_tol:.0e}), "
+          f"abs state {abs_err:.3e} rows {max_abs([out_k[2]], [out_p[2]]):.3e}"
+          f", flags {flags_k}, every lane bitwise its one-lane chunk: "
+          f"{bitwise}", flush=True)
+    check(err <= err_tol, f"lanes {what}: relative error {err:.3e} > "
+          f"{err_tol:.0e}")
+    check(flags_k == flags_p, f"lanes {what}: flags {flags_k} vs plain "
+          f"{flags_p}")
+    check(bitwise, f"lanes {what}: a lane differs from its one-lane chunk")
+    return out_k, out_p, err, abs_err
+
+
+def sg_lane_check(ops_list, chunk, tol, what, err_tol, states=None):
+    o0, B = ops_list[0], len(ops_list)
+    m = sgl.lane_metrics_every(o0.nf - 1)
+    if states is None:
+        states = stack_states([core.initial_state(o) for o in ops_list])
+    carry = TR.fresh_carry(B, o0.dtype, o0.device)
+    return check_lanes(
+        what, lambda st: sgl.make_lane_chunk_runner(ops_list, chunk, tol)(
+            st, 0),
+        lambda st: sgl.lanes_plain(ops_list, st, 0, carry, chunk, tol, 10,
+                                   False, m),
+        lambda b, st: sgk.make_sg_chunk_runner(
+            ops_list[b], chunk, tol, 10, "rel_iter", m)(st, 0, float("inf")),
+        states, err_tol)
+
+
+def sampled_steps(start, chunk, m):
+    return sum(1 for i in range(chunk) if i == 0 or (start + i) % m == 0)
+
+
+def phase_sg_lanes(summary):
+    """Phase 2d: the SG lane kernels against lanes_plain and one-lane
+    chunks; NaN isolation; a mid-chunk tolerance; timings."""
+    t0 = time.time()
+    for n in (20, 40, 96):
+        for dt_name in ("float32", "float64"):
+            err_tol = 1e-4 if dt_name == "float32" else 1e-11
+            for corner in ("smoothing", "singular"):
+                sizes = (3, 8) if (dt_name, corner) == ("float32",
+                                                        "smoothing") else (3,)
+                for B in sizes:
+                    ops_list = lane_ops(n, dt_name, SG_LANES[:B], corner)
+                    sg_lane_check(ops_list, 40, 1e-30,
+                                  f"SG N={n} {dt_name} {corner} B={B}",
+                                  err_tol)
+    # a lane driven to NaN: flagged diverged, frozen, the others untouched
+    for dt_name in ("float32", "float64"):
+        lanes = SG_LANES[:2] + [(400.0, 0.15, 1e4, 5.0)]
+        ops_list = lane_ops(40, dt_name, lanes)
+        st = stack_states([core.initial_state(o) for o in ops_list])
+        run = sgl.make_lane_chunk_runner(ops_list, 48, 1e-30)
+        out = run(st, 0)
+        again = run(out[0], 48, out[1])
+        f = out[1].flags.tolist()
+        frozen = (all(same_bits(a[2], b[2]) for a, b in zip(again[0], out[0]))
+                  and bool(torch.isnan(again[2][:, 2]).all())
+                  and again[1].flags[2].tolist() == f[2])
+        isolated = True
+        for b in range(2):
+            one = sgk.make_sg_chunk_runner(ops_list[b], 48, 1e-30, 10,
+                                           "rel_iter", 16)(
+                lane_of(st, b), 0, float("inf"))
+            isolated &= all(same_bits(a[b], c) for a, c in zip(out[0], one[0]))
+        print(f"[lanes] SG N=40 {dt_name} NaN lane (CFL 1e4): flags {f}, "
+              f"frozen over the next chunk {frozen}, other lanes bitwise "
+              f"their one-lane chunks {isolated}", flush=True)
+        check(f[2][0] == 1 and f[2][2] == 0 and f[2][1] > 0
+              and bool(torch.isnan(out[2][f[2][1]:, 2]).all()),
+              f"SG NaN lane not flagged diverged: {f[2]}")
+        check(frozen and isolated and f[:2] == [[0, -1, 0]] * 2,
+              "SG NaN lane not isolated")
+    # a tolerance that lane 0 meets mid-chunk, before step 25, and lane 1
+    # (its iterate change stays about twice lane 0's) not before: flags,
+    # NaN rows and the frozen state as plain
+    for dt_name in ("float32", "float64"):
+        err_tol = 1e-4 if dt_name == "float32" else 1e-11
+        lanes = [(100.0, 0.15, 1.5, 5.0), (1000.0, 0.15, 0.3, 5.0),
+                 (400.0, 0.10, 1.2, 4.0)]
+        ops_list = lane_ops(40, dt_name, lanes)
+        st = stack_states([core.initial_state(o) for o in ops_list])
+        carry = TR.fresh_carry(3, ops_list[0].dtype, ops_list[0].device)
+        probe = sgl.lanes_plain(ops_list, st, 0, carry, 40, 1e-30, 10, False,
+                                16)[2][:, :, 0].double().cpu().numpy()
+        tol = float(probe[10:25, 1].min()) * 0.99
+        check(float(probe[10:25, 0].min()) < tol, "no mid-chunk crossing")
+        out_k, out_p, _, _ = sg_lane_check(
+            ops_list, 40, tol, f"SG N=40 {dt_name} tol {tol:.4e} mid-chunk",
+            err_tol)
+        conv = out_p[1].flags[0].tolist()
+        check(conv[0] == 1 and conv[2] == 1 and 10 < conv[1] <= 25,
+              f"lane 0 did not converge mid-chunk: {conv}")
+        check(torch.equal(torch.isnan(out_k[2]), torch.isnan(out_p[2])),
+              "mid-chunk NaN rows differ")
+    # the main paths' shapes, float32: N=128 B=8 (sg sweep: the aligned
+    # cadence) and N=20 B=8 (the fsg sweep's coarse level: every step)
+    for key, n in (("sg_lanes_aligned", 128), ("sg_lanes_tiled", 20)):
+        ops_list = lane_ops(n, "float32", SG_LANES)
+        o0 = ops_list[0]
+        m = sgl.lane_metrics_every(n)
+        out_k, _, _, abs_err = sg_lane_check(
+            ops_list, 16, 1e-30, f"SG N={n} float32 B=8 (main path)", 1e-4)
+        summary[key]["max_abs_err"] = abs_err
+        st = out_k[0]  # a developing flow, not rest
+        chunk = 200
+        run = sgl.make_lane_chunk_runner(ops_list, chunk, 1e-30)
+        ones = [sgk.make_sg_chunk_runner(o, chunk, 1e-30, 10, "rel_iter", m)
+                for o in ops_list]
+        t_lane = cuda_ms(lambda: run(st, 16), 3) / chunk
+        t_ones = cuda_ms(lambda: [r(lane_of(st, b), 16, float("inf"))
+                                  for b, r in enumerate(ones)], 2) / chunk
+        carry = TR.fresh_carry(8, o0.dtype, o0.device)
+        t_plain = cuda_ms(lambda: sgl.lanes_plain(
+            ops_list, st, 16, carry, 4, 1e-30, 10, False, m), 1) / 4
+        b_ms, b_by = steps_bound(o0.nf, o0.dtype, chunk,
+                                 sampled_steps(16, chunk, m))
+        bound_step = 8 * b_ms / chunk
+        summary[key].update(ms=t_lane, plain_ms=t_plain, bound_ms=bound_step,
+                            bound_by=b_by, library_ms=None)
+        profile_chunk(lambda: run(st, 16),
+                      f"lanes profile SG N={n} float32 B=8 {chunk}-step chunk")
+        print(f"[lanes] SG N={n} float32 B=8, quadratures every {m}: lane "
+              f"chunk {t_lane:.4f} ms/step ({8 / t_lane * 1e3:.1f} "
+              f"lane-steps/s), 8 one-lane chunks {t_ones:.4f} ms/step "
+              f"({t_ones / t_lane:.2f}x), plain {t_plain:.4f} ms/step, "
+              f"bound {bound_step:.5f} ms/step ({b_by})", flush=True)
+    print(f"[lanes] phase 2d: {time.time() - t0:.1f}s", flush=True)
+
+
+def fv_lane_setup(ny, nx, dt_name, scheme, lanes):
+    ps = [fv_params(ny, nx, dt_name, scheme, Re=Re, alpha_uv=a, alpha_p=ap,
+                    lid_velocity=U) for Re, a, ap, U in lanes]
+    return ps, [fv_ops(p) for p in ps]
+
+
+def fv_lane_check(ps, ops_list, chunk, tol, what, err_tol, states=None):
+    o0, B = ops_list[0], len(ops_list)
+    if states is None:
+        states = stack_states([fvm.initial_state(o) for o in ops_list])
+    S_list = [fvk.statics(p, o) for p, o in zip(ps, ops_list)]
+    carry = TR.fresh_carry(B, o0.dtype, o0.device)
+    return check_lanes(
+        what, lambda st: fvl.make_fv_lane_runner(ps, ops_list, chunk, tol, 10,
+                                                 FV_K)(st, 0),
+        lambda st: fvl.lanes_plain(S_list, st, 0, carry, chunk, tol, 10,
+                                   FV_K),
+        lambda b, st: fvk.make_fv_chunk_runner(
+            ps[b], ops_list[b], chunk, tol, 10, FV_K)(st, 0, float("inf")),
+        states, err_tol)
+
+
+def phase_fv_lanes(summary):
+    """Phase 2e: the FV lane kernels against lanes_plain and one-lane
+    chunks; NaN isolation; timings at 128x128."""
+    t0 = time.time()
+    for ny, nx in ((20, 20), (12, 16), (128, 128)):
+        for dt_name in ("float32", "float64"):
+            err_tol = FV_F32_TOL if dt_name == "float32" else FV_F64_TOL
+            for scheme in ("TVD", "Upwind"):
+                ps, ops_list = fv_lane_setup(ny, nx, dt_name, scheme,
+                                             FV_LANES)
+                _, _, _, abs_err = fv_lane_check(
+                    ps, ops_list, 20, 1e-30,
+                    f"FV {ny}x{nx} {dt_name} {scheme} B=3", err_tol)
+                if (nx, dt_name, scheme) == (128, "float32", "TVD"):
+                    summary["fv_lanes"]["max_abs_err"] = abs_err
+    ps, ops_list = fv_lane_setup(20, 20, "float32", "TVD", FV_LANES)
+    states = [fvm.initial_state(o) for o in ops_list]
+    u = states[1].u.clone()
+    u[5, 7] = float("nan")
+    states[1] = fvm.FVState(u, *states[1][1:])
+    st = stack_states(states)
+    run = fvl.make_fv_lane_runner(ps, ops_list, 16, 1e-30, 10, FV_K)
+    out = run(st, 0)
+    again = run(out[0], 16, out[1])
+    f = out[1].flags.tolist()
+    frozen = (all(same_bits(a[1], b[1]) for a, b in zip(again[0], out[0]))
+              and bool(torch.isnan(again[2][:, 1]).all()))
+    isolated = True
+    for b in (0, 2):
+        one = fvk.make_fv_chunk_runner(ps[b], ops_list[b], 16, 1e-30, 10,
+                                       FV_K)(states[b], 0, float("inf"))
+        isolated &= all(same_bits(a[b], c) for a, c in zip(out[0], one[0]))
+    print(f"[lanes] FV 20x20 float32 NaN lane: flags {f}, frozen over the "
+          f"next chunk {frozen}, other lanes bitwise their one-lane chunks "
+          f"{isolated}", flush=True)
+    check(f == [[0, -1, 0], [1, 1, 0], [0, -1, 0]] and frozen and isolated,
+          "FV NaN lane not isolated")
+    # the residual criterion, each lane with its own normalization: a
+    # tolerance that one lane meets mid-chunk, flags and normalizations as
+    # plain
+    ps, ops_list = fv_lane_setup(20, 20, "float32", "TVD", FV_LANES)
+    st = stack_states([fvm.initial_state(o) for o in ops_list])
+    S_list = [fvk.statics(p, o) for p, o in zip(ps, ops_list)]
+    carry = TR.fresh_carry(3, torch.float32, ops_list[0].device)
+    cont = fvl.lanes_plain(S_list, st, 0, carry, 24, 1e-30, 10, FV_K,
+                           True)[2][:, :, 3].double().cpu().numpy()
+    crit = cont[10:] / cont[10]
+    tol = float(crit[:, 0].min()) * (1 + 1e-3)
+    run = fvl.make_fv_lane_runner(ps, ops_list, 24, tol, 10, FV_K,
+                                  "residual")
+    out_k, out_p = run(st, 0), fvl.lanes_plain(S_list, st, 0, carry, 24, tol,
+                                               10, FV_K, True)
+    err = max(rel_err(a, b) for a, b in zip(
+        list(out_k[0]) + [out_k[1].ref_norm],
+        list(out_p[0]) + [out_p[1].ref_norm]))
+    fk, fp = out_k[1].flags.tolist(), out_p[1].flags.tolist()
+    print(f"[lanes] FV 20x20 float32 residual criterion, tol {tol:.4e}: "
+          f"flags {fk} (plain {fp}), relative error of states and "
+          f"normalizations {err:.2e}", flush=True)
+    check(fk == fp and fk[0][2] == 1 and err <= FV_F32_TOL,
+          f"FV residual lanes differ from plain: {fk} vs {fp}, {err:.3e}")
+    # ms per SIMPLE iteration at 128x128 float32 for B = 1, 3 and 8
+    lanes8 = [FV_LANES[k % 3] for k in range(8)]
+    ps, ops_list = fv_lane_setup(128, 128, "float32", "TVD", lanes8)
+    chunk = 100
+    st8 = stack_states([fvm.initial_state(o) for o in ops_list])
+    one = fvk.make_fv_chunk_runner(ps[0], ops_list[0], chunk, 1e-30, 10,
+                                   FV_K)
+    t1 = cuda_ms(lambda: one(lane_of(st8, 0), 0, float("inf")), 2) / chunk
+    times = {}
+    for B in (3, 8):
+        st = type(st8)(*(t[:B].contiguous() for t in st8))
+        run = fvl.make_fv_lane_runner(ps[:B], ops_list[:B], chunk, 1e-30, 10,
+                                      FV_K)
+        times[B] = cuda_ms(lambda: run(st, 0), 2) / chunk
+    st3 = type(st8)(*(t[:3].contiguous() for t in st8))
+    S3 = [fvk.statics(p, o) for p, o in zip(ps[:3], ops_list[:3])]
+    carry = TR.fresh_carry(3, torch.float32, ops_list[0].device)
+    t_plain = cuda_ms(lambda: fvl.lanes_plain(S3, st3, 0, carry, 2, 1e-30,
+                                              10, FV_K), 1) / 2
+    work = fv_work(ops_list[0]).values()
+    b_ms, b_by = bound(3 * sum(w[0] for w in work),
+                       3 * sum(w[1] for w in work), torch.float32)
+    summary["fv_lanes"].update(ms=times[3], plain_ms=t_plain, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=None)
+    run3 = fvl.make_fv_lane_runner(ps[:3], ops_list[:3], chunk, 1e-30, 10,
+                                   FV_K)
+    profile_chunk(lambda: run3(st3, 0), "lanes profile FV 128x128 float32 "
+                  f"B=3 {chunk}-iteration chunk")
+    print(f"[lanes] FV 128x128 float32, ms per SIMPLE iteration: B=1 "
+          f"{t1:.4f}, B=3 {times[3]:.4f} ({times[3] / t1:.2f}x B=1), B=8 "
+          f"{times[8]:.4f} ({times[8] / t1:.2f}x B=1); B=3 plain "
+          f"{t_plain:.4f}, bound {b_ms:.5f} ({b_by})", flush=True)
+    print(f"[lanes] phase 2e: {time.time() - t0:.1f}s", flush=True)
 
 
 def fv_params(ny, nx, dtype, scheme="TVD", **kw):
@@ -817,32 +1170,45 @@ def trace_device(fn, what):
     return dev, host
 
 
+def device_breakdown(dev, top=10) -> str:
+    """The window, device time, idle share and the ``top`` kernels by
+    device time of a trace's device activities, as one line's text."""
+    start = min(e.time_range.start for e in dev)
+    end = max(e.time_range.end for e in dev)
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    by_name = {}
+    for e in dev:
+        # the function's name: the identifier before its template
+        # arguments and parameter list
+        named = re.search(r"(\w+)(?:<[^()]*>)?\(", e.name)
+        key = named.group(1) if named else e.name[:32]
+        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
+    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.0%})" for k, v in
+                      sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    return (f"window {(end - start) / 1e3:.3f} ms, device time "
+            f"{busy / 1e3:.3f} ms, idle share {1 - busy / (end - start):.3f}, "
+            f"{len(dev)} device activities; top: {parts}")
+
+
+def profile_chunk(run, what):
+    """torch.profiler over ``run()`` after one warm-up run: the device
+    breakdown of its window (every device activity: the kernels, and the
+    state clone and flag upload of the chunk's workspace)."""
+    run()
+    torch.cuda.synchronize()
+    traced = trace_device(run, what)
+    if traced is not None:
+        dev, host = traced
+        print(f"[{what}] host {host:.3f}s, {device_breakdown(dev)}",
+              flush=True)
+
+
 def profile_fv_chunk(p, ops, state):
     """Device busy time by kernel and the idle share of one 100-iteration
-    N=128 float32 chunk, by torch.profiler, after a warm-up chunk."""
+    N=128 float32 chunk."""
     run = fvk.make_fv_chunk_runner(p, ops, 100, 1e-30, 10, FV_K)
-    run(state, 0, float("inf"))
-    torch.cuda.synchronize()
-    # every device activity: the FV kernels, and the state clone and flag
-    # upload of the chunk's workspace
-    traced = trace_device(lambda: run(state, 0, float("inf")), "fv profile")
-    if traced is not None:
-        dev, _ = traced
-        start = min(e.time_range.start for e in dev)
-        end = max(e.time_range.end for e in dev)
-        busy = sum(e.time_range.elapsed_us() for e in dev)
-        by_name = {}
-        for e in dev:
-            named = re.search(r"(\w+_kernel)\b", e.name)
-            key = named.group(1) if named else e.name[:24]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-        parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.0%})"
-                          for k, v in sorted(by_name.items(),
-                                             key=lambda kv: -kv[1]))
-        print(f"[fv profile] N=128 float32 100-iteration chunk: window "
-              f"{(end - start) / 1e3:.3f} ms, device time {busy / 1e3:.3f} ms, "
-              f"idle share {1 - busy / (end - start):.3f}, {len(dev)} "
-              f"device activities; {parts}", flush=True)
+    profile_chunk(lambda: run(state, 0, float("inf")),
+                  "fv profile N=128 float32 100-iteration chunk")
 
 
 def ghia_u_error_fv(solver) -> float:
@@ -877,6 +1243,7 @@ def phase_fv_solve(re):
           + " ".join(f"{k}={v:.6f}" for k, v in errs.items())
           + f"; Ghia u-centerline max err {ghia:.4f}", flush=True)
     check(m.converged, f"FV Re={re:g} did not converge")
+    FV_B1_ITERATIONS[re] = m.iterations
     check(0.8 <= ratio <= 1.2, f"FV Re={re:g} iterations {m.iterations} "
           f"outside 20% of the JAX record {target}")
     for key in ("u_L2_error", "v_L2_error"):
@@ -989,28 +1356,8 @@ def profile_vmg_chunk(solver):
     cycle = vmg.make_v_cycle(levels, smoothers=smoothers)
     run = TR.make_chunk_runner(cycle, lambda s: (s.u, s.v), 50, 0.0)
     inf = torch.tensor(float("inf"), device=solver.device)
-    run(solver.state, 0, inf)
-    torch.cuda.synchronize()
-    traced = trace_device(lambda: run(solver.state, 0, inf), "vmg profile")
-    if traced is not None:
-        dev, host = traced
-        start = min(e.time_range.start for e in dev)
-        end = max(e.time_range.end for e in dev)
-        busy = sum(e.time_range.elapsed_us() for e in dev)
-        by_name = {}
-        for e in dev:
-            # the function's name: the identifier before its template
-            # arguments and parameter list
-            named = re.search(r"(\w+)(?:<[^()]*>)?\(", e.name)
-            key = named.group(1) if named else e.name[:32]
-            by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-        parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.0%})"
-                          for k, v in top)
-        print(f"[vmg profile] [192, 96] 50-cycle chunk: host {host:.3f}s, "
-              f"window {(end - start) / 1e3:.3f} ms, device time "
-              f"{busy / 1e3:.3f} ms, idle share {1 - busy / (end - start):.3f}, "
-              f"{len(dev)} device activities; top: {parts}", flush=True)
+    profile_chunk(lambda: run(solver.state, 0, inf),
+                  "vmg profile [192, 96] 50-cycle chunk")
 
 
 def check_against_jax(what, solver, ref, ladder):
@@ -1056,6 +1403,134 @@ def phase_fmg96():
     check_against_jax("fmg N=96 Re=100", solver, JAX_FMG96, ladder)
 
 
+def fsg_sweep_params(cs):
+    """conf/experiment/optimization/corner_smoothing.yaml at N=40: FSG
+    (fsg.yaml, 2 levels) Re=1000 tol 1e-6, float32, the cap at 200,000."""
+    return params(40, "float32", Re=1000.0, tolerance=1e-6,
+                  max_iterations=200_000, multigrid="fsg", n_levels=2,
+                  coarse_tolerance_factor=1.0, corner_smoothing=cs)
+
+
+def phase_fsg_sweep():
+    """Phase 10: one round of the corner-smoothing optimization, 8 lanes."""
+    css = [round(0.03 + 0.01 * k, 2) for k in range(8)]
+    solvers = [FSGSolver(params=fsg_sweep_params(cs)) for cs in css]
+    t0 = time.time()
+    results = TB.run_batched(solvers)
+    torch.cuda.synchronize()
+    call = time.time() - t0
+    wall = results[0].wall_time
+    cap = int(solvers[0].params.max_iterations)
+    for cs, solver, r in zip(css, solvers, results):
+        errs = solver.compute_validation_errors(base_dir=ROOT,
+                                                save_plots=False)
+        capped = [lv["n"] for lv in r.levels
+                  if lv["iterations"] >= cap and not lv["converged"]]
+        print(f"[fsg sweep] corner_smoothing {cs:.2f}: "
+              + ", ".join(f"N={lv['n']}: {lv['iterations']} it "
+                          f"(converged={lv['converged']})" for lv in r.levels)
+              + f"; total {r.iterations}, converged={r.converged}"
+              + (f", RAN TO ITS CAP ({cap:,}) at N={capped}" if capped else "")
+              + f"; FV-truth L2 u {errs['u_L2_error']:.5f} v "
+              f"{errs['v_L2_error']:.5f}", flush=True)
+        check([lv["n"] for lv in r.levels] == [20, 40],
+              f"fsg sweep ladder {[lv['n'] for lv in r.levels]}")
+        check(all(bool(torch.isfinite(t).all()) for t in solver.state),
+              f"fsg sweep lane {cs} is not finite")
+    steps = sum(r.iterations for r in results)
+    print(f"[fsg sweep] N=40 Re=1000 tol 1e-6 float32, 8 lanes, ladder "
+          f"[20, 40]: shared wall {wall:.3f}s (call {call:.3f}s, first "
+          f"chunks {results[0].first_chunk_time:.3f}s), {steps} lane-steps, "
+          f"aggregate {steps / wall:.1f} lane-steps/s", flush=True)
+    for k in (0, 7):
+        one = FSGSolver(params=fsg_sweep_params(css[k]))
+        t0 = time.time()
+        one.solve()
+        torch.cuda.synchronize()
+        same_levels = [(lv["n"], lv["iterations"]) for lv in one.levels] == [
+            (lv["n"], lv["iterations"]) for lv in results[k].levels]
+        bits = all(same_bits(a, b) for a, b in zip(one.state,
+                                                   solvers[k].state))
+        print(f"[fsg sweep] lane {k} again as FSGSolver.solve(): "
+              + ", ".join(f"N={lv['n']}: {lv['iterations']} it"
+                          for lv in one.levels)
+              + f" in {time.time() - t0:.3f}s; same levels and iterations "
+              f"{same_levels}, bit-equal state {bits}", flush=True)
+        check(same_levels and bits,
+              f"fsg sweep lane {k} differs from its FSGSolver solve")
+
+
+def phase_sg_sweep():
+    """Phase 11: 8 SG N=128 lanes, 5,000 steps from rest."""
+    lanes = [(re, cs) for cs in (0.15, 0.10)
+             for re in (100.0, 400.0, 1000.0, 3200.0)]
+
+    def mk(re, cs):
+        return params(128, "float32", Re=re, corner_smoothing=cs,
+                      tolerance=0.0, max_iterations=5000, chunk_size=1000,
+                      convergence_metric="rel_iter")
+
+    solvers = [SGSolver(params=mk(*lane)) for lane in lanes]
+    t0 = time.time()
+    results = TB.run_batched(solvers)
+    torch.cuda.synchronize()
+    call = time.time() - t0
+    r0 = results[0]
+    net = 8 * (5000 - 1000) / max(r0.wall_time - r0.first_chunk_time, 1e-9)
+    print(f"[sg sweep] N=128 float32, 8 lanes x 5000 steps: shared wall "
+          f"{r0.wall_time:.3f}s (call {call:.3f}s, first chunk "
+          f"{r0.first_chunk_time:.3f}s), aggregate lane-steps/s net of the "
+          f"first chunk {net:.1f}", flush=True)
+    check(all(r.iterations == 5000 for r in results),
+          f"sg sweep iterations {[r.iterations for r in results]}")
+    check(all(bool(torch.isfinite(t).all()) for s in solvers for t in s.state),
+          "sg sweep state is not finite")
+    k = lanes.index((1000.0, 0.15))
+    one = SGSolver(params=mk(1000.0, 0.15))
+    one.solve()
+    bits = all(same_bits(a, b) for a, b in zip(one.state, solvers[k].state))
+    print(f"[sg sweep] the Re=1000 / 0.15 lane against SGSolver.solve(): "
+          f"{one.metrics.iterations} steps, bit-equal state {bits}",
+          flush=True)
+    check(bits, "sg sweep lane differs from its SGSolver run")
+    return net
+
+
+def phase_fv_sweep():
+    """Phase 12: FV N=128 Re 100, 400, 1000 as 3 lanes, tol 1e-6."""
+    res = (100.0, 400.0, 1000.0)
+    l2_max = {100.0: 0.003, 400.0: 0.004, 1000.0: 0.004}
+    solvers = [fvm.FVSolver(params=fv_params(128, 128, "float32", Re=re,
+                                             tolerance=1e-6,
+                                             max_iterations=30_000))
+               for re in res]
+    t0 = time.time()
+    results = TB.run_batched(solvers)
+    torch.cuda.synchronize()
+    call = time.time() - t0
+    for re, solver, r in zip(res, solvers, results):
+        errs = solver.compute_validation_errors(base_dir=ROOT,
+                                                save_plots=False)
+        one = FV_B1_ITERATIONS.get(re)
+        print(f"[fv sweep] Re={re:g}: {r.iterations} iterations (one-lane "
+              f"solve: {one}), converged={r.converged}; L2 "
+              + " ".join(f"{k}={v:.6f}" for k, v in errs.items()), flush=True)
+        check(r.converged, f"fv sweep Re={re:g} did not converge")
+        for key in ("u_L2_error", "v_L2_error"):
+            check(errs.get(key, np.inf) <= l2_max[re], f"fv sweep Re={re:g} "
+                  f"{key} {errs.get(key)} > {l2_max[re]}")
+        if one is not None:
+            check(r.iterations == one, f"fv sweep Re={re:g}: {r.iterations} "
+                  f"iterations, the one-lane solve took {one}")
+    check(set(FV_B1_ITERATIONS) >= {100.0, 1000.0},
+          "phases 5 and 6 left no one-lane counts")
+    steps = sum(r.iterations for r in results)
+    print(f"[fv sweep] N=128 float32, 3 lanes: shared wall "
+          f"{results[0].wall_time:.3f}s (call {call:.3f}s), {steps} "
+          f"lane-iterations, aggregate {steps / results[0].wall_time:.1f} "
+          f"lane-iterations/s", flush=True)
+
+
 def flagship_vmg() -> int:
     """The converged VMG [192, 96] Re=1000 tol 1e-6 float32 solve."""
     card = phase_device()
@@ -1081,16 +1556,21 @@ def flagship_vmg() -> int:
     return 0
 
 
-# the main paths: (name, phase, kernel family)
+# the main paths: (name, phase, the kernels it must launch)
 MAIN_PATHS = (
-    ("sg N=128", phase_sg, sgk),
-    ("fsg N=96", phase_fsg, sgk),
-    ("fv Re=100", lambda: phase_fv_solve(100.0), fvk),
-    ("fv Re=1000", lambda: phase_fv_solve(1000.0), fvk),
-    ("vmg [192, 96]", phase_vmg_wide, sgk),
-    ("vmg N=48", phase_vmg48, sgk),
-    ("fmg N=96", phase_fmg96, sgk),
+    ("sg N=128", phase_sg, sgk.KERNELS),
+    ("fsg N=96", phase_fsg, sgk.KERNELS),
+    ("fv Re=100", lambda: phase_fv_solve(100.0), fvk.KERNELS),
+    ("fv Re=1000", lambda: phase_fv_solve(1000.0), fvk.KERNELS),
+    ("vmg [192, 96]", phase_vmg_wide, sgk.KERNELS),
+    ("vmg N=48", phase_vmg48, sgk.KERNELS),
+    ("fmg N=96", phase_fmg96, sgk.KERNELS),
+    ("fsg sweep N=40", phase_fsg_sweep, sgl.KERNELS),
+    ("sg sweep N=128", phase_sg_sweep, ("sg_lanes_aligned",)),
+    ("fv sweep N=128", phase_fv_sweep, fvl.KERNELS),
 )
+# every module that counts kernel launches or plain calls
+COUNTERS = (sgk, fvk, sgl, fvl, TS)
 
 
 def main() -> int:
@@ -1103,26 +1583,29 @@ def main() -> int:
     if ap.parse_args().flagship_vmg:
         return flagship_vmg()
     t_start = time.time()
-    names = sgk.KERNELS + fvk.KERNELS
+    names = sgk.KERNELS + fvk.KERNELS + sgl.KERNELS + fvl.KERNELS
     summary = {k: {"name": k, "route": "cuda",
-                   "source": f"anap3_tpu_torch/csrc/{k}.cu",
+                   "source": SOURCES.get(k, f"anap3_tpu_torch/csrc/{k}.cu"),
                    "replaces": REPLACES[k], "launches": 0} for k in names}
     phase_device()
     phase_kernels(summary)
     phase_fv_kernels(summary)
     phase_fv_flags()
     phase_smoother()
-    for path, phase, family in MAIN_PATHS:
-        sgk.reset_counts()  # the path starts here
-        fvk.reset_counts()
+    phase_sg_lanes(summary)
+    phase_fv_lanes(summary)
+    for path, phase, kernels in MAIN_PATHS:
+        for counter in COUNTERS:  # the path starts here
+            counter.reset_counts()
         t0 = time.time()
         out = phase()
         torch.cuda.synchronize()
-        launches = {**sgk.LAUNCHES, **fvk.LAUNCHES}
-        plain = {**sgk.PLAIN_CALLS, **fvk.PLAIN_CALLS}
+        launches = {k: v for c in COUNTERS
+                    for k, v in getattr(c, "LAUNCHES", {}).items()}
+        plain = {k: v for c in COUNTERS for k, v in c.PLAIN_CALLS.items()}
         print(f"[main path] {path} ({time.time() - t0:.1f}s): kernel launches "
               f"{launches}; plain calls {plain}", flush=True)
-        for k in family.KERNELS:
+        for k in kernels:
             check(launches[k] > 0, f"kernel {k} was not launched on {path}")
         check(not any(plain.values()), f"plain versions ran on {path}: {plain}")
         for k in names:
