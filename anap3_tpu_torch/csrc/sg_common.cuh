@@ -36,10 +36,9 @@ enum Ptr {
   P_SU, P_SV, P_SDUDX, P_SDUDY, P_SDVDX, P_SDVDY, P_SW, P_SDWX, P_SDWY,
   P_U, P_V, P_P,                       // RK base state (chunk: committed)
   P_AU, P_AV, P_AP, P_BU, P_BV, P_BP,  // stage ping-pong (step: B = out)
-  P_LEFT,     // left-phase products: 4 (nf, nf) then 2 (nf, ni)
   P_OMEGA,    // (nf, nf) smooth vorticity of the sampled state
-  P_PART,     // (nblocks, NPART) last-stage partial sums
-  P_QPART,    // (nblocks, NQPART) quadrature partial sums
+  P_PART,     // (StageGeo::nparts, NPART) last-stage partial sums
+  P_QPART,    // (lane_blocks, NQPART) quadrature partial sums
   P_SCAL,     // (S_COUNT,) device scalars
   P_TAUU, P_TAUV, P_TAUP,              // FAS forcing; null without it
   P_METRICS,  // step: (6,) u_eq v_eq continuity energy enstrophy palinstrophy
@@ -68,14 +67,46 @@ constexpr int NQPART = 3;
 // Kernel counts reported to the wrapper's launch counters.
 enum Count { C_STAGE, C_DIAG, C_CONTROL, C_COUNT };
 
+// Launch geometry of the stage kernel (sg_stage.cu), chosen on the host by
+// anap3_tpu_torch/ops/sg_kernels.py:stage_geometry and handed to every C
+// entry as an int array in this slot order. A block computes an output
+// tile of STAGE_TM rows by tn columns, STAGE_RM x STAGE_RN outputs a
+// thread; the `cluster` blocks of one row band form a thread-block cluster
+// (grid x = cluster, grid y = rows, grid z = lanes). Operand bands are
+// staged in k slabs of ks through a ring of `depth` slots, or, with depth
+// 0 ("burst"), every phase's bands whole (ks = nf) in regions of their
+// own, all copies issued at the start. smem is the dynamic shared memory of
+// a block in bytes; nparts = cluster * rows is the number of last-stage
+// partial-sum blocks a lane; ksplit (1, 2, 4 or 8) warp groups of a block
+// share each contraction, group g taking k = g, g + ksplit, ..., so the
+// arithmetic depends on tn and ksplit only, not on ks or depth.
+enum GeoSlot { G_TN, G_CLUSTER, G_ROWS, G_KS, G_DEPTH, G_SMEM, G_NPARTS,
+               G_KSPLIT, G_COUNT };
+constexpr int STAGE_TM = 8;
+constexpr int STAGE_RM = 2;
+constexpr int STAGE_RN = 2;
+constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+constexpr int MAX_SMEM = 232448;   // opt-in shared memory of a block
+
+struct StageGeo {
+  int tn, cluster, rows, ks, depth, smem, nparts, ksplit;
+};
+
+// Threads of one k group, and the most threads a block may have (the
+// kernel's launch bound, which leaves each thread the registers it needs
+// without spilling) for elements of `elem` bytes and tn columns.
+__host__ __device__ constexpr int stage_group_threads(int tn) {
+  return (STAGE_TM / STAGE_RM) * (tn / STAGE_RN);
+}
+__host__ __device__ constexpr int stage_max_threads(int elem, int tn) {
+  return tn == 48 ? (elem == 4 ? 384 : 192) : 256;
+}
+
 // Lane strides (elements) of the per-lane buffers at order nf - 1.
 __host__ __device__ inline int tiles(int n) { return (n + TILE - 1) / TILE; }
 __host__ __device__ inline size_t lane_full(int nf) { return (size_t)nf * nf; }
 __host__ __device__ inline size_t lane_inner(int nf) {
   return (size_t)(nf - 2) * (nf - 2);
-}
-__host__ __device__ inline size_t lane_left(int nf) {
-  return 4 * lane_full(nf) + 2 * (size_t)nf * (nf - 2);
 }
 __host__ __device__ inline size_t lane_blocks(int nf) {
   return (size_t)tiles(nf) * tiles(nf);
@@ -133,28 +164,11 @@ struct StageArgs {
   const T *u_in, *v_in, *p_in;
   const T *u0, *v0, *p0;
   T *u_out, *v_out, *p_out;
-  T* left;
   const T *tau_u, *tau_v, *tau_p;
   const T* scal;  // reads scal[S_DT]
   T alpha;
   T* part;        // non-null on the last stage
 };
-
-template <typename T>
-__device__ __forceinline__ StageArgs<T> at_lane(StageArgs<T> a, int b,
-                                               int nf) {
-  const size_t f = (size_t)b * lane_full(nf), q = (size_t)b * lane_inner(nf);
-  a.u_in += f; a.v_in += f; a.p_in += q;
-  a.u0 += f; a.v0 += f; a.p0 += q;
-  a.u_out += f; a.v_out += f; a.p_out += q;
-  a.left += (size_t)b * lane_left(nf);
-  if (a.tau_u) {
-    a.tau_u += f; a.tau_v += f; a.tau_p += q;
-  }
-  a.scal += (size_t)b * S_COUNT;
-  if (a.part) a.part += (size_t)b * lane_blocks(nf) * NPART;
-  return a;
-}
 
 // max that propagates NaN from either side (jnp.maximum / torch.maximum)
 template <typename T>
@@ -207,9 +221,13 @@ __device__ T block_max(T v, T* sh, int tid, int nthreads) {
 // Launchers, defined (and instantiated for float and double) in the .cu
 // file of each kernel, each for `lanes` lanes at once; pointers are lane 0's.
 // None synchronizes; each returns cudaGetLastError().
+// The geometry from the host's int array, checked against what the stage
+// kernel can take at order nf - 1 with elements of `elem` bytes;
+// cudaErrorInvalidValue when it cannot.
+cudaError_t stage_geometry(const int* geo, int nf, int elem, StageGeo* g);
 template <typename T>
 cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
-                         int lanes, cudaStream_t s);
+                         int lanes, const StageGeo& g, cudaStream_t s);
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
                       int nf, int lanes, cudaStream_t s);
@@ -218,15 +236,16 @@ cudaError_t launch_quadratures(const Ops<T>& o, const T* u, const T* v,
                                T* omega, T* qpart, int nf, int lanes,
                                cudaStream_t s);
 // rows: (chunk, lanes, 7), row `row` written; flags: (lanes, 3); ref_norm:
-// (lanes,)
+// (lanes,); part holds nparts blocks a lane, qpart lane_blocks(nf)
 template <typename T>
-cudaError_t launch_control(const T* part, const T* qpart, int sampled,
+cudaError_t launch_control(const T* part, int nparts, const T* qpart,
+                           int sampled,
                            T* scal, T* rows, int row, int idx, int warmup,
                            T tol, int use_residual, int* flags, T* ref_norm,
                            T* u, T* v, T* p, const T* u_new, const T* v_new,
                            const T* p_new, int nf, int lanes, cudaStream_t s);
 template <typename T>
-cudaError_t launch_step_finish(const T* part, const T* qpart, T* metrics,
-                               int nf, int lanes, cudaStream_t s);
+cudaError_t launch_step_finish(const T* part, int nparts, const T* qpart,
+                               T* metrics, int nf, int lanes, cudaStream_t s);
 
 }  // namespace sg

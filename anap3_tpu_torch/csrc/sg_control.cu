@@ -8,10 +8,11 @@
 //   anap3_tpu/ops/pallas_tiled.py make_tiled_chunk_runner. Semantics:
 //   anap3_tpu/models/runner.py make_chunk_runner.
 //
-// Bound on the card: pure latency. One block reduces ~81-441 partials per
-//   quantity and copies the committed state (3 x 16.6K values at N=128,
-//   L2-resident); with 1024 threads the copy's load latency, not bandwidth,
-//   is what remains.
+// Bound on the card: pure latency. One block reduces ~6-300 partials per
+//   quantity (the stage kernel's blocks, sg_stage.cu, and separately the
+//   quadrature kernels' 16x16 tiles, sg_diag.cu) and copies the committed
+//   state (3 x 16.6K values at N=128, L2-resident); with 1024 threads the
+//   copy's load latency, not bandwidth, is what remains.
 // Design: a single block, so the state machine runs in one thread with no
 //   inter-block handshake, and the partials reduce in a fixed-order tree
 //   (bit-reproducible). The commit of the new stage state into the chunk's
@@ -30,28 +31,30 @@ namespace sg {
 namespace {
 
 template <typename T>
-__device__ void reduce_partials(const T* part, int nparts, int nb, T* out,
+__device__ void reduce_partials(const T* part, int ncols, int nb, T* out,
                                 T* sh) {
   const int tid = threadIdx.x;
-  for (int q = 0; q < nparts; ++q) {
+  for (int q = 0; q < ncols; ++q) {
     T acc = 0;
-    for (int b = tid; b < nb; b += RED_THREADS) acc += part[(size_t)b * nparts + q];
+    for (int b = tid; b < nb; b += RED_THREADS)
+      acc += part[(size_t)b * ncols + q];
     acc = block_sum(acc, sh, tid, RED_THREADS);
     if (tid == 0) out[q] = acc;
   }
 }
 
 template <typename T>
-__global__ void control_kernel(const T* part, const T* qpart, int sampled,
-                               T* scal, T* rows, int row, int idx,
+__global__ void control_kernel(const T* part, int nparts, const T* qpart,
+                               int sampled, T* scal, T* rows, int row, int idx,
                                int warmup, T tol, int use_residual,
                                int* flags, T* ref_norm, T* u, T* v, T* p,
                                const T* u_new, const T* v_new,
                                const T* p_new, int nf) {
-  const int lane = blockIdx.x, nb = (int)lane_blocks(nf);
+  // the stage's partial-sum blocks and the quadratures' differ in number
+  const int lane = blockIdx.x, nq = (int)lane_blocks(nf);
   const size_t f = lane * lane_full(nf), q = lane * lane_inner(nf);
-  part += (size_t)lane * nb * NPART;
-  qpart += (size_t)lane * nb * NQPART;
+  part += (size_t)lane * nparts * NPART;
+  qpart += (size_t)lane * nq * NQPART;
   scal += (size_t)lane * S_COUNT;
   rows += ((size_t)row * gridDim.x + lane) * 7;
   flags += 3 * lane;
@@ -62,8 +65,8 @@ __global__ void control_kernel(const T* part, const T* qpart, int sampled,
   __shared__ T sums[NPART];
   __shared__ T qsums[NQPART];
   __shared__ int was_done;
-  reduce_partials(part, NPART, nb, sums, sh);
-  if (sampled) reduce_partials(qpart, NQPART, nb, qsums, sh);
+  reduce_partials(part, NPART, nparts, sums, sh);
+  if (sampled) reduce_partials(qpart, NQPART, nq, qsums, sh);
   if (threadIdx.x == 0) {
     if (sampled) {
       scal[S_E] = T(0.5) * qsums[0];
@@ -114,17 +117,17 @@ __global__ void control_kernel(const T* part, const T* qpart, int sampled,
 }
 
 template <typename T>
-__global__ void step_finish_kernel(const T* part, const T* qpart,
+__global__ void step_finish_kernel(const T* part, int nparts, const T* qpart,
                                    T* metrics, int nf) {
-  const int lane = blockIdx.x, nb = (int)lane_blocks(nf);
-  part += (size_t)lane * nb * NPART;
-  qpart += (size_t)lane * nb * NQPART;
+  const int lane = blockIdx.x, nq = (int)lane_blocks(nf);
+  part += (size_t)lane * nparts * NPART;
+  qpart += (size_t)lane * nq * NQPART;
   metrics += 6 * lane;
   __shared__ T sh[RED_THREADS];
   __shared__ T sums[NPART];
   __shared__ T qsums[NQPART];
-  reduce_partials(part, NPART, nb, sums, sh);
-  reduce_partials(qpart, NQPART, nb, qsums, sh);
+  reduce_partials(part, NPART, nparts, sums, sh);
+  reduce_partials(qpart, NQPART, nq, qsums, sh);
   if (threadIdx.x == 0) {
     metrics[0] = sqrt(sums[0]);
     metrics[1] = sqrt(sums[1]);
@@ -138,32 +141,32 @@ __global__ void step_finish_kernel(const T* part, const T* qpart,
 }  // namespace
 
 template <typename T>
-cudaError_t launch_control(const T* part, const T* qpart, int sampled,
-                           T* scal, T* rows, int row, int idx, int warmup,
-                           T tol, int use_residual, int* flags, T* ref_norm,
-                           T* u, T* v, T* p, const T* u_new, const T* v_new,
-                           const T* p_new, int nf, int lanes,
+cudaError_t launch_control(const T* part, int nparts, const T* qpart,
+                           int sampled, T* scal, T* rows, int row, int idx,
+                           int warmup, T tol, int use_residual, int* flags,
+                           T* ref_norm, T* u, T* v, T* p, const T* u_new,
+                           const T* v_new, const T* p_new, int nf, int lanes,
                            cudaStream_t s) {
   control_kernel<T><<<lanes, RED_THREADS, 0, s>>>(
-      part, qpart, sampled, scal, rows, row, idx, warmup, tol, use_residual,
-      flags, ref_norm, u, v, p, u_new, v_new, p_new, nf);
+      part, nparts, qpart, sampled, scal, rows, row, idx, warmup, tol,
+      use_residual, flags, ref_norm, u, v, p, u_new, v_new, p_new, nf);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_step_finish(const T* part, const T* qpart, T* metrics,
-                               int nf, int lanes, cudaStream_t s) {
-  step_finish_kernel<T><<<lanes, RED_THREADS, 0, s>>>(part, qpart, metrics,
-                                                       nf);
+cudaError_t launch_step_finish(const T* part, int nparts, const T* qpart,
+                               T* metrics, int nf, int lanes, cudaStream_t s) {
+  step_finish_kernel<T><<<lanes, RED_THREADS, 0, s>>>(part, nparts, qpart,
+                                                       metrics, nf);
   return cudaGetLastError();
 }
 
 #define SG_INSTANTIATE(T)                                                   \
   template cudaError_t launch_control<T>(                                   \
-      const T*, const T*, int, T*, T*, int, int, int, T, int, int*, T*,     \
+      const T*, int, const T*, int, T*, T*, int, int, int, T, int, int*, T*,\
       T*, T*, T*, const T*, const T*, const T*, int, int, cudaStream_t);    \
-  template cudaError_t launch_step_finish<T>(const T*, const T*, T*, int,   \
-                                             int, cudaStream_t);
+  template cudaError_t launch_step_finish<T>(const T*, int, const T*, T*,   \
+                                             int, int, cudaStream_t);
 SG_INSTANTIATE(float)
 SG_INSTANTIATE(double)
 #undef SG_INSTANTIATE

@@ -2,7 +2,7 @@
 PyTorch version.
 
 ``csrc/`` holds three kernels (sg_stage.cu, sg_diag.cu, sg_control.cu; see
-the note at the top of each) and three C host entries (sg_host.cu) that this
+the note at the top of each) and the C host entries (sg_host.cu) that this
 module calls through ``ctypes``:
 
 - ``make_sg_step(ops, with_tau=False)`` has the contract of
@@ -40,14 +40,23 @@ are exact on every step, because their partial sums come out of the last
 RK stage anyway; the JAX aligned kernel holds them between samples unless
 the residual criterion is on.
 
+Launch geometry: ``stage_geometry(nf, dtype, lanes)`` chooses the stage
+kernel's tile, cluster, k groups, shared memory and k-slab ring for an
+order, and every host entry takes it as an int array
+(``csrc/sg_common.cuh:GeoSlot``), so the CPU tests check each geometry the
+card will launch.
+
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
-by kernel (sg_stage, sg_diag, sg_control); ``PLAIN_CALLS`` counts calls of
-the plain versions. ``reset_counts()`` zeroes both.
+by kernel (sg_stage: one per RK stage; sg_diag; sg_control);
+``PLAIN_CALLS`` counts calls of the plain versions. ``reset_counts()``
+zeroes both.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -58,7 +67,8 @@ from ..models.spectral_sg import SpectralOps, SpectralState
 __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "step_plain", "chunk_plain", "smooth_plain", "LAUNCHES",
            "PLAIN_CALLS", "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS",
-           "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body"]
+           "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body",
+           "stage_geometry", "StageGeometry"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
@@ -73,13 +83,139 @@ _PTR_NAMES = (
     "W2d", "sing_u", "sing_v", "sing_dudx", "sing_dudy", "sing_dvdx",
     "sing_dvdy", "sing_w", "sing_dwx", "sing_dwy",
     "u", "v", "p", "au", "av", "ap", "bu", "bv", "bp",
-    "left", "omega", "part", "qpart", "scal", "tau_u", "tau_v", "tau_p",
+    "omega", "part", "qpart", "scal", "tau_u", "tau_v", "tau_p",
     "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc")
 _OP_NAMES = _PTR_NAMES[:20]
 _STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
               "palinstrophy")
 _NPART, _NQPART, _NSCAL = 5, 3, 6  # csrc/sg_common.cuh
-_TILE = 16
+_TILE = 16  # the quadrature kernels' tile (csrc/sg_common.cuh:TILE)
+# csrc/sg_common.cuh: STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER, MAX_SMEM,
+# GeoSlot
+STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER, MAX_SMEM = 8, 2, 2, 8, 232448
+_GEO_SLOTS = ("tn", "cluster", "rows", "ks", "depth", "smem", "nparts",
+              "ksplit")
+_STAGE_TNS = (16, 32, 48)
+_KSPLITS = (1, 2, 4, 8)
+
+
+def stage_group_threads(tn: int) -> int:
+    """Threads of one k group (csrc/sg_common.cuh:stage_group_threads)."""
+    return (STAGE_TM // STAGE_RM) * (tn // STAGE_RN)
+
+
+def stage_max_threads(elem: int, tn: int) -> int:
+    """The stage kernel's launch bound for elements of ``elem`` bytes and
+    ``tn`` columns (csrc/sg_common.cuh:stage_max_threads)."""
+    return (384 if elem == 4 else 192) if tn == 48 else 256
+
+
+class StageGeometry(NamedTuple):
+    """The stage kernel's launch geometry at one order and dtype (slots
+    ``tn`` .. ``ksplit`` in ``csrc/sg_common.cuh:GeoSlot`` order, then the
+    derived launch shape)."""
+    tn: int        # output columns of a block (rows: STAGE_TM)
+    cluster: int   # blocks of a row band = grid x
+    rows: int      # row bands = grid y
+    ks: int        # k-slab width (>= nf: the whole band in one slab)
+    depth: int     # ring slots
+    smem: int      # dynamic shared memory of a block, bytes
+    nparts: int    # last-stage partial-sum blocks a lane
+    ksplit: int    # warp groups that share each contraction
+    threads: int   # threads of a block
+    grid: tuple    # (x, y) blocks a lane
+
+    def as_c(self):
+        """The int array the C entries take."""
+        return (ctypes.c_int * len(_GEO_SLOTS))(
+            *(getattr(self, k) for k in _GEO_SLOTS))
+
+
+def _stage_smem_elems(nf: int, tn: int, ks: int, depth: int,
+                      ksplit: int) -> int:
+    """Shared memory of a stage block in elements, as
+    csrc/sg_stage.cu:stage_smem_elems lays it out: its own Gx p / Ix p
+    slices, the gathered bands (nip = (nf - 2) | 1 rows of 8), the k
+    groups' reduction (32 sums a thread) or the warps' partial sums, then
+    ``depth`` ring slots of the largest phase's slab (4 row bands and 4
+    column bands)."""
+    nip = (nf - 2) | 1
+    nt0 = stage_group_threads(tn)
+    red = max((ksplit - 1) * 32 * nt0, ksplit * nt0 // 32 * _NPART)
+    red += red % 2
+    slot = 4 * ks * STAGE_TM + 4 * ks * tn
+    return 2 * STAGE_TM * tn + 2 * STAGE_TM * nip + red + depth * slot
+
+
+# warp groups sharing each contraction, by column tile, and the staging
+# rule of stage_geometry: measured on an H100 by scripts/sg_stage_tune.py
+# (PERF.md, section 6)
+_KSPLIT_OF_TN = {16: 4, 32: 2, 48: 2}
+SMS = 132  # streaming multiprocessors of an H100 SXM: one wave of blocks
+
+
+@functools.lru_cache(maxsize=None)
+def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
+                   tn: int = None, ksplit: int = None, ks: int = None,
+                   depth: int = None) -> StageGeometry:
+    """The stage kernel's geometry at order nf - 1 in ``dtype`` for a launch
+    of ``lanes`` lanes.
+
+    The column tile is the narrowest of 16, 32, 48 whose row band fits a
+    portable cluster (<= 8 blocks), which keeps the blocks small and many;
+    rows are 8 a block; ``_KSPLIT_OF_TN`` warp groups share each
+    contraction. Tile and k groups fix the arithmetic, so they do not
+    depend on ``lanes``: lane b of a B-lane launch gives the bits of a
+    one-lane launch. The staging does: a launch of one wave of blocks (at
+    most ``SMS``) takes every band whole (ks = nf, one slot), as does any
+    launch up to N = 63; a larger one streams the bands through a ring of
+    two 32-wide slabs, which keeps a block's shared memory small so that
+    several blocks share an SM; where that does not fit, a ring of 32- or
+    16-wide slabs, 3 slots where they fit, else 2. ``tn``, ``ksplit``, ``ks`` and ``depth`` override the
+    choice (scripts/sg_stage_tune.py sweeps them). Raises on an order,
+    dtype or override the kernel cannot take."""
+    elem = {torch.float32: 4, torch.float64: 8}.get(dtype)
+    if elem is None:
+        raise TypeError(f"the SG kernels take float32 or float64, not {dtype}")
+    if nf < 3:
+        raise ValueError(f"order {nf - 1} is too small for the stage kernel")
+    if tn is None:
+        tn = next((t for t in _STAGE_TNS if -(-nf // t) <= MAX_CLUSTER),
+                  None)
+        if tn is None:
+            raise ValueError(f"order {nf - 1}: the row band needs more than "
+                             f"{MAX_CLUSTER} blocks of {_STAGE_TNS[-1]} "
+                             "columns")
+    cluster, rows = -(-nf // tn), -(-nf // STAGE_TM)
+    if tn not in _STAGE_TNS or cluster > MAX_CLUSTER:
+        raise ValueError(f"order {nf - 1}: no tile of {tn} columns")
+    most = stage_max_threads(elem, tn) // stage_group_threads(tn)
+    if ksplit is None:
+        ksplit = min(_KSPLIT_OF_TN[tn], most)
+    if ksplit not in _KSPLITS or ksplit > most:
+        raise ValueError(f"ksplit {ksplit} is not one of {_KSPLITS} up to "
+                         f"{most}")
+
+    def smem(k, d):
+        return elem * _stage_smem_elems(nf, tn, k, d, ksplit)
+
+    if ks is None or depth is None:
+        first = ((nf, 1) if lanes * cluster * rows <= SMS or nf <= 64
+                 else (32, 2))
+        candidates = [first] + [(k, d) for k in (32, 16) for d in (3, 2)]
+        ks, depth = next(((k, d) for k, d in candidates
+                          if smem(k, d) <= MAX_SMEM), (None, None))
+        if ks is None:
+            raise ValueError(f"order {nf - 1} {dtype}: no ring fits in "
+                             f"{MAX_SMEM} bytes of shared memory")
+    if not 1 <= depth <= 3 or (ks < nf and ks % ksplit) or smem(
+            ks, depth) > MAX_SMEM:
+        raise ValueError(f"order {nf - 1} {dtype}: ks {ks} depth {depth} "
+                         f"ksplit {ksplit} cannot be launched")
+    return StageGeometry(
+        tn=tn, cluster=cluster, rows=rows, ks=ks, depth=depth,
+        smem=smem(ks, depth), nparts=cluster * rows, ksplit=ksplit,
+        threads=ksplit * stage_group_threads(tn), grid=(cluster, rows))
 
 
 def reset_counts() -> None:
@@ -142,20 +278,21 @@ def _check_state(ops: SpectralOps, state: SpectralState):
 
 def _workspace(ops: SpectralOps, lanes: int = 1, **bufs) -> dict:
     """The pointer table's operators and per-step scratch for ``lanes``
-    lanes (lane-major), updated with ``bufs``."""
+    lanes (lane-major), updated with ``bufs``: the stage kernel's partial
+    sums (``stage_geometry(...).nparts`` blocks a lane) and the quadrature
+    kernels' (one per 16x16 tile) differ in number."""
     nf, ni = ops.nf, ops.nf - 2
     tiles = (nf + _TILE - 1) // _TILE
-    nb = tiles * tiles
     kw = dict(dtype=ops.dtype, device=ops.device)
     ws = {name: getattr(ops, name) for name in _OP_NAMES}
     ws.update(
         au=torch.empty((lanes, nf, nf), **kw),
         av=torch.empty((lanes, nf, nf), **kw),
         ap=torch.empty((lanes, ni, ni), **kw),
-        left=torch.empty((lanes, 4 * nf * nf + 2 * nf * ni), **kw),
         omega=torch.empty((lanes, nf, nf), **kw),
-        part=torch.empty((lanes, nb, _NPART), **kw),
-        qpart=torch.empty((lanes, nb, _NQPART), **kw),
+        part=torch.empty((lanes, stage_geometry(nf, ops.dtype).nparts,
+                          _NPART), **kw),
+        qpart=torch.empty((lanes, tiles * tiles, _NQPART), **kw),
         scal=torch.zeros((lanes, _NSCAL), **kw))
     ws.update(bufs)
     return ws
@@ -175,6 +312,12 @@ def _raise_on(lib, rc: int, what: str):
     if rc != 0:
         msg = lib.sg_error_string(rc).decode()
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
+
+
+def _geo(ops: SpectralOps, lanes: int = 1):
+    """The stage geometry of ``ops`` for ``lanes`` lanes as the C entries
+    take it."""
+    return stage_geometry(ops.nf, ops.dtype, lanes).as_c()
 
 
 def _count(counts):
@@ -223,8 +366,9 @@ def _step_kernel(ops, state, tau, lsc):
     ws = _workspace(ops, u=state.u, v=state.v, p=state.p, bu=out.u,
                     bv=out.v, bp=out.p, metrics=metrics, lsc=lsc, **taus)
     counts = (ctypes.c_int * 3)()
-    rc = lib.sg_step_run(_dtype_code(ops.dtype), nf, _ptr_table(ws),
-                         int(tau is not None), counts, _stream())
+    rc = lib.sg_step_run(_dtype_code(ops.dtype), nf, _geo(ops),
+                         _ptr_table(ws), int(tau is not None), counts,
+                         _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_step_run")
     return out, dict(zip(_STEP_KEYS, metrics.unbind()))
@@ -288,7 +432,7 @@ def make_sg_smoother(ops: SpectralOps):
         ws = dict(scratch, u=state.u, v=state.v, p=state.p, bu=out.u,
                   bv=out.v, bp=out.p, metrics=metrics, **taus)
         counts = (ctypes.c_int * 3)()
-        rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf,
+        rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
                                _ptr_table(ws), int(n_steps), int(bool(taus)),
                                counts, _stream())
         _count(counts)
@@ -375,9 +519,9 @@ def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
     lib = load_library("sg")
     ws = chunk_workspace(ops, state, chunk, ref_norm, lsc)
     counts = (ctypes.c_int * 3)()
-    rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _ptr_table(ws),
-                          int(chunk), int(start_iter), int(warmup),
-                          int(metrics_every), int(use_residual),
+    rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
+                          _ptr_table(ws), int(chunk), int(start_iter),
+                          int(warmup), int(metrics_every), int(use_residual),
                           float(tolerance), counts, _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_chunk_run")
@@ -413,15 +557,18 @@ def make_sg_chunk_runner(ops: SpectralOps, chunk: int, tolerance: float,
 
 
 def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int,
-                 lanes: int = 1) -> None:
+                 lanes: int = 1, geometry: StageGeometry = None) -> None:
     """Enqueue ``reps`` launches of one kernel on a chunk workspace of
     ``lanes`` lanes, for timing only (not counted in LAUNCHES): "sg_stage"
-    is one last-stage left+row pair, "sg_diag" the dt and quadrature
-    launches, "sg_control" one sampled-step control launch."""
+    is one last-stage launch, "sg_diag" the dt and quadrature launches,
+    "sg_control" one sampled-step control launch. ``geometry`` (one of
+    the same tile and cluster, so the partial sums fit) replaces the stage
+    geometry of ``ops``."""
     from ._build import load_library
 
     lib = load_library("sg")
-    rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, int(lanes),
-                          _ptr_table(ws), KERNELS.index(which), int(reps),
-                          _stream())
+    geo = _geo(ops, lanes) if geometry is None else geometry.as_c()
+    rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, geo,
+                          int(lanes), _ptr_table(ws), KERNELS.index(which),
+                          int(reps), _stream())
     _raise_on(lib, rc, f"sg_bench_run({which})")

@@ -7,12 +7,17 @@ when it fails:
 
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the cold build of the SG and FV kernels from ``csrc/``
-   (one ``nvcc`` per family, started together);
+   (one ``nvcc`` per family, started together); ptxas must report no
+   spill and no stack frame in any instantiation of the stage kernel;
 2. SG kernels: every kernel wrapper (step, tau step, chunk of 64 steps with
    metrics_every=16 and warmup 10) against its plain PyTorch version on the
-   same CUDA tensors, at N = 48, 96, 128, float32 and float64, smoothed and
-   singular lids; tolerances: relative max error <= 1e-11 in float64 and
-   <= 1e-4 in float32, done/conv_iter equal; kernel and plain ms/step;
+   same CUDA tensors, at N = 20, 48, 96, 128, 192, 320 (the stage kernel's
+   geometry branches: 16-, 32- and 48-wide tiles, whole bands and rings),
+   float32 and float64, smoothed and singular lids; tolerances: relative
+   max error <= 1e-11 in float64 and <= 1e-4 in float32, done/conv_iter
+   equal; kernel and plain ms/step at N = 48, 96, 128; at N=128 float32 the
+   per-kernel times, the stage's library yardstick (its 12 products as
+   torch.matmul) and a torch.profiler idle share of a one-lane chunk;
 2b. FV kernels: a 32-iteration chunk from rest and one step from the flow
    it reaches, kernel against plain, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64 (float64 with n_refine 0 and 1), TVD and upwind;
@@ -298,6 +303,22 @@ def params(n, dtype, corner="smoothing", **kw):
     return SpectralParameters(**base)
 
 
+def stage_build_check(report):
+    """ptxas's report of the stage kernel (every instantiation): the
+    largest stack frame and spill stores, both of which must be 0."""
+    blocks = re.findall(r"Function properties for \S*stage_kernel\S*\n"
+                        r"\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                        r"stores", report)
+    check(blocks, "ptxas reported no stage_kernel")
+    frame = max(int(f) for f, _ in blocks)
+    spill = max(int(sp) for _, sp in blocks)
+    print(f"[device] stage_kernel: {len(blocks)} instantiations, largest "
+          f"stack frame {frame} bytes, spill stores {spill} bytes",
+          flush=True)
+    check(frame == 0 and spill == 0, "stage_kernel spills or has a stack "
+          "frame")
+
+
 def phase_device():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     smi = subprocess.run(
@@ -313,7 +334,10 @@ def phase_device():
     for family in ("sg", "fv"):
         info = build_info(family)
         check(info.get("path"), f"the {family} kernel library did not load")
-        report = info.get("ptxas", "")
+        # this process's build, or the report the cached build left
+        log = Path(info["path"]).parent / "build.log"
+        report = info.get("ptxas") or (log.read_text() if log.exists()
+                                        else "")
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
         spills = [int(b) for b in
                   re.findall(r"(\d+) bytes spill stores", report)]
@@ -325,6 +349,8 @@ def phase_device():
               f"spill stores, largest stack frame {max(stacks, default=0)} "
               f"bytes (report: {Path(info['path']).parent / 'build.log'})",
               flush=True)
+        if family == "sg":
+            stage_build_check(report)
     return card
 
 
@@ -341,7 +367,7 @@ def random_state(ops, rng):
 def phase_kernels(summary):
     rng = np.random.default_rng(0)
     chunk, m_every, warmup = 64, 16, 10
-    for n in (48, 96, 128):
+    for n in (20, 48, 96, 128, 192, 320):
         for dt_name in ("float32", "float64"):
             tol = 1e-4 if dt_name == "float32" else 1e-11
             for corner in ("smoothing", "singular"):
@@ -385,7 +411,7 @@ def phase_kernels(summary):
                       f"error {worst:.3e} > {tol:.0e}")
                 check(flags_k == flags_p, f"flags differ: {flags_k} vs "
                       f"{flags_p}")
-                if corner == "smoothing":
+                if corner == "smoothing" and n in (48, 96, 128):
                     t_k = cuda_ms(lambda: run_k(st0, 0, ref), 3) / chunk
                     t_p = cuda_ms(lambda: sgk.chunk_plain(
                         ops, st0, 0, ref, chunk, 1e-30, warmup, False,
@@ -457,12 +483,38 @@ def time_kernels(ops, st0, summary):
         summary[name]["plain_ms"] = cuda_ms(fn, 50)
     for name, (b_ms, b_by) in sg_bounds(ops.nf, ops.dtype).items():
         summary[name].update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    summary["sg_stage"]["library_ms"] = stage_library_ms(ops, st)
+    print(f"[kernels] sg_stage library yardstick (12 products as "
+          f"torch.matmul, TF32 off): {summary['sg_stage']['library_ms']:.4f}"
+          f" ms", flush=True)
+    profile_chunk(lambda: run(st, 16, float("inf")),
+                  "profile SG N=128 float32 one lane, 16-step chunk")
     for name in sgk.KERNELS:
         print(f"[kernels] {name} at N=128 float32: kernel "
               f"{summary[name]['ms']:.4f} ms, plain "
               f"{summary[name]['plain_ms']:.4f} ms, bound "
               f"{summary[name]['bound_ms']:.5f} ms "
               f"({summary[name]['bound_by']})", flush=True)
+
+
+def stage_library_ms(ops, st):
+    """torch.matmul doing the stage's 12 products on stacked operands in
+    the working dtype, TF32 off: [Dx, Dxx, Dx, Dxx] @ [u, u, v, v],
+    [u, u, v, v] @ [DyT, DyyT, DyT, DyyT], and ([Gx, Ix] @ p) @ [IyT, GyT].
+    A yardstick only; the port never calls it."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    u, v, p = st
+    left = torch.stack([ops.Dx, ops.Dxx, ops.Dx, ops.Dxx])
+    fields = torch.stack([u, u, v, v])
+    right = torch.stack([ops.DyT, ops.DyyT, ops.DyT, ops.DyyT])
+    grads = torch.stack([ops.Gx, ops.Ix])
+    interp = torch.stack([ops.IyT, ops.GyT])
+
+    def products():
+        return (torch.matmul(left, fields), torch.matmul(fields, right),
+                torch.matmul(torch.matmul(grads, p), interp))
+
+    return cuda_ms(products, 50)
 
 
 def ring_zero_tau(ops, rng, scale=0.01):

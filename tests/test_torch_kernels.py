@@ -404,20 +404,22 @@ class TestOnCard:
         st = T.initial_state(ops)
         sgk.reset_counts()
         sgk.make_sg_step(ops)(st)
-        assert sgk.LAUNCHES == {"sg_stage": 8, "sg_diag": 3, "sg_control": 1}
+        # one stage launch per RK stage
+        assert sgk.LAUNCHES == {"sg_stage": 4, "sg_diag": 3, "sg_control": 1}
         sgk.reset_counts()
         sgk.make_sg_chunk_runner(ops, 20, 1e-30, 10, "rel_iter", 16)(
             st, 0, np.inf)
-        # 2 sampled steps (i=0, idx=16) run the two quadrature launches
-        assert sgk.LAUNCHES == {"sg_stage": 160, "sg_diag": 24,
+        # 6 launches a step; 2 sampled steps (i=0, idx=16) run the two
+        # quadrature launches
+        assert sgk.LAUNCHES == {"sg_stage": 80, "sg_diag": 24,
                                 "sg_control": 20}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
         sgk.reset_counts()
         sgk.make_sg_smoother(ops)(st, None, 5)
-        # 9 launches a step (dt, 4 stage pairs) and 3 at the end
+        # 5 launches a step (dt, 4 stages) and 3 at the end
         # (quadratures, metrics)
-        assert sgk.LAUNCHES == {"sg_stage": 40, "sg_diag": 7,
+        assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 7,
                                 "sg_control": 1}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}

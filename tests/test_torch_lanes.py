@@ -554,9 +554,9 @@ class TestOnCard:
         sgl.reset_counts()
         sgk.reset_counts()
         sgl.make_lane_chunk_runner(ops, 20, 1e-30)(st, 0)
-        # 10 launches a step for all lanes, 2 more on the sampled steps
+        # 6 launches a step for all lanes, 2 more on the sampled steps
         # (i = 0 and idx = 16)
-        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 204}
+        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 124}
         assert sgk.LAUNCHES == {k: 0 for k in sgk.KERNELS}
         assert sgl.PLAIN_CALLS == {"sg_lanes": 0}
 
