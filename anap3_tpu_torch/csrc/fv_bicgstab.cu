@@ -1,5 +1,5 @@
-// fv_bicgstab: one iteration of the fixed-count joint u/v Jacobi-BiCGSTAB of
-// the momentum predictor, in three launches.
+// fv_bicgstab: the fixed-count joint u/v Jacobi-BiCGSTAB of the momentum
+// predictor, one cooperative launch per solve.
 //
 // Replaces: bicg_iter, the fori_loop body of the body _make_iterate of
 //   anap3_tpu/ops/pallas_fv.py (make_pallas_fv_step,
@@ -11,38 +11,67 @@
 //
 // Bound on the card: a chain of dependent grid-wide inner products
 //   (<rh,r> and ||r||^2 -> rho and the guard; <rh,v> -> alpha; <t,s> and
-//   <t,t> -> omega): three global syncs per iteration, 48 launches per SIMPLE
-//   iteration at K=16. The arithmetic (two 5-point applies on 2 x 16K cells
-//   at N=128) is far below a microsecond, yet a launch takes ~5.5 us with
-//   ~1.2 us between launches (torch.profiler, H100 700 W): the serial
-//   in-block reductions at the start and end of each launch are the likely
-//   cost, latency rather than bytes or flops.
-// Design: a launch per sync. Each launch starts by reducing the previous
-//   launch's per-block partials in a fixed order, in every block (no
-//   atomics, no extra launch, bit-reproducible), so every block holds the
-//   same scalars; block 0 records them in slot k+1 of a small device array,
-//   which only later launches read. The direction launch computes p on its
-//   haloed tile (from r, p_old, v_old of earlier launches) so v = A M p needs
-//   no extra sync; the stabilize launch does the same for s and t = A M s;
-//   the update launch applies x and r and writes the next <rh,r>, ||r||^2
-//   partials. p and v alternate between two buffers so no block overwrites
-//   a value another block still reads.
-// Lanes: the lane is the grid's z axis. Each lane reduces its own partials
-//   into its own slots, so its rho, alpha, omega and breakdown guard are its
-//   own (the per-lane scalars of anap3_tpu/ops/pallas_fv_lanes.py
-//   make_fv_lane_runner's bicg_iter).
+//   <t,t> -> omega): three grid-wide barriers per iteration, 48 a solve at
+//   K=16. The arithmetic (two 5-point applies on 2 x 16K cells at N=128) is
+//   far below a microsecond; the chain is latency: a grid barrier costs
+//   1.2-1.7 us at 64-512 blocks, a launch 3.1-3.6 us (scripts/
+//   launch_floor.cu, H100 700 W), so one launch with 47 barriers replaces
+//   48 launches.
+// Design: one persistent cooperative launch (cudaLaunchAttributeCooperative)
+//   of min(tiles x lanes, co-resident) blocks of 256 threads, a thread a
+//   cell of a 16 x 16 tile; block
+//   blockIdx.x takes the (tile, lane) items blockIdx.x, blockIdx.x + grid,
+//   ... in every phase, and K x (direction, stabilize, update) run with a
+//   grid barrier between phases. Each phase starts by reducing the previous
+//   phase's per-tile partials of its lane in every block, so every block
+//   holds the same scalars without atomics; the direction phase computes p
+//   on its haloed tile (from r, p_old, v_old of the previous phases) so v =
+//   A M p needs no extra barrier; the stabilize phase does the same for s
+//   and t = A M s; the update phase applies x and r and writes the next
+//   <rh,r>, ||r||^2 partials. p and v alternate between two buffers so no
+//   block overwrites a value another block still reads.
+//   The reductions keep the three-launch kernel's bits: the partials are
+//   indexed by tile, not by block, each tile's partial is the 256-slot
+//   fixed-order tree of its cells, and each lane sum the 256-slot tree of
+//   the thread sums over the tiles; a warp a column computes the tree's
+//   first three levels from eight values and its last five by
+//   __shfl_down_sync at strides 16..1, which pairs lane l with l + s as the
+//   tree does, so all columns of a phase are summed in one pass with one
+//   __syncthreads instead of 9 a column. The loads that do not depend on
+//   the phase's scalars are issued before its lane sums, so that their
+//   latency overlaps the reductions. The scalars of an iteration (rho,
+//   alpha, omega, the guard) stay in shared memory per item across phases,
+//   from the start values the assembly writes into the lane's slot.
+// Lanes: a lane's items reduce their own lane's partials, so its rho,
+//   alpha, omega and breakdown guard are its own (the per-lane scalars of
+//   anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner's bicg_iter), and
+//   lane b of a B-lane launch gives the bits of a one-lane launch.
+// No fallback: a card without cooperative launch, or a grid whose items do
+//   not fit MAX_ITEMS a co-resident block, is refused with an error.
+#include <cooperative_groups.h>
+
 #include "fv_common.cuh"
 
 namespace fv {
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr double kEps = 1e-30;
 constexpr double kGuard = 1e-16;
+constexpr int MAX_ITEMS = 64;  // (tile, lane) items a block may take
+
+// Per-item scalars in shared memory: rho (rho_k, then rho1), alpha, omega,
+// ||rhs||^2 + eps, and the guard (1 or 0).
+enum Sc { SC_RHO, SC_ALPHA, SC_OMEGA, SC_RHSN2, SC_ACTIVE, SC_COUNT };
 
 template <typename T>
-__device__ T* slot(const Work<T>& w, int k) {
-  return w.slots + (size_t)k * SL_COUNT;
-}
+struct Smem {
+  T sm[4][HT][HT];             // haloed tiles of the applies
+  T vals[4 * NT];              // the threads' values of a phase's partials
+  T sums[8];                   // the lane sums a phase starts from
+  T sc[MAX_ITEMS][SC_COUNT];   // per item scalars, across phases
+};
 
 // One of the two alternating p (or v) buffers. A select, not an index: an
 // array member indexed at run time would put the kernel's lane-shifted
@@ -52,20 +81,102 @@ __device__ __forceinline__ T* buf(T* const (&pair)[2], int parity) {
   return (parity & 1) ? pair[1] : pair[0];
 }
 
-// 5-point apply on a shared haloed tile (zero outside the grid)
+// 5-point apply on a shared haloed tile (zero outside the grid), with the
+// cell's coefficients a = (aP_rel, aE, aW, aN, aS)
 template <typename T>
-__device__ T apply_A(const Work<T>& w, size_t k, T (*f)[HT], int hj,
-                     int hi) {
-  return w.aPr[k] * f[hj][hi] + w.aE[k] * f[hj][hi + 1]
-         + w.aW[k] * f[hj][hi - 1] + w.aN[k] * f[hj + 1][hi]
-         + w.aS[k] * f[hj - 1][hi];
+__device__ T apply_A(const T (&a)[5], T (*f)[HT], int hj, int hi) {
+  return a[0] * f[hj][hi] + a[1] * f[hj][hi + 1] + a[2] * f[hj][hi - 1]
+         + a[3] * f[hj + 1][hi] + a[4] * f[hj - 1][hi];
 }
 
+// A cell of the haloed tile that thread tid + u NT fills (u < HSLOTS):
+// its grid index, whether it is on the grid and whether it is the
+// block's own.
+constexpr int HSLOTS = (HT * HT + NT - 1) / NT;
+struct HaloCell {
+  size_t k;
+  int hj, hi;
+  bool used, in, mine;
+};
+
+__device__ __forceinline__ HaloCell halo_cell(int u, int ny, int nx,
+                                              const TileCell& c) {
+  HaloCell h;
+  const int e = c.tid + u * NT;
+  h.used = e < HT * HT;
+  h.hj = e / HT;
+  h.hi = e % HT;
+  const int jj = c.j0 - 1 + h.hj, ii = c.i0 - 1 + h.hi;
+  h.in = h.used && jj >= 0 && jj < ny && ii >= 0 && ii < nx;
+  h.mine = h.in && h.hj >= 1 && h.hj <= TILE && h.hi >= 1 && h.hi <= TILE;
+  h.k = h.in ? (size_t)jj * nx + ii : 0;
+  return h;
+}
+
+// The own cell's coefficients (zeros off the grid).
 template <typename T>
-__device__ void write_partial(T* part, int ncol, int col, T v, T* red,
-                              const TileCell& c) {
-  v = block_sum(v, red, c.tid, NT);
-  if (c.tid == 0) part[(size_t)c.b * ncol + col] = v;
+__device__ __forceinline__ void load_coefs(const Work<T>& w, bool own,
+                                           size_t k0, T (&a)[5]) {
+  const T* src[5] = {w.aPr, w.aE, w.aW, w.aN, w.aS};
+#pragma unroll
+  for (int q = 0; q < 5; ++q) a[q] = own ? src[q][k0] : T(0);
+}
+
+// This thread's cell of tile `tile` (row-major over the tiles).
+__device__ __forceinline__ TileCell tile_at(int tile, int tiles_x) {
+  TileCell c;
+  c.tid = threadIdx.x;
+  c.tx = c.tid % TILE;
+  c.ty = c.tid / TILE;
+  c.j0 = (tile / tiles_x) * TILE;
+  c.i0 = (tile % tiles_x) * TILE;
+  c.j = c.j0 + c.ty;
+  c.i = c.i0 + c.tx;
+  c.b = tile;
+  return c;
+}
+
+// Column `col` of a lane's (nb, ncol) partial table, summed by one warp as
+// reduce_col sums it: thread t's running sum over b = t, t + NT, ...,
+// then the NT-slot tree. Lane l holds the running sums of threads
+// l + 32 j (j < 8) and adds them as the tree's first three levels pair
+// them; the last five levels are shuffles. Valid in lane 0.
+template <typename T>
+__device__ T warp_col_sum(const T* part, int ncol, int col, int nb) {
+  static_assert(NT == 256, "eight running sums a warp lane");
+  const int l = threadIdx.x % 32;
+  T a[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j] = T(0);
+    for (int b = l + 32 * j; b < nb; b += NT)
+      a[j] += part[(size_t)b * ncol + col];
+  }
+  T v = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]));
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
+  return v;
+}
+
+// The threads' values v[0, NCOL) summed per column as block_sum sums them,
+// into part[tile * NCOL + c]: the values go through shared memory, then
+// warp c adds column c (the tree's first three levels from eight slots,
+// the last five as shuffles).
+template <typename T, int NCOL>
+__device__ void write_partials(const T (&v)[NCOL], Smem<T>& S, T* part,
+                               int tile) {
+  const int tid = threadIdx.x, wp = tid / 32, l = tid % 32;
+#pragma unroll
+  for (int q = 0; q < NCOL; ++q) S.vals[q * NT + tid] = v[q];
+  __syncthreads();
+  if (wp < NCOL) {
+    const T* col = S.vals + wp * NT + l;
+    T x = ((col[0] + col[128]) + (col[64] + col[192]))
+          + ((col[32] + col[160]) + (col[96] + col[224]));
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) x += __shfl_down_sync(0xffffffffu, x, s);
+    if (l == 0) part[(size_t)tile * NCOL + wp] = x;
+  }
 }
 
 template <typename T>
@@ -73,184 +184,298 @@ __device__ bool own_cell(const Grid<T>& g, const TileCell& c) {
   return c.j < g.ny && c.i < g.nx;
 }
 
-// rho1, beta, p = r + beta (p - omega v), v = A M p
+// rho1, beta, p = r + beta (p - omega v), v = A M p. Every phase issues
+// the loads that do not depend on the iteration's scalars before the lane
+// sums, so that their latency overlaps the reductions.
 template <typename T>
 __device__ void direction(int k, const Grid<T>& g, const Work<T>& w,
-                          T (*sm)[HT][HT], T* red) {
-  const TileCell c = tile_cell();
-  const int n = g.ny * g.nx;
+                          const TileCell& c, T* sc, Smem<T>& S) {
+  const int n = g.ny * g.nx, wp = c.tid / 32;
   const T eps = T(kEps);
-  const T rr = reduce_col(w.part_r, 4, 0, g.nb, red, c.tid, NT)
-               + reduce_col(w.part_r, 4, 1, g.nb, red, c.tid, NT);
-  const T rhr = reduce_col(w.part_r, 4, 2, g.nb, red, c.tid, NT)
-                + reduce_col(w.part_r, 4, 3, g.nb, red, c.tid, NT);
-  T rhsn2;
-  if (k == 0)
-    rhsn2 = (reduce_col(w.part_rhs, 2, 0, g.nb, red, c.tid, NT)
-             + reduce_col(w.part_rhs, 2, 1, g.nb, red, c.tid, NT)) + eps;
-  else
-    rhsn2 = slot(w, 0)[SL_ACTIVE];  // slot 0 has no guard; it keeps this
-  const T* old = slot(w, k);
-  const bool active = rr > T(kGuard) * rhsn2;
-  const T rho_k = old[SL_RHO], alpha_k = old[SL_ALPHA], omega_k = old[SL_OMEGA];
-  const T rho1 = active ? rhr : rho_k;
-  const T beta = (rho1 / (rho_k + eps)) * (alpha_k / (omega_k + eps));
   const T* pv_old = buf(w.pv, k);
   const T* vv_old = buf(w.vv, k);
   T* pv_new = buf(w.pv, k + 1);
   T* vv_new = buf(w.vv, k + 1);
-  for (int h = c.tid; h < HT * HT; h += NT) {
-    const int hj = h / HT, hi = h % HT;
-    const int jj = c.j0 - 1 + hj, ii = c.i0 - 1 + hi;
-    const bool in = jj >= 0 && jj < g.ny && ii >= 0 && ii < g.nx;
-    const bool mine = in && hj >= 1 && hj <= TILE && hi >= 1 && hi <= TILE;
-    const size_t kk = (size_t)jj * g.nx + ii;
+  HaloCell hc[HSLOTS];
+  T hr[HSLOTS][2], hp[HSLOTS][2], hv[HSLOTS][2], ha[HSLOTS];
+#pragma unroll
+  for (int u = 0; u < HSLOTS; ++u) {
+    hc[u] = halo_cell(u, g.ny, g.nx, c);
+    ha[u] = hc[u].in ? w.aPr[hc[u].k] : T(1);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const size_t o = (size_t)q * n + hc[u].k;
+      hr[u][q] = hc[u].in ? w.r[o] : T(0);
+      hp[u][q] = hc[u].in ? pv_old[o] : T(0);
+      hv[u][q] = hc[u].in ? vv_old[o] : T(0);
+    }
+  }
+  const bool own = own_cell(g, c);
+  const size_t k0 = own ? (size_t)c.j * g.nx + c.i : 0;
+  T a[5], rh[2], vo[2];
+  load_coefs(w, own, k0, a);
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    rh[q] = own ? w.rh[(size_t)q * n + k0] : T(0);
+    vo[q] = own ? vv_old[(size_t)q * n + k0] : T(0);
+  }
+  // ||r||^2 and <rh,r> by component; at k = 0 also ||rhs||^2
+  if (wp < 4) {
+    const T v = warp_col_sum(w.part_r, 4, wp, g.nb);
+    if (c.tid % 32 == 0) S.sums[wp] = v;
+  } else if (k == 0 && wp < 6) {
+    const T v = warp_col_sum(w.part_rhs, 2, wp - 4, g.nb);
+    if (c.tid % 32 == 0) S.sums[wp] = v;
+  }
+  __syncthreads();
+  const T rr = S.sums[0] + S.sums[1];
+  const T rhr = S.sums[2] + S.sums[3];
+  T rhsn2, rho_k, alpha_k, omega_k;
+  if (k == 0) {  // the start values the assembly wrote
+    rhsn2 = (S.sums[4] + S.sums[5]) + eps;
+    rho_k = w.slots[SL_RHO];
+    alpha_k = w.slots[SL_ALPHA];
+    omega_k = w.slots[SL_OMEGA];
+  } else {
+    rhsn2 = sc[SC_RHSN2];
+    rho_k = sc[SC_RHO];
+    alpha_k = sc[SC_ALPHA];
+    omega_k = sc[SC_OMEGA];
+  }
+  const bool active = rr > T(kGuard) * rhsn2;
+  const T rho1 = active ? rhr : rho_k;
+  const T beta = (rho1 / (rho_k + eps)) * (alpha_k / (omega_k + eps));
+#pragma unroll
+  for (int u = 0; u < HSLOTS; ++u) {
+    if (!hc[u].used) continue;
+#pragma unroll
     for (int q = 0; q < 2; ++q) {
       T ph = 0;
-      if (in) {
-        const size_t o = (size_t)q * n + kk;
-        const T po = pv_old[o];
-        const T pn = active ? w.r[o] + beta * (po - omega_k * vv_old[o]) : po;
-        if (mine) pv_new[o] = pn;
-        ph = pn / w.aPr[kk];
+      if (hc[u].in) {
+        const T po = hp[u][q];
+        const T pn = active ? hr[u][q] + beta * (po - omega_k * hv[u][q])
+                            : po;
+        if (hc[u].mine) pv_new[(size_t)q * n + hc[u].k] = pn;
+        ph = pn / ha[u];
       }
-      sm[q][hj][hi] = ph;
+      S.sm[q][hc[u].hj][hc[u].hi] = ph;
     }
   }
   __syncthreads();
   T pr[2] = {0, 0};
-  if (own_cell(g, c)) {
-    const size_t k0 = (size_t)c.j * g.nx + c.i;
+  if (own) {
+#pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const size_t o = (size_t)q * n + k0;
-      const T vn = active ? apply_A(w, k0, sm[q], c.ty + 1, c.tx + 1)
-                          : vv_old[o];
-      vv_new[o] = vn;
-      pr[q] = w.rh[o] * vn;
+      const T vn = active ? apply_A(a, S.sm[q], c.ty + 1, c.tx + 1) : vo[q];
+      vv_new[(size_t)q * n + k0] = vn;
+      pr[q] = rh[q] * vn;
     }
   }
-  write_partial(w.part_v, 2, 0, pr[0], red, c);
-  write_partial(w.part_v, 2, 1, pr[1], red, c);
-  if (c.b == 0 && c.tid == 0) {
-    T* nw = slot(w, k + 1);
-    nw[SL_RHO] = rho1;
-    nw[SL_ACTIVE] = active ? T(1) : T(0);
-    if (k == 0) slot(w, 0)[SL_ACTIVE] = rhsn2;
+  write_partials(pr, S, w.part_v, c.b);  // every thread has read sc
+  if (c.tid == 0) {
+    sc[SC_RHO] = rho1;
+    sc[SC_ALPHA] = alpha_k;
+    sc[SC_OMEGA] = omega_k;
+    sc[SC_RHSN2] = rhsn2;
+    sc[SC_ACTIVE] = active ? T(1) : T(0);
   }
 }
 
 // alpha, s = r - alpha v, t = A M s
 template <typename T>
 __device__ void stabilize(int k, const Grid<T>& g, const Work<T>& w,
-                          T (*sm)[HT][HT], T* red) {
-  const TileCell c = tile_cell();
-  const int n = g.ny * g.nx;
+                          const TileCell& c, T* sc, Smem<T>& S) {
+  const int n = g.ny * g.nx, wp = c.tid / 32;
   const T eps = T(kEps);
-  const T rvv = reduce_col(w.part_v, 2, 0, g.nb, red, c.tid, NT)
-                + reduce_col(w.part_v, 2, 1, g.nb, red, c.tid, NT);
-  const T* nw = slot(w, k + 1);
-  const bool active = nw[SL_ACTIVE] != T(0);
-  const T alpha = active ? nw[SL_RHO] / (rvv + eps) : slot(w, k)[SL_ALPHA];
   const T* vv_new = buf(w.vv, k + 1);
-  for (int h = c.tid; h < HT * HT; h += NT) {
-    const int hj = h / HT, hi = h % HT;
-    const int jj = c.j0 - 1 + hj, ii = c.i0 - 1 + hi;
-    const bool in = jj >= 0 && jj < g.ny && ii >= 0 && ii < g.nx;
-    const size_t kk = (size_t)jj * g.nx + ii;
+  HaloCell hc[HSLOTS];
+  T hr[HSLOTS][2], hv[HSLOTS][2], ha[HSLOTS];
+#pragma unroll
+  for (int u = 0; u < HSLOTS; ++u) {
+    hc[u] = halo_cell(u, g.ny, g.nx, c);
+    ha[u] = hc[u].in ? w.aPr[hc[u].k] : T(1);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const size_t o = (size_t)q * n + hc[u].k;
+      hr[u][q] = hc[u].in ? w.r[o] : T(0);
+      hv[u][q] = hc[u].in ? vv_new[o] : T(0);
+    }
+  }
+  const bool own = own_cell(g, c);
+  const size_t k0 = own ? (size_t)c.j * g.nx + c.i : 0;
+  T a[5];
+  load_coefs(w, own, k0, a);
+  if (wp < 2) {
+    const T v = warp_col_sum(w.part_v, 2, wp, g.nb);
+    if (c.tid % 32 == 0) S.sums[wp] = v;
+  }
+  __syncthreads();
+  const T rvv = S.sums[0] + S.sums[1];
+  const bool active = sc[SC_ACTIVE] != T(0);
+  const T alpha = active ? sc[SC_RHO] / (rvv + eps) : sc[SC_ALPHA];
+#pragma unroll
+  for (int u = 0; u < HSLOTS; ++u) {
+    if (!hc[u].used) continue;
+#pragma unroll
     for (int q = 0; q < 2; ++q) {
       T s = 0, sh = 0;
-      if (in) {
-        const size_t o = (size_t)q * n + kk;
-        s = w.r[o] - alpha * vv_new[o];
-        sh = s / w.aPr[kk];
+      if (hc[u].in) {
+        s = hr[u][q] - alpha * hv[u][q];
+        sh = s / ha[u];
       }
-      sm[q][hj][hi] = sh;
-      sm[2 + q][hj][hi] = s;
+      S.sm[q][hc[u].hj][hc[u].hi] = sh;
+      S.sm[2 + q][hc[u].hj][hc[u].hi] = s;
     }
   }
   __syncthreads();
   T pr[4] = {0, 0, 0, 0};
-  if (own_cell(g, c)) {
-    const size_t k0 = (size_t)c.j * g.nx + c.i;
+  if (own) {
+#pragma unroll
     for (int q = 0; q < 2; ++q) {
       const size_t o = (size_t)q * n + k0;
-      const T s = sm[2 + q][c.ty + 1][c.tx + 1];
-      const T t = apply_A(w, k0, sm[q], c.ty + 1, c.tx + 1);
+      const T s = S.sm[2 + q][c.ty + 1][c.tx + 1];
+      const T t = apply_A(a, S.sm[q], c.ty + 1, c.tx + 1);
       w.s[o] = s;
       w.t[o] = t;
       pr[q] = t * s;
       pr[2 + q] = t * t;
     }
   }
-  for (int q = 0; q < 4; ++q) write_partial(w.part_t, 4, q, pr[q], red, c);
-  if (c.b == 0 && c.tid == 0) slot(w, k + 1)[SL_ALPHA] = alpha;
+  write_partials(pr, S, w.part_t, c.b);
+  if (c.tid == 0) sc[SC_ALPHA] = alpha;
 }
 
 // omega, x += alpha M p + omega M s, r = s - omega t; next <rh,r>, ||r||^2
 template <typename T>
-__device__ void update(int k, const Grid<T>& g, const Work<T>& w, T* red) {
-  const TileCell c = tile_cell();
-  const int n = g.ny * g.nx;
+__device__ void update(int k, const Grid<T>& g, const Work<T>& w,
+                       const TileCell& c, T* sc, Smem<T>& S) {
+  const int n = g.ny * g.nx, wp = c.tid / 32;
   const T eps = T(kEps);
-  const T ts = reduce_col(w.part_t, 4, 0, g.nb, red, c.tid, NT)
-               + reduce_col(w.part_t, 4, 1, g.nb, red, c.tid, NT);
-  const T tt = reduce_col(w.part_t, 4, 2, g.nb, red, c.tid, NT)
-               + reduce_col(w.part_t, 4, 3, g.nb, red, c.tid, NT);
-  const T* nw = slot(w, k + 1);
-  const bool active = nw[SL_ACTIVE] != T(0);
-  const T omega = active ? ts / (tt + eps) : slot(w, k)[SL_OMEGA];
-  const T alpha = nw[SL_ALPHA];
   const T* pv_new = buf(w.pv, k + 1);
+  const bool own = own_cell(g, c);
+  const size_t k0 = own ? (size_t)c.j * g.nx + c.i : 0;
+  const T aPr = own ? w.aPr[k0] : T(1);
+  T x[2], r[2], s[2], t[2], p[2], rh[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const size_t o = (size_t)q * n + k0;
+    x[q] = own ? w.x[o] : T(0);
+    r[q] = own ? w.r[o] : T(0);
+    s[q] = own ? w.s[o] : T(0);
+    t[q] = own ? w.t[o] : T(0);
+    p[q] = own ? pv_new[o] : T(0);
+    rh[q] = own ? w.rh[o] : T(0);
+  }
+  if (wp < 4) {
+    const T v = warp_col_sum(w.part_t, 4, wp, g.nb);
+    if (c.tid % 32 == 0) S.sums[wp] = v;
+  }
+  __syncthreads();
+  const T ts = S.sums[0] + S.sums[1];
+  const T tt = S.sums[2] + S.sums[3];
+  const bool active = sc[SC_ACTIVE] != T(0);
+  const T omega = active ? ts / (tt + eps) : sc[SC_OMEGA];
+  const T alpha = sc[SC_ALPHA];
   T pr[4] = {0, 0, 0, 0};
-  if (own_cell(g, c)) {
-    const size_t k0 = (size_t)c.j * g.nx + c.i;
-    const T aPr = w.aPr[k0];
+  if (own) {
+#pragma unroll
     for (int q = 0; q < 2; ++q) {
       const size_t o = (size_t)q * n + k0;
-      T r = w.r[o];
+      T rn = r[q];
       if (active) {
-        const T s = w.s[o];
-        w.x[o] = w.x[o] + alpha * (pv_new[o] / aPr) + omega * (s / aPr);
-        r = s - omega * w.t[o];
-        w.r[o] = r;
+        w.x[o] = x[q] + alpha * (p[q] / aPr) + omega * (s[q] / aPr);
+        rn = s[q] - omega * t[q];
+        w.r[o] = rn;
       }
-      pr[q] = r * r;
-      pr[2 + q] = w.rh[o] * r;
+      pr[q] = rn * rn;
+      pr[2 + q] = rh[q] * rn;
     }
   }
-  for (int q = 0; q < 4; ++q) write_partial(w.part_r, 4, q, pr[q], red, c);
-  if (c.b == 0 && c.tid == 0) slot(w, k + 1)[SL_OMEGA] = omega;
+  write_partials(pr, S, w.part_r, c.b);
+  if (c.tid == 0) sc[SC_OMEGA] = omega;
 }
 
 template <typename T>
-__global__ void __launch_bounds__(NT)
-bicg_kernel(int phase, int k, Grid<T> g0, Work<T> w0) {
-  const Grid<T> g = at_lane(g0, blockIdx.z);
-  const Work<T> w = at_lane(w0, blockIdx.z, g.ny, g.nx, g.nb, g.K);
-  __shared__ T sm[4][HT][HT];
-  __shared__ T red[NT];
-  if (phase == BP_DIRECTION)
-    direction(k, g, w, sm, red);
-  else if (phase == BP_STABILIZE)
-    stabilize(k, g, w, sm, red);
-  else
-    update(k, g, w, red);
+__global__ void __launch_bounds__(NT) bicg_kernel(Grid<T> g, Work<T> w0) {
+  __shared__ Smem<T> S;
+  cg::grid_group grid = cg::this_grid();
+  const int tiles_x = (g.nx + TILE - 1) / TILE;
+  const int items = g.nb * g.lanes;
+  // the items of this block, in the same order in every phase
+  auto each = [&](auto phase) {
+    for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
+      const int lane = it / g.nb;
+      const Work<T> w = at_lane(w0, lane, g.ny, g.nx, g.nb);
+      phase(w, tile_at(it % g.nb, tiles_x), S.sc[i]);
+    }
+  };
+  for (int k = 0; k < g.K; ++k) {
+    each([&](const Work<T>& w, const TileCell& c, T* sc) {
+      direction(k, g, w, c, sc, S);
+    });
+    grid.sync();
+    each([&](const Work<T>& w, const TileCell& c, T* sc) {
+      stabilize(k, g, w, c, sc, S);
+    });
+    grid.sync();
+    each([&](const Work<T>& w, const TileCell& c, T* sc) {
+      update(k, g, w, c, sc, S);
+    });
+    if (k + 1 < g.K) grid.sync();
+  }
+}
+
+// Co-resident blocks of bicg_kernel<T> on the current device (0 with the
+// error in *err when the card cannot launch it cooperatively).
+template <typename T>
+int coresident_blocks(cudaError_t* err) {
+  static int blocks = 0;
+  if (blocks) return blocks;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (*err == cudaSuccess && !coop) *err = cudaErrorNotSupported;
+  if (*err == cudaSuccess)
+    *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, bicg_kernel<T>, NT, 0);
+  if (*err == cudaSuccess && per_sm < 1)
+    *err = cudaErrorCooperativeLaunchTooLarge;
+  if (*err != cudaSuccess) return 0;
+  blocks = per_sm * sms;
+  return blocks;
 }
 
 }  // namespace
 
 template <typename T>
-cudaError_t launch_bicg(int phase, int k, const Grid<T>& g, const Work<T>& w,
-                        cudaStream_t s) {
-  const dim3 grid((g.nx + TILE - 1) / TILE, (g.ny + TILE - 1) / TILE,
-                  g.lanes);
-  bicg_kernel<T><<<grid, dim3(TILE, TILE), 0, s>>>(phase, k, g, w);
-  return cudaGetLastError();
+cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, cudaStream_t s) {
+  cudaError_t err = cudaSuccess;
+  const int most = coresident_blocks<T>(&err);
+  if (!most) return err;
+  const int items = g.nb * g.lanes;
+  const int blocks = items < most ? items : most;
+  if ((items + blocks - 1) / blocks > MAX_ITEMS)
+    return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, bicg_kernel<T>, g, w);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-template cudaError_t launch_bicg<float>(int, int, const Grid<float>&,
+template cudaError_t launch_bicg<float>(const Grid<float>&,
                                         const Work<float>&, cudaStream_t);
-template cudaError_t launch_bicg<double>(int, int, const Grid<double>&,
+template cudaError_t launch_bicg<double>(const Grid<double>&,
                                          const Work<double>&, cudaStream_t);
 
 }  // namespace fv

@@ -10,10 +10,11 @@
 //
 // Tile kernels run one thread per cell on TILE x TILE tiles; a block that
 // needs a field at its neighbours' cells computes it on the haloed
-// (TILE+2)^2 tile into shared memory from values of the previous launch, so
-// no launch needs a grid-wide sync. Grid-wide sums go through per-block
-// partials that the NEXT launch reduces, in a fixed order, in every block:
-// no atomics, and a run repeats bit for bit.
+// (TILE+2)^2 tile into shared memory from values of the previous launch
+// (or, in the cooperative BiCGSTAB launch, of the phase before its last
+// grid barrier). Grid-wide sums go through per-tile partials that the NEXT
+// launch or phase reduces, in a fixed order, in every block: no atomics,
+// and a run repeats bit for bit.
 //
 // Lanes: every kernel runs B independent solves ("lanes") of one grid in one
 // launch, the lane being the grid's z axis (blockIdx.x of the one-block
@@ -54,7 +55,7 @@ enum Ptr {
   P_PART_M2,   // (nb, 1) sum of the refinement residual
   P_PART_C,    // (nb, 7) see NPART_C
   P_PART_Q,    // (nb, 3) |div|^2, omega^2, |grad omega|^2
-  P_SLOTS,     // (K+1) * SL_COUNT BiCGSTAB scalars (see Slot)
+  P_SLOTS,     // (SL_COUNT,) BiCGSTAB start values (see Slot)
   P_METRICS,   // step: (6,)
   P_ROWS,      // chunk: (chunk, lanes, 7) rows in runner.METRIC_KEYS order
   P_FLAGS,     // chunk: int32 (lanes, 3): done, conv_iter, converged
@@ -67,11 +68,9 @@ enum Ptr {
 // fv_kernels.py:scalar_table (each the host double cast to T by torch).
 enum Scal { H_MU, H_DX, H_DY, H_AUV, H_AP, H_RHO, H_LID, H_PAD, H_COUNT };
 
-// The scalars of BiCGSTAB iteration k live in slot k + 1 (slot 0 holds the
-// start values 1, 1, 1, and in SL_ACTIVE ||rhs||^2 + eps, the guard's
-// scale, since slot 0 has no guard): every launch reads slots written by
-// earlier launches only, so no block reads a slot another block is writing.
-enum Slot { SL_RHO, SL_ALPHA, SL_OMEGA, SL_ACTIVE, SL_COUNT };
+// The BiCGSTAB start values rho, alpha, omega = 1, 1, 1 of a lane: the
+// assembly writes them, the solve reads them and keeps its scalars on chip.
+enum Slot { SL_RHO, SL_ALPHA, SL_OMEGA, SL_COUNT };
 
 // c1 partials: |u'|^2, |v'|^2, sum(u_n^2 + v_n^2), |u_n - u|^2,
 // |v_n - v|^2, |u|^2, |v|^2.
@@ -140,7 +139,7 @@ struct Work {
 // put a chain of ~50 branches in front of every block.)
 template <typename T>
 __device__ __forceinline__ Work<T> at_lane(Work<T> w, int b, int ny, int nx,
-                                           int nb, int K) {
+                                           int nb) {
   if (b == 0) return w;
   const size_t c = (size_t)ny * nx, B = (size_t)b;
   auto off = [&](auto* p, size_t stride) { return p + B * stride; };
@@ -163,7 +162,7 @@ __device__ __forceinline__ Work<T> at_lane(Work<T> w, int b, int ny, int nx,
   w.part_v = off(w.part_v, 2 * n); w.part_t = off(w.part_t, 4 * n);
   w.part_m = off(w.part_m, n); w.part_m2 = off(w.part_m2, n);
   w.part_c = off(w.part_c, NPART_C * n); w.part_q = off(w.part_q, NPART_Q * n);
-  w.slots = off(w.slots, (size_t)(K + 1) * SL_COUNT);
+  w.slots = off(w.slots, SL_COUNT);
   w.metrics = off(w.metrics, 6);
   w.rows = off(w.rows, 7);
   w.flags = off(w.flags, 3);
@@ -223,14 +222,14 @@ __device__ __forceinline__ TileCell tile_cell() {
 // None synchronizes; each returns cudaGetLastError().
 enum StencilPhase { PH_ASSEMBLE, PH_RHIE_CHOW, PH_RESIDUAL, PH_CORRECT,
                     PH_METRICS };
-enum BicgPhase { BP_DIRECTION, BP_STABILIZE, BP_UPDATE };
 
 template <typename T>
 cudaError_t launch_stencil(int phase, const Grid<T>& g, const Work<T>& w,
                            int upwind, cudaStream_t s);
+// The whole K-iteration solve in one cooperative launch; refused (an
+// error, never another path) where the card cannot launch it.
 template <typename T>
-cudaError_t launch_bicg(int phase, int k, const Grid<T>& g, const Work<T>& w,
-                        cudaStream_t s);
+cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, cudaStream_t s);
 // C (M x N) = op(A) op(B), op = transpose when trans*; B minus the mean of
 // a partial column when mean_part is set; epilogue * scale, or += into C.
 // For `lanes` lanes: lane b's A, B, mean_part and C lie b times their lane

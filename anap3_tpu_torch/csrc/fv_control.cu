@@ -34,7 +34,7 @@ __global__ void control_kernel(Grid<T> g0, Work<T> w0, int row, int idx,
                                int warmup, T tol, int use_residual,
                                T* ref_norm) {
   const Grid<T> g = at_lane(g0, blockIdx.x);
-  const Work<T> w = at_lane(w0, blockIdx.x, g.ny, g.nx, g.nb, g.K);
+  const Work<T> w = at_lane(w0, blockIdx.x, g.ny, g.nx, g.nb);
   __shared__ T sh[RED_THREADS];
   __shared__ T cs[NPART_C];
   __shared__ T qs[NPART_Q];

@@ -4,10 +4,12 @@
 // buffer in the pointer table, see fv_common.cuh:Ptr) and returns the first
 // cudaGetLastError() that is not cudaSuccess.
 //
-// One SIMPLE iteration is 3K + 4 + n_refine + 4 (1 + n_refine) + 1 launches:
-// assemble, K x (direction, stabilize, update), Rhie-Chow, the pressure
+// One SIMPLE iteration is 1 + 1 + 1 + 4 (1 + n_refine) + n_refine + 2 + 1
+// = 10 + 5 n_refine launches: assemble, the BiCGSTAB solve (one
+// cooperative launch for its K iterations), Rhie-Chow, the pressure
 // solve's products (and the refinement residual), correct, metrics, and
-// control (62 at K=16 in float32, 57 in float64). fv_chunk_run takes the
+// control (15 in float32, whose n_refine is 1; 10 in float64, whatever K
+// is). fv_chunk_run takes the
 // place of the Pallas fori_loop of anap3_tpu/ops/pallas_fv.py
 // make_pallas_fv_chunk_runner: it loops the iteration `chunk` times with no
 // Python and no host sync per iteration.
@@ -16,8 +18,8 @@
 // flags carried in from its previous chunk): it takes the place of the
 // Pallas fori_loop of anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner.
 // Every launch covers all lanes, so a B-lane iteration costs the launches of
-// one iteration (62 at K=16 in float32), not B times as many, and the chain
-// of dependent grid-wide reductions that bounds one solve is paid once for
+// one iteration (15 in float32), not B times as many, and the chain of
+// dependent grid-wide reductions that bounds one solve is paid once for
 // all lanes. fv_chunk_run and fv_step_run are its B = 1 case.
 #include "fv_common.cuh"
 
@@ -78,15 +80,11 @@ int psolve(const Grid<T>& g, const Work<T>& w, const T* f,
 }
 
 template <typename T>
-int iterate(const Grid<T>& g, const Work<T>& w, int K, int n_refine,
+int iterate(const Grid<T>& g, const Work<T>& w, int n_refine,
             int upwind, int* counts, cudaStream_t s) {
   FV_CHECK(launch_stencil<T>(PH_ASSEMBLE, g, w, upwind, s));
-  for (int k = 0; k < K; ++k) {
-    FV_CHECK(launch_bicg<T>(BP_DIRECTION, k, g, w, s));
-    FV_CHECK(launch_bicg<T>(BP_STABILIZE, k, g, w, s));
-    FV_CHECK(launch_bicg<T>(BP_UPDATE, k, g, w, s));
-  }
-  counts[C_BICG] += 3 * K;
+  FV_CHECK(launch_bicg<T>(g, w, s));
+  counts[C_BICG] += 1;
   FV_CHECK(launch_stencil<T>(PH_RHIE_CHOW, g, w, upwind, s));
   int rc = psolve<T>(g, w, w.rhsp, w.part_m, 0, counts, s);
   if (rc) return rc;
@@ -109,7 +107,7 @@ int step_run(const void* const* P, int ny, int nx, int K, int n_refine,
   Work<T> w = make_work<T>(P);
   w.flags = nullptr;  // a step always commits
   w.rows = nullptr;   // control writes the six metrics
-  const int rc = iterate<T>(g, w, K, n_refine, upwind, counts, s);
+  const int rc = iterate<T>(g, w, n_refine, upwind, counts, s);
   if (rc) return rc;
   FV_CHECK(launch_control<T>(g, w, 0, 0, 0, T(0), 0, nullptr, s));
   counts[C_CONTROL] += 1;
@@ -124,7 +122,7 @@ int chunk_run(const void* const* P, int ny, int nx, int lanes, int K,
   const Work<T> w = make_work<T>(P);
   T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REF]));
   for (int i = 0; i < chunk; ++i) {
-    const int rc = iterate<T>(g, w, K, n_refine, upwind, counts, s);
+    const int rc = iterate<T>(g, w, n_refine, upwind, counts, s);
     if (rc) return rc;
     FV_CHECK(launch_control<T>(g, w, i, start_iter + i, warmup, T(tol),
                                use_residual, ref_norm, s));
@@ -134,8 +132,9 @@ int chunk_run(const void* const* P, int ny, int nx, int lanes, int K,
 }
 
 // Timing aid: `reps` times the launches one kernel makes in one SIMPLE
-// iteration (0: fv_stencil's phases, 1: fv_bicgstab's 3K launches,
-// 2: fv_dense's products, 3: one fv_control launch). Not part of a solve.
+// iteration (0: fv_stencil's phases, 1: fv_bicgstab's one launch of K
+// iterations, 2: fv_dense's products, 3: one fv_control launch). Not part
+// of a solve.
 template <typename T>
 int bench_run(const void* const* P, int ny, int nx, int lanes, int K,
               int n_refine, int upwind, int which, int reps, cudaStream_t s) {
@@ -151,11 +150,7 @@ int bench_run(const void* const* P, int ny, int nx, int lanes, int K,
       FV_CHECK(launch_stencil<T>(PH_CORRECT, g, w, upwind, s));
       FV_CHECK(launch_stencil<T>(PH_METRICS, g, w, upwind, s));
     } else if (which == 1) {
-      for (int k = 0; k < K; ++k) {
-        FV_CHECK(launch_bicg<T>(BP_DIRECTION, k, g, w, s));
-        FV_CHECK(launch_bicg<T>(BP_STABILIZE, k, g, w, s));
-        FV_CHECK(launch_bicg<T>(BP_UPDATE, k, g, w, s));
-      }
+      FV_CHECK(launch_bicg<T>(g, w, s));
     } else if (which == 2) {
       for (int q = 0; q <= n_refine; ++q) {
         const int rc = psolve<T>(g, w, q ? w.res : w.rhsp,

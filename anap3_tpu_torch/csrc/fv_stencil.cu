@@ -355,7 +355,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 stencil_kernel(int phase, Grid<T> g0, Work<T> w0, int upwind) {
   const Grid<T> g = at_lane(g0, blockIdx.z);
-  const Work<T> w = at_lane(w0, blockIdx.z, g.ny, g.nx, g.nb, g.K);
+  const Work<T> w = at_lane(w0, blockIdx.z, g.ny, g.nx, g.nb);
   __shared__ T sm[2][HT][HT];
   __shared__ T red[NT];
   switch (phase) {

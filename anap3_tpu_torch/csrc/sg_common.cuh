@@ -72,7 +72,9 @@ enum Count { C_STAGE, C_DIAG, C_CONTROL, C_COUNT };
 // entry as an int array in this slot order. A block computes an output
 // tile of STAGE_TM rows by tn columns, STAGE_RM x STAGE_RN outputs a
 // thread; the `cluster` blocks of one row band form a thread-block cluster
-// (grid x = cluster, grid y = rows, grid z = lanes). Operand bands are
+// (grid x = cluster, grid y = rows, grid z = lanes): a portable cluster of
+// up to MAX_CLUSTER blocks, or, for 48-wide tiles only (N >= 384), a
+// non-portable one of up to MAX_CLUSTER_NP. Operand bands are
 // staged in k slabs of ks through a ring of `depth` slots, or, with depth
 // 0 ("burst"), every phase's bands whole (ks = nf) in regions of their
 // own, all copies issued at the start. smem is the dynamic shared memory of
@@ -86,6 +88,7 @@ constexpr int STAGE_TM = 8;
 constexpr int STAGE_RM = 2;
 constexpr int STAGE_RN = 2;
 constexpr int MAX_CLUSTER = 8;     // the portable cluster size
+constexpr int MAX_CLUSTER_NP = 16; // the largest non-portable one (H100)
 constexpr int MAX_SMEM = 232448;   // opt-in shared memory of a block
 
 struct StageGeo {

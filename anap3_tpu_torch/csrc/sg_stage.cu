@@ -28,7 +28,11 @@
 //     beside u DyT, u DyyT, v DyT, v DyyT.
 //   - the pressure chain (Gx p) IyT, (Ix p) GyT needs the whole row band of
 //     Gx p and Ix p: the blocks of one row band form a thread-block cluster
-//     (grid x = cluster size <= 8, portable); each computes its column slice
+//     (grid x = cluster size: <= 8, portable, up to N = 383; 9-16 blocks of
+//     48 columns, non-portable, for N = 384-767, where the launcher sets
+//     cudaFuncAttributeNonPortableClusterSizeAllowed and asks
+//     cudaOccupancyMaxActiveClusters whether the card can schedule one
+//     before the geometry's first launch); each computes its column slice
 //     of Gx p and Ix p into its shared memory, the cluster syncs, and each
 //     gathers the band from its peers through distributed shared memory
 //     before contracting it with its IyT/GyT column band.
@@ -91,7 +95,8 @@ cudaError_t stage_geometry(const int* geo, int nf, int elem, StageGeo* g) {
                    geo[G_DEPTH], geo[G_SMEM], geo[G_NPARTS], geo[G_KSPLIT]};
   const bool tile =
       (s.tn == 16 || s.tn == 32 || s.tn == 48) && s.cluster >= 1 &&
-      s.cluster <= MAX_CLUSTER && s.cluster * s.tn >= nf &&
+      s.cluster <= (s.tn == 48 ? MAX_CLUSTER_NP : MAX_CLUSTER) &&
+      s.cluster * s.tn >= nf &&
       (s.cluster - 1) * s.tn < nf &&
       s.rows == (nf + STAGE_TM - 1) / STAGE_TM &&
       s.nparts == s.cluster * s.rows;
@@ -568,11 +573,17 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
 template <typename T, int TN>
 cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
                       int lanes, const StageGeo& g, cudaStream_t s) {
-  static bool opted_in = false;  // shared memory above 48 KB, once
+  // shared memory above 48 KB, and for 48-wide tiles clusters above the
+  // portable 8, once
+  static bool opted_in = false;
   if (!opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
+    cudaError_t err = cudaFuncSetAttribute(
         stage_kernel<T, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         MAX_SMEM);
+    if (err == cudaSuccess && TN == 48)
+      err = cudaFuncSetAttribute(
+          stage_kernel<T, TN>,
+          cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     opted_in = true;
   }
@@ -588,6 +599,21 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  // a non-portable cluster may not fit the card's GPCs at this block size:
+  // ask before the first launch of each such geometry, and refuse it
+  static int checked[3] = {0, 0, 0};  // cluster, shared memory, k split
+  if (g.cluster > MAX_CLUSTER &&
+      (checked[0] != g.cluster || checked[1] != g.smem ||
+       checked[2] != g.ksplit)) {
+    int n = 0;
+    cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&n, stage_kernel<T, TN>, &cfg);
+    if (err == cudaSuccess && n < 1) err = cudaErrorInvalidClusterSize;
+    if (err != cudaSuccess) return err;
+    checked[0] = g.cluster;
+    checked[1] = g.smem;
+    checked[2] = g.ksplit;
+  }
   const cudaError_t err =
       cudaLaunchKernelEx(&cfg, stage_kernel<T, TN>, o, a, nf, g);
   return err != cudaSuccess ? err : cudaGetLastError();

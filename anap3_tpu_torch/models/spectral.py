@@ -3,8 +3,12 @@
 The counterparts of ``anap3_tpu/models/spectral.py``: thin hosts around the
 core in ``spectral_sg.py``. On CUDA every level runs the hand-written SG
 kernels (``ops/sg_kernels.py``): one step wrapper and one chunk runner for
-every N, where the TPU package picks among aligned, tiled and whole-step
-Pallas tiers by VMEM budget. The FSG solve is the nested coarse-to-fine
+every N up to ``sg_kernels.MAX_KERNEL_N`` = 767, where the TPU package
+picks among aligned, tiled and whole-step Pallas tiers by VMEM budget. A
+level above that order runs the plain step, by design and by order alone
+(the JAX package likewise runs its XLA step above ``MAX_TILED_N``); the
+routing logs once per order. A kernel launch that fails raises: it never
+falls back to the plain step. The FSG solve is the nested coarse-to-fine
 iteration of the JAX package: a Pe-floored coarsest level, per-level
 tolerance, spectral prolongation with BC re-enforcement, the NaN exit and
 the synthesized one-row history.
@@ -26,8 +30,8 @@ from .runner import (ENERGY_PLATEAU_CHUNKS, WARMUP_ITERS, IterationResult,
                      run_fixed_point)
 from ..ops import basis as basis_ops
 from ..ops.poisson import spectral_dirichlet_poisson
-from ..ops.sg_kernels import (ALIGNED_METRICS_EVERY, make_sg_chunk_runner,
-                              make_sg_step)
+from ..ops.sg_kernels import (ALIGNED_METRICS_EVERY, MAX_KERNEL_N,
+                              make_sg_chunk_runner, make_sg_step)
 from ..ops.singular import eval_singular_uv, singular_min_n
 from ..ops.transfer import (make_level_transfer_matrices,
                             nodal_interpolation_matrix)
@@ -141,17 +145,30 @@ def _matmul_policy(params) -> None:
              "in %s", alg, params.dtype)
 
 
+_PLAIN_ORDERS_LOGGED = set()
+
+
 def make_fused_paths(ops, matmul_algorithm: str = "auto"):
     """``(step, chunk_runner_factory)`` of the SG kernels for this level.
 
-    One step kernel and one chunk kernel serve every N, where the JAX
-    package picks a Pallas tier by N, lid mode and matmul algorithm. Only
+    One step kernel and one chunk kernel serve every N up to MAX_KERNEL_N,
+    where the JAX package picks a Pallas tier by N, lid mode and matmul
+    algorithm. Above MAX_KERNEL_N the level takes the plain step and no
+    chunk runner (``(step, None)``), by design, as JAX takes its XLA step
+    above its Pallas tiers; the routing logs once per order. Only
     the chunk's quadrature cadence follows the JAX routing
     (``anap3_tpu/models/spectral.py:make_fused_paths``): every step for
     ``matmul_algorithm=x6`` at N <= MAX_FUSED_N with a smoothed lid (the x6
     chunk kernel's rows), else every ALIGNED_METRICS_EVERY-th step. The x6
     chunk kernel takes rel_iter only and JAX runs the residual criterion
     per step there; the port's chunk kernel takes both."""
+    n = ops.nf - 1
+    if n > MAX_KERNEL_N:
+        if n not in _PLAIN_ORDERS_LOGGED:
+            _PLAIN_ORDERS_LOGGED.add(n)
+            log.info("SG N=%d is above the kernels' largest order %d: the "
+                     "level runs the plain step", n, MAX_KERNEL_N)
+        return (lambda s: core.sg_step(ops, s)), None
     step = make_sg_step(ops)
     alg = str(matmul_algorithm or "auto").lower()
     m_every = ALIGNED_METRICS_EVERY

@@ -51,7 +51,7 @@ from .spectral import (FSGSolver, PE_COARSEST_MAX, SGSolver,
                        default_coarsest_n, resolve_convergence_metric,
                        scaled_plateau_chunks)
 from ..ops.basis import make_basis
-from ..ops.sg_kernels import make_sg_smoother, smooth_plain
+from ..ops.sg_kernels import MAX_KERNEL_N, make_sg_smoother, smooth_plain
 from ..ops.transfer import (fft_restriction_matrix,
                             injection_restriction_matrix,
                             make_level_transfer_matrices,
@@ -349,11 +349,14 @@ class VMGSolver(SGSolver):
     SUPPORTS_SPATIAL_MESH = False
 
     def _smoothers(self, levels) -> Optional[dict]:
-        """The kernels' smoothing loop at every level (the JAX package's
-        build_fused_tau_steps, at every N), or None for the plain step."""
+        """The kernels' smoothing loop at every level up to the kernels'
+        largest order (the JAX package's build_fused_tau_steps), or None
+        for the plain step; a level above that order smooths with the plain
+        step, as ``make_fused_paths`` routes it."""
         if not self._kernels_enabled():
             return None
-        return {i: make_sg_smoother(lv.ops) for i, lv in enumerate(levels)}
+        return {i: make_sg_smoother(lv.ops) for i, lv in enumerate(levels)
+                if lv.ops.nf - 1 <= MAX_KERNEL_N}
 
     def _reject_singular(self) -> bool:
         """Singular-mode FAS runs on Chebyshev hierarchies only (nested

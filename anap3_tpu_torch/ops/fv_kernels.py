@@ -35,9 +35,12 @@ dx, dy, alpha_uv, alpha_p, rho, lid) reach the kernels as a device table in
 the working dtype (``scalar_table``).
 
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
-by kernel; ``PLAIN_CALLS`` counts calls of the plain versions ("fv_step",
-"fv_chunk") and of the unfused ``models/fv.fv_step`` on a CUDA solve
-("fv_unfused"). ``reset_counts()`` zeroes both.
+by kernel (a SIMPLE iteration: fv_stencil 4 + n_refine, fv_bicgstab 1,
+one cooperative launch for its K iterations, fv_dense 4 (1 + n_refine),
+fv_control 1; 15 in float32, 10 in float64); ``PLAIN_CALLS`` counts
+calls of the plain versions ("fv_step", "fv_chunk") and of the unfused
+``models/fv.fv_step`` on a CUDA solve ("fv_unfused"). ``reset_counts()``
+zeroes both.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ _PTR_NAMES = (
     "lsc")
 _PARTS = {"part_rhs": 2, "part_r": 4, "part_v": 2, "part_t": 4,
           "part_m": 1, "part_m2": 1, "part_c": 7, "part_q": 3}
-_NSLOT = 4  # rho, alpha, omega, active per BiCGSTAB iteration
+_NSLOT = 3  # the BiCGSTAB start values rho, alpha, omega
 _TILE = 16
 
 
@@ -440,7 +443,7 @@ def workspace(S, ops: FVOps, state: FVState, K: int, chunk: int, lsc,
               flags, lanes=None, ref_norm=None, **statics) -> dict:
     """Every buffer of one kernel call for ``lanes`` lanes (None: one, with
     no lane axis): the state cloned in (the kernels update it in place),
-    scratch, partial sums, the BiCGSTAB scalar slots, the scalar table
+    scratch, partial sums, the BiCGSTAB start values, the scalar table
     ``lsc``, the flags and the residual normalizations ``ref_norm`` (cloned
     in; inf when None) and the outputs (rows for a chunk, metrics for a
     step). The shared operators come from ``S``; the per-lane statics aP_bc
@@ -460,7 +463,7 @@ def workspace(S, ops: FVOps, state: FVState, K: int, chunk: int, lsc,
         ws[k] = torch.empty(lead + (2, ny, nx), **kw)
     for k, ncol in _PARTS.items():
         ws[k] = torch.empty(lead + (nb, ncol), **kw)
-    ws["slots"] = torch.empty(lead + ((int(K) + 1) * _NSLOT,), **kw)
+    ws["slots"] = torch.empty(lead + (_NSLOT,), **kw)
     ws["metrics"] = torch.empty(lead + (6,), **kw)
     ws["rows"] = torch.empty((max(int(chunk), 1),) + lead + (N_COLS,), **kw)
     ws["flags"] = flags.clone()
@@ -589,8 +592,9 @@ def bench_kernel(S, ops: FVOps, ws: dict, which: str, K: int,
     """Enqueue ``reps`` times the launches one kernel makes in one SIMPLE
     iteration, on a workspace of ``bench_workspace`` (or of ``workspace``
     for ``lanes`` lanes), for timing only (not counted in LAUNCHES):
-    fv_stencil its 4-5 phases, fv_bicgstab its 3K phases, fv_dense the
-    4(1 + n_refine) products, fv_control one control launch."""
+    fv_stencil its 4-5 phases, fv_bicgstab its one launch of K
+    iterations, fv_dense the 4(1 + n_refine) products, fv_control one
+    control launch."""
     lib = _lib()
     rc = lib.fv_bench_run(_dtype_code(ops.dtype), ops.ny, ops.nx, int(lanes),
                           _ptr_table(ws), int(K), S["n_refine"],

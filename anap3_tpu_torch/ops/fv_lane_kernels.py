@@ -5,8 +5,8 @@ The counterpart of ``anap3_tpu/ops/pallas_fv_lanes.py``
 (``_validate_fv_lanes``, ``fv_lanes_supported``, ``maybe_fv_lane_runner``,
 ``make_fv_lane_runner``: TPU kernel #11). ``csrc/fv_host.cu:
 fv_lanes_chunk_run`` runs the kernels of ``ops/fv_kernels.py`` with every
-launch covering all lanes, so a B-lane SIMPLE iteration costs the 62
-launches of one (float32, K=16) and the chain of dependent grid-wide
+launch covering all lanes, so a B-lane SIMPLE iteration costs the 15
+launches of one (float32) and the chain of dependent grid-wide
 reductions that bounds a single solve is paid once for the batch. Lanes
 share the grid, scheme and pressure-solve operators; mu, alpha_uv, alpha_p,
 rho and the lid (so aP_bc and b_bc_u) are per lane. Lane b of a B-lane chunk
@@ -43,7 +43,7 @@ log = logging.getLogger(__name__)
 
 __all__ = ["make_fv_lane_runner", "maybe_fv_lane_runner", "lanes_plain",
            "validate_lanes", "fv_lanes_supported", "LAUNCHES", "PLAIN_CALLS",
-           "KERNELS", "reset_counts"]
+           "KERNELS", "reset_counts", "run_lanes", "lane_statics"]
 
 KERNELS = ("fv_lanes",)
 LAUNCHES = {"fv_lanes": 0}
@@ -122,8 +122,20 @@ def lanes_plain(S_list, states, start_iter, carry: LaneCarry, chunk,
             torch.stack([o[4] for o in outs], dim=1))
 
 
-def _lanes_kernel(S_list, ops, statics, states, start_iter, carry, chunk,
-                  tolerance, warmup, K, use_residual):
+def lane_statics(S_list) -> dict:
+    """The per-lane pointer-table entries of a batch, stacked lane-major:
+    the scalar table and the boundary statics aP_bc and b_bc_u."""
+    statics = {"lsc": fvk.scalar_table(S_list)}
+    for name in ("aP_bc", "b_bc_u"):
+        statics[name] = torch.stack([S[name] for S in S_list]).contiguous()
+    return statics
+
+
+def run_lanes(S_list, ops, statics, states, start_iter, carry, chunk,
+              tolerance, warmup, K, use_residual):
+    """One ``fv_lanes_chunk_run`` call; returns its workspace (the lanes'
+    states, flags, normalizations and rows, and the last iteration's
+    intermediates: ``x`` holds each lane's BiCGSTAB solution u*, v*)."""
     lib = fvk._lib()
     S0, B = S_list[0], len(S_list)
     ws = fvk.workspace(S0, ops, states, K, chunk, statics["lsc"],
@@ -137,8 +149,7 @@ def _lanes_kernel(S_list, ops, statics, states, start_iter, carry, chunk,
         counts, fvk._stream())
     LAUNCHES["fv_lanes"] += sum(int(n) for n in counts)
     fvk._raise_on(lib, rc, "fv_lanes_chunk_run")
-    return (FVState(*(ws[k] for k in FVState._fields)),
-            LaneCarry(ws["flags"], ws["ref_norm"]), ws["rows"])
+    return ws
 
 
 def make_fv_lane_runner(params_list, ops_list, chunk: int, tolerance: float,
@@ -153,9 +164,7 @@ def make_fv_lane_runner(params_list, ops_list, chunk: int, tolerance: float,
     validate_lanes(params_list, ops_list)
     ops0, B = ops_list[0], len(ops_list)
     S_list = [fvk.statics(p, o) for p, o in zip(params_list, ops_list)]
-    statics = {"lsc": fvk.scalar_table(S_list)}
-    for name in ("aP_bc", "b_bc_u"):
-        statics[name] = torch.stack([S[name] for S in S_list]).contiguous()
+    statics = lane_statics(S_list)
     args = dict(chunk=int(chunk), tolerance=float(tolerance),
                 warmup=int(warmup), K=int(bicgstab_iters),
                 use_residual=convergence_metric == "residual")
@@ -164,8 +173,10 @@ def make_fv_lane_runner(params_list, ops_list, chunk: int, tolerance: float,
         if carry is None:
             carry = fresh_carry(B, ops0.dtype, ops0.device)
         if _check_states(ops0, B, states):
-            return _lanes_kernel(S_list, ops0, statics, states, start_iter,
-                                 carry, **args)
+            ws = run_lanes(S_list, ops0, statics, states, start_iter, carry,
+                           **args)
+            return (FVState(*(ws[k] for k in FVState._fields)),
+                    LaneCarry(ws["flags"], ws["ref_norm"]), ws["rows"])
         return lanes_plain(S_list, states, start_iter, carry, **args)
 
     return chunk_fn

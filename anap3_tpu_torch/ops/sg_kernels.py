@@ -44,7 +44,12 @@ Launch geometry: ``stage_geometry(nf, dtype, lanes)`` chooses the stage
 kernel's tile, cluster, k groups, shared memory and k-slab ring for an
 order, and every host entry takes it as an int array
 (``csrc/sg_common.cuh:GeoSlot``), so the CPU tests check each geometry the
-card will launch.
+card will launch. The kernels take every order up to ``MAX_KERNEL_N`` =
+767 (a row band of at most 16 blocks of 48 columns; above N = 383 in a
+non-portable cluster, which the stage launcher checks the card can
+schedule before its first launch); ``stage_geometry`` raises above it,
+and the solvers route such a level to the plain step by design
+(``models/spectral.py:make_fused_paths``).
 
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
 by kernel (sg_stage: one per RK stage; sg_diag; sg_control);
@@ -68,7 +73,7 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "step_plain", "chunk_plain", "smooth_plain", "LAUNCHES",
            "PLAIN_CALLS", "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS",
            "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body",
-           "stage_geometry", "StageGeometry"]
+           "stage_geometry", "StageGeometry", "MAX_KERNEL_N"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
@@ -90,9 +95,10 @@ _STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
               "palinstrophy")
 _NPART, _NQPART, _NSCAL = 5, 3, 6  # csrc/sg_common.cuh
 _TILE = 16  # the quadrature kernels' tile (csrc/sg_common.cuh:TILE)
-# csrc/sg_common.cuh: STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER, MAX_SMEM,
-# GeoSlot
+# csrc/sg_common.cuh: STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER,
+# MAX_CLUSTER_NP, MAX_SMEM, GeoSlot
 STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER, MAX_SMEM = 8, 2, 2, 8, 232448
+MAX_CLUSTER_NP = 16  # a non-portable cluster, 48-wide tiles only
 _GEO_SLOTS = ("tn", "cluster", "rows", "ks", "depth", "smem", "nparts",
               "ksplit")
 _STAGE_TNS = (16, 32, 48)
@@ -152,6 +158,8 @@ def _stage_smem_elems(nf: int, tn: int, ks: int, depth: int,
 # (PERF.md, section 6)
 _KSPLIT_OF_TN = {16: 4, 32: 2, 48: 2}
 SMS = 132  # streaming multiprocessors of an H100 SXM: one wave of blocks
+# the largest order the stage kernel takes: 16 blocks of 48 columns
+MAX_KERNEL_N = MAX_CLUSTER_NP * _STAGE_TNS[-1] - 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -162,9 +170,10 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
     of ``lanes`` lanes.
 
     The column tile is the narrowest of 16, 32, 48 whose row band fits a
-    portable cluster (<= 8 blocks), which keeps the blocks small and many;
-    rows are 8 a block; ``_KSPLIT_OF_TN`` warp groups share each
-    contraction. Tile and k groups fix the arithmetic, so they do not
+    portable cluster (<= 8 blocks), which keeps the blocks small and many
+    (N <= 383); above that, 48 columns in a non-portable cluster of up to
+    ``MAX_CLUSTER_NP`` blocks (N <= ``MAX_KERNEL_N``); rows are 8 a
+    block; ``_KSPLIT_OF_TN`` warp groups share each contraction. Tile and k groups fix the arithmetic, so they do not
     depend on ``lanes``: lane b of a B-lane launch gives the bits of a
     one-lane launch. The staging does: a launch of one wave of blocks (at
     most ``SMS``) takes every band whole (ks = nf, one slot), as does any
@@ -181,13 +190,13 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
         raise ValueError(f"order {nf - 1} is too small for the stage kernel")
     if tn is None:
         tn = next((t for t in _STAGE_TNS if -(-nf // t) <= MAX_CLUSTER),
-                  None)
-        if tn is None:
+                  _STAGE_TNS[-1])
+        if -(-nf // tn) > MAX_CLUSTER_NP:
             raise ValueError(f"order {nf - 1}: the row band needs more than "
-                             f"{MAX_CLUSTER} blocks of {_STAGE_TNS[-1]} "
-                             "columns")
+                             f"{MAX_CLUSTER_NP} blocks of {tn} columns")
     cluster, rows = -(-nf // tn), -(-nf // STAGE_TM)
-    if tn not in _STAGE_TNS or cluster > MAX_CLUSTER:
+    if tn not in _STAGE_TNS or cluster > (
+            MAX_CLUSTER_NP if tn == _STAGE_TNS[-1] else MAX_CLUSTER):
         raise ValueError(f"order {nf - 1}: no tile of {tn} columns")
     most = stage_max_threads(elem, tn) // stage_group_threads(tn)
     if ksplit is None:

@@ -98,11 +98,15 @@ def lane_metrics_every(n: int) -> int:
 
 def validate_lanes(ops_list) -> None:
     """Lanes must share every operator matrix (same N, basis and domain),
-    dtype and device, and one corner mode; scalars, boundary values and the
+    dtype and device, and one corner mode, at an order the kernels take
+    (``sg_kernels.MAX_KERNEL_N``); scalars, boundary values and the
     singular fields may differ. Raises ValueError otherwise."""
     if not ops_list:
         raise ValueError("need at least one lane")
     o0 = ops_list[0]
+    if o0.nf - 1 > sgk.MAX_KERNEL_N:
+        raise ValueError(f"N={o0.nf - 1} is above the SG kernels' largest "
+                         f"order {sgk.MAX_KERNEL_N}")
     for k, o in enumerate(ops_list[1:], 1):
         if (o.dtype, o.device) != (o0.dtype, o0.device):
             raise ValueError(f"lane {k} dtype/device differs from lane 0")

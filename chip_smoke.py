@@ -11,8 +11,9 @@ when it fails:
    spill and no stack frame in any instantiation of the stage kernel;
 2. SG kernels: every kernel wrapper (step, tau step, chunk of 64 steps with
    metrics_every=16 and warmup 10) against its plain PyTorch version on the
-   same CUDA tensors, at N = 20, 48, 96, 128, 192, 320 (the stage kernel's
-   geometry branches: 16-, 32- and 48-wide tiles, whole bands and rings),
+   same CUDA tensors, at N = 20, 48, 96, 128, 192, 320, 400 (the stage
+   kernel's geometry branches: 16-, 32- and 48-wide tiles, whole bands and
+   rings, and at N=400 a non-portable cluster of nine blocks),
    float32 and float64, smoothed and singular lids; tolerances: relative
    max error <= 1e-11 in float64 and <= 1e-4 in float32, done/conv_iter
    equal; kernel and plain ms/step at N = 48, 96, 128; at N=128 float32 the
@@ -23,7 +24,9 @@ when it fails:
    float32 and float64 (float64 with n_refine 0 and 1), TVD and upwind;
    tolerances: relative max error <= 1e-10 in float64, <= 1e-4 in float32
    (step and chunk), flags equal; the same kernel chunk run twice must
-   agree bit for bit; kernel and plain ms per SIMPLE iteration at N=128,
+   agree bit for bit; the chunk's launches must be 10 + 5 n_refine an
+   iteration, fv_bicgstab one (the whole BiCGSTAB solve in one cooperative
+   launch); kernel and plain ms per SIMPLE iteration at N=128,
    per-kernel times, and a torch.profiler idle share of one N=128 float32
    chunk; wherever the pressure solve is refined, one step with perturbed
    eigenvalue inverses, so that the refinement moves the state by far more
@@ -78,7 +81,8 @@ when it fails:
    alpha_p and the lid speed varying, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64, TVD and upwind, against lanes_plain (the bounds of
    phase 2b), every lane against a one-lane fv_chunk_run bit for bit, a NaN
-   lane isolated; ms per iteration at 128x128 for B = 1, 3 and 8;
+   lane isolated, 15 launches a float32 iteration whatever B; ms per
+   iteration at 128x128 for B = 1, 3 and 8;
 10. fsg sweep N=40: one round of the corner-smoothing optimization
    (conf/experiment/optimization/corner_smoothing.yaml at N=40: FSG
    Re=1000 tol 1e-6 float32, ladder [20, 40]) as 8 lanes, corner_smoothing
@@ -367,7 +371,7 @@ def random_state(ops, rng):
 def phase_kernels(summary):
     rng = np.random.default_rng(0)
     chunk, m_every, warmup = 64, 16, 10
-    for n in (20, 48, 96, 128, 192, 320):
+    for n in (20, 48, 96, 128, 192, 320, 400):
         for dt_name in ("float32", "float64"):
             tol = 1e-4 if dt_name == "float32" else 1e-11
             for corner in ("smoothing", "singular"):
@@ -872,6 +876,12 @@ def phase_fv_lanes(summary):
     ps, ops_list = fv_lane_setup(128, 128, "float32", "TVD", lanes8)
     chunk = 100
     st8 = stack_states([fvm.initial_state(o) for o in ops_list])
+    fvl.reset_counts()
+    fvl.make_fv_lane_runner(ps, ops_list, 2, 1e-30, 10, FV_K)(st8, 0)
+    per_iter = fvl.LAUNCHES["fv_lanes"] / 2
+    print(f"[lanes] FV 128x128 float32 B=8: {per_iter:g} launches an "
+          "iteration", flush=True)
+    check(per_iter == 15, f"FV B=8: {per_iter} launches an iteration")
     one = fvk.make_fv_chunk_runner(ps[0], ops_list[0], chunk, 1e-30, 10,
                                    FV_K)
     t1 = cuda_ms(lambda: one(lane_of(st8, 0), 0, float("inf")), 2) / chunk
@@ -944,8 +954,13 @@ def phase_fv_kernels(summary):
         S = fvk.statics(p, ops)
         st0 = fvm.initial_state(ops)
         run_k = fvk.make_fv_chunk_runner(p, ops, chunk, 1e-30, 10, FV_K)
+        fvk.reset_counts()
         out_k = run_k(st0, 0, inf)
         torch.cuda.synchronize()  # a fault shows where it happened
+        per_iter = {k: v / chunk for k, v in fvk.LAUNCHES.items()}
+        check(per_iter["fv_bicgstab"] == 1 and sum(per_iter.values())
+              == 10 + 5 * ops.n_refine, f"FV {case}: launches an iteration "
+              f"{per_iter}")
         out_p = fvk.chunk_plain(S, st0, 0, inf, chunk, 1e-30, 10, FV_K)
         e_chunk = max(rel_err(a, b) for a, b in zip(out_k[0], out_p[0]))
         e_rows = max(rel_err(out_k[4][:, c], out_p[4][:, c])
@@ -964,8 +979,9 @@ def phase_fv_kernels(summary):
         worst = max(e_chunk, e_rows, e_step, e_met)
         print(f"[fv kernels] {case}: step state {e_step:.2e} metrics "
               f"{e_met:.2e} chunk state {e_chunk:.2e} rows {e_rows:.2e} "
-              f"flags {flags_k} bitwise repeat {bitwise} (tol {tol:.0e})",
-              flush=True)
+              f"flags {flags_k} bitwise repeat {bitwise} (tol {tol:.0e}); "
+              f"launches an iteration {sum(per_iter.values()):g}, "
+              f"fv_bicgstab {per_iter['fv_bicgstab']:g}", flush=True)
         check(worst <= tol, f"FV {case}: relative error {worst:.3e} > "
               f"{tol:.0e}")
         check(flags_k == flags_p, f"FV flags differ: {flags_k} vs {flags_p}")

@@ -1,10 +1,13 @@
 """The SG stage kernel's launch geometry and its card checks
 (ops/sg_kernels.py:stage_geometry, csrc/sg_stage.cu).
 
-On the CPU (every run): the geometry of every order N = 12..320 in float32
+On the CPU (every run): the geometry of every order N = 12..512 in float32
 and float64, for 1 and 8 lanes, is one the kernel can take (shared memory,
-portable cluster, column and row coverage, the partial-sum buffers the
-workspaces allocate, no scratch between launches); the Python constants and
+cluster, column and row coverage, the partial-sum buffers the workspaces
+allocate, no scratch between launches), the same as before non-portable
+clusters up to N = 383, with a cluster above 8 only where 8 blocks of 48
+columns cannot cover the band; an order above ``MAX_KERNEL_N`` routes to
+the plain step by design; the Python constants and
 slot orders agree with the C headers; and a numpy model of the kernel's
 decomposition (8-row bands, tn-wide column tiles, k-slabs of ks, each
 cluster block's slice of Gx p and Ix p gathered into the band) gives the
@@ -15,9 +18,11 @@ chunk against their plain versions at N = 12, 20, 24, 40, 96, 128, 192, 320
 (the geometry's branches: one and several blocks a cluster, 16-, 32- and
 48-wide tiles, whole bands and 3- and 2-slot rings), float32 and float64,
 smoothed and singular lids, with and without tau; relative error <= 1e-4
-(float32) and <= 1e-11 (float64), flags equal; and a B=3 lane chunk bit for
+(float32) and <= 1e-11 (float64), flags equal; a B=3 lane chunk bit for
 bit equal to its one-lane chunks at a ragged N and at the first order past
-a 16-wide cluster of 8. Run them there with
+a 16-wide cluster of 8; and at N = 400 (a non-portable cluster of 9) a
+chunk in float32 and float64 and a 2-lane chunk against plain. Run them
+there with
 ``python -m pytest tests/test_torch_sg_stage.py -m gpu --noconftest``.
 """
 
@@ -29,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from anap3_tpu_torch.models import runner as TR
 from anap3_tpu_torch.models import spectral_sg as T
 from anap3_tpu_torch.models.params import SpectralParameters
 from anap3_tpu_torch.ops import sg_kernels as sgk
@@ -38,7 +44,13 @@ from anap3_tpu_torch.parallel.sweep import stack_states
 torch.set_num_threads(1)
 
 CSRC = Path(sgk.__file__).resolve().parents[1] / "csrc"
-ORDERS = range(12, 321)
+ORDERS = range(12, 513)
+# sha256 of repr((n, str(dtype), lanes, tuple(stage_geometry(n + 1, dtype,
+# lanes)))) over N = 12..383, float32 then float64, lanes 1 then 8: the
+# geometries of the portable-cluster rule. Tile and k split fix the bits of
+# every SG kernel result, so none of these may change.
+PORTABLE_GEOMETRY_SHA256 = (
+    "4ebe50996e8938c915cf9bd99bd1928971f527a456ec59eb30983f338737302b")
 DTYPES = [torch.float32, torch.float64]
 F32_TOL = 1e-4
 F64_TOL = 1e-11
@@ -104,8 +116,9 @@ class TestGeometry:
                 one.tn, one.ksplit, one.cluster, one.rows, one.nparts)
             assert g.smem == e * sgk._stage_smem_elems(nf, g.tn, g.ks,
                                                        g.depth, g.ksplit)
-            # a portable cluster covers every band up to N = 383
-            assert 1 <= g.cluster <= 8, n
+            # a portable cluster covers every band up to N = 383, a
+            # non-portable one of 48-wide tiles up to 16 blocks beyond
+            assert 1 <= g.cluster <= (8 if n <= 383 else 16), n
             assert g.grid == (g.cluster, g.rows)
             assert g.grid[0] % g.cluster == 0
             # the cluster's column tiles cover the nf velocity and ni
@@ -128,6 +141,31 @@ class TestGeometry:
             tiles = -(-nf // 16)  # the quadrature kernels keep 16x16 tiles
             assert tuple(ws["qpart"].shape) == (lanes, tiles * tiles, 3)
             assert "left" not in ws
+
+    def test_orders_up_to_383_keep_the_portable_geometry(self):
+        import hashlib
+
+        h = hashlib.sha256()
+        for n in range(12, 384):
+            for dtype in DTYPES:
+                for lanes in (1, 8):
+                    g = sgk.stage_geometry(n + 1, dtype, lanes)
+                    h.update(repr((n, str(dtype), lanes, tuple(g))).encode())
+        assert h.hexdigest() == PORTABLE_GEOMETRY_SHA256
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_clusters_above_8_only_where_8_cannot_cover_the_band(self,
+                                                                 dtype):
+        for n in ORDERS:
+            nf = n + 1
+            g = sgk.stage_geometry(nf, dtype)
+            portable = -(-nf // 48) <= sgk.MAX_CLUSTER
+            assert (g.cluster > sgk.MAX_CLUSTER) == (not portable), n
+            if not portable:
+                assert (g.tn, g.cluster) == (48, -(-nf // 48)), n
+        assert sgk.MAX_KERNEL_N == 767
+        g = sgk.stage_geometry(sgk.MAX_KERNEL_N + 1, dtype, 8)
+        assert g.cluster == sgk.MAX_CLUSTER_NP and g.smem <= sgk.MAX_SMEM
 
     def test_staging_follows_the_waves_of_blocks(self):
         for n in ORDERS:
@@ -161,8 +199,8 @@ class TestGeometry:
             sgk.stage_geometry(21, torch.float16)
         with pytest.raises(ValueError, match="too small"):
             sgk.stage_geometry(2, torch.float32)
-        with pytest.raises(ValueError, match="more than 8 blocks"):
-            sgk.stage_geometry(401, torch.float32)
+        with pytest.raises(ValueError, match="more than 16 blocks"):
+            sgk.stage_geometry(sgk.MAX_KERNEL_N + 2, torch.float32)
         with pytest.raises(ValueError, match="no tile of 16"):
             sgk.stage_geometry(129, torch.float32, tn=16)
         with pytest.raises(ValueError, match="ksplit 3"):
@@ -189,7 +227,7 @@ class TestGeometry:
     def test_constants_and_slots_match_the_c_header(self):
         text = (CSRC / "sg_common.cuh").read_text()
         for name in ("STAGE_TM", "STAGE_RM", "STAGE_RN", "MAX_CLUSTER",
-                     "MAX_SMEM"):
+                     "MAX_CLUSTER_NP", "MAX_SMEM"):
             value = re.search(r"constexpr int " + name + r" = (\d+);",
                               text).group(1)
             assert int(value) == getattr(sgk, name), name
@@ -210,6 +248,76 @@ class TestGeometry:
         assert "counts[C_STAGE] += 2;" not in host
         stage = (CSRC / "sg_stage.cu").read_text()
         assert len(re.findall(r"__global__", stage)) == 1
+
+
+def zero_ops(nf, dtype=torch.float32):
+    """Operators of the shapes the kernel wrappers check, all zero, with
+    the scalars of the scalar table: what ``make_fused_paths`` and the lane
+    validation read, without building an order's basis."""
+    ni = nf - 2
+    shapes = {"Ix": (nf, ni), "Gx": (nf, ni), "IyT": (ni, nf),
+              "GyT": (ni, nf)}
+    ops = SimpleNamespace(nf=nf, dtype=dtype, device=torch.device("cpu"),
+                          singular=False, nu=0.01, beta_sq=5.0, CFL=1.5,
+                          lid_velocity=1.0, inv_dx_min=1.0, inv_dy_min=1.0)
+    for name in sgk._OP_NAMES:
+        setattr(ops, name, None if name.startswith("sing_") else torch.zeros(
+            shapes.get(name, (nf, nf)), dtype=dtype))
+    return ops
+
+
+class TestRouting:
+    """Orders up to MAX_KERNEL_N take the kernels; above it a level runs
+    the plain step by design, and the lane kernels refuse the batch."""
+
+    def test_make_fused_paths_returns_the_kernels_at_400(self, monkeypatch):
+        from anap3_tpu_torch.models import spectral as TS
+
+        called = []
+        monkeypatch.setattr(TS.core, "sg_step",
+                            lambda ops, s: called.append(ops.nf))
+        step, factory = TS.make_fused_paths(zero_ops(401))
+        assert factory is not None
+        assert callable(factory(2, 1e-30, "rel_iter"))
+        assert step.__qualname__.startswith("make_sg_step")
+        assert not called
+
+    def test_make_fused_paths_routes_above_the_cap_to_plain(self,
+                                                            monkeypatch,
+                                                            caplog):
+        import logging
+
+        from anap3_tpu_torch.models import spectral as TS
+
+        called = []
+        monkeypatch.setattr(TS.core, "sg_step",
+                            lambda ops, s: called.append((ops.nf, s)))
+        n = sgk.MAX_KERNEL_N + 1
+        ops = SimpleNamespace(nf=n + 1, singular=False)
+        TS._PLAIN_ORDERS_LOGGED.discard(n)
+        with caplog.at_level(logging.INFO, logger=TS.log.name):
+            step, factory = TS.make_fused_paths(ops)
+            TS.make_fused_paths(ops, "x6")
+        assert factory is None
+        step("state")
+        assert called == [(n + 1, "state")]
+        routed = [r for r in caplog.records if "plain step" in r.message]
+        assert len(routed) == 1 and f"N={n}" in routed[0].message
+
+    def test_lane_kernels_refuse_an_order_above_the_cap(self):
+        big = SimpleNamespace(nf=sgk.MAX_KERNEL_N + 2)
+        with pytest.raises(ValueError, match="largest order 767"):
+            sgl.validate_lanes([big, big])
+
+    def test_vmg_smooths_a_level_above_the_cap_with_the_plain_step(self):
+        from anap3_tpu_torch.models.spectral_vmg import VMGSolver
+
+        levels = [SimpleNamespace(ops=zero_ops(401)),
+                  SimpleNamespace(ops=SimpleNamespace(
+                      nf=sgk.MAX_KERNEL_N + 2))]
+        host = SimpleNamespace(_kernels_enabled=lambda: True)
+        smoothers = VMGSolver._smoothers(host, levels[::-1])
+        assert list(smoothers) == [1]
 
 
 def tiled_residuals(ops, u, v, p, g):
@@ -352,6 +460,46 @@ class TestOnCard:
             assert rel_t(a, b) <= tol_of(dtype)
         for c in range(7):
             assert rel_t(out_k[4][:, c], out_p[4][:, c]) <= tol_of(dtype), c
+
+    @pytest.mark.parametrize("dtype", DTYPES)
+    def test_n400_takes_a_non_portable_cluster(self, cuda, dtype):
+        """N = 400: nine 48-wide blocks a cluster. The step and an 8-step
+        chunk against their plain versions, and a 2-lane chunk against
+        lanes_plain, flags equal."""
+        import dataclasses
+
+        assert sgk.stage_geometry(401, dtype).cluster == 9
+        o0 = cuda_ops(400, dtype, Re=100.0)  # one basis build: ~7 s
+        ops = [o0, dataclasses.replace(o0, nu=1e-3, CFL=1.0)]
+        st = random_state(ops[0], 400)
+        s_k, m_k = sgk.make_sg_step(ops[0])(st)
+        torch.cuda.synchronize()
+        s_p, m_p = sgk.step_plain(ops[0], st)
+        for a, b in zip(s_k, s_p):
+            assert rel_t(a, b) <= tol_of(dtype)
+        for k in m_p:
+            assert rel_t(m_k[k], m_p[k]) <= tol_of(dtype), k
+        out_k = sgk.make_sg_chunk_runner(ops[0], 8, 1e-30, 2, "rel_iter",
+                                         4)(s_p, 0, np.inf)
+        out_p = sgk.chunk_plain(ops[0], s_p, 0, np.inf, 8, 1e-30, 2, False,
+                                4)
+        assert [int(out_k[i]) for i in (1, 2, 3)] == [
+            int(out_p[i]) for i in (1, 2, 3)]
+        for a, b in zip(out_k[0], out_p[0]):
+            assert rel_t(a, b) <= tol_of(dtype)
+        for c in range(7):
+            assert rel_t(out_k[4][:, c], out_p[4][:, c]) <= tol_of(dtype), c
+        sts = stack_states([random_state(o, 401 + b)
+                            for b, o in enumerate(ops)])
+        carry = TR.fresh_carry(2, dtype, cuda)
+        lk = sgl.make_lane_chunk_runner(ops, 8, 1e-30, 2)(sts, 0, carry)
+        lp = sgl.lanes_plain(ops, sts, 0, carry, 8, 1e-30, 2, False,
+                             sgl.lane_metrics_every(400))
+        assert torch.equal(lk[1].flags, lp[1].flags)
+        for a, b in zip(lk[0], lp[0]):
+            assert rel_t(a, b) <= tol_of(dtype)
+        for c in range(7):
+            assert rel_t(lk[2][..., c], lp[2][..., c]) <= tol_of(dtype), c
 
     @pytest.mark.parametrize("n", [20, 128])
     @pytest.mark.parametrize("dtype", DTYPES)
