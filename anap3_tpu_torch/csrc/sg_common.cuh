@@ -38,6 +38,7 @@ enum Ptr {
   P_AU, P_AV, P_AP, P_BU, P_BV, P_BP,  // stage ping-pong (step: B = out)
   P_OMEGA,    // (nf, nf) smooth vorticity of the sampled state
   P_PART,     // (StageGeo::nparts, NPART) last-stage partial sums
+  P_DPART,    // (StageGeo::nparts, NDPART) next base's partials (chunk)
   P_QPART,    // (lane_blocks, NQPART) quadrature partial sums
   P_SCAL,     // (S_COUNT,) device scalars
   P_TAUU, P_TAUV, P_TAUP,              // FAS forcing; null without it
@@ -61,6 +62,10 @@ enum DevScal { S_DT, S_U0SQ, S_V0SQ, S_E, S_Z, S_P, S_COUNT };
 
 // Last-stage partials: R_u^2, R_v^2, R_p^2, |u-u0|^2, |v-v0|^2.
 constexpr int NPART = 5;
+// The chunk step's last stage also sums the next step's base (the state it
+// commits): max|u + su|, max|v + sv| (the total velocity's wave speeds),
+// |u|^2 and |v|^2, all that the next step's dt and rel need.
+constexpr int NDPART = 4;
 // Quadrature partials: W(u^2+v^2), W w^2, W(|grad w|^2).
 constexpr int NQPART = 3;
 
@@ -171,12 +176,67 @@ struct StageArgs {
   const T* scal;  // reads scal[S_DT]
   T alpha;
   T* part;        // non-null on the last stage
+  // Both set on the last stage of a chunk step, which writes the base in
+  // place (u_out == u0, ...): a lane whose flags (lanes, 3) say done at the
+  // step's start stores nothing (the freeze), and dpart gets the partials
+  // of the base the stage leaves.
+  const int* flags;
+  T* dpart;
 };
 
 // max that propagates NaN from either side (jnp.maximum / torch.maximum)
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
   return (a > b || a != a) ? a : b;
+}
+
+// Correctly rounded operations that the compiler may not contract or
+// reorder (the CUDA intrinsics), for arithmetic whose bits two kernels
+// must share.
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float div_rn(float a, float b) {
+  return __fdiv_rn(a, b);
+}
+__device__ __forceinline__ double div_rn(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+
+// The adaptive dt of models/spectral_sg.adaptive_dt from the base's
+// max|u + su| and max|v + sv|, with lane scalars s (H_COUNT): dt_kernel
+// and the chunk step's finish share it. Each operation is pinned, so both
+// kernels give the same bits, and those of the dt kernel before the
+// finish took it over: lam = fma(nu, idx * idx, (u + sqrt(fma(u, u,
+// beta^2))) * idx), the contraction nvcc chose for that expression.
+template <typename T>
+__device__ __forceinline__ T dt_of(T umax, T vmax, const T* s) {
+  const T u_max = nan_max(umax, s[H_LID]);
+  const T v_max = nan_max(vmax, T(1e-10));
+  const T wx = add_rn(u_max, sqrt_rn(fma_rn(u_max, u_max, s[H_BETA])));
+  const T wy = add_rn(v_max, sqrt_rn(fma_rn(v_max, v_max, s[H_BETA])));
+  const T lam_x = fma_rn(s[H_NU], mul_rn(s[H_IDX], s[H_IDX]),
+                         mul_rn(s[H_IDX], wx));
+  const T lam_y = fma_rn(s[H_NU], mul_rn(s[H_IDY], s[H_IDY]),
+                         mul_rn(s[H_IDY], wy));
+  return div_rn(s[H_CFL], add_rn(lam_x, lam_y));
 }
 
 // Shared-memory k-tile of A (M x K, leading dim lda; row `row` of this
@@ -221,6 +281,175 @@ __device__ T block_max(T v, T* sh, int tid, int nthreads) {
   return r;
 }
 
+// What a step's tail finishes (every pointer lane 0's): the partial sums
+// of the last stage, of the next base and of the quadratures, and where the
+// results go. A chunk step (rows set) writes its history row, runs the
+// convergence state machine and, from dpart, the next step's dt and base
+// norms; a step or smoother (metrics set) writes the six metrics.
+template <typename T>
+struct Tail {
+  const T* part;   // (lanes, nparts, NPART)
+  int nparts;
+  const T* dpart;  // (lanes, nparts, NDPART); chunk only
+  T* qpart;        // (lanes, lane_blocks(nf), NQPART)
+  T* scal;         // (lanes, S_COUNT)
+  const T* lsc;    // (lanes, H_COUNT)
+  T* metrics;      // step: (lanes, 6)
+  T* rows;         // chunk: (chunk, lanes, 7), row `row` written
+  int lanes, row, idx, warmup, use_residual;
+  T tol;
+  int* flags;      // chunk: (lanes, 3) done, conv_iter, converged
+  T* ref_norm;     // chunk: (lanes,)
+};
+
+// Slots of the 1024-thread tree that warp_tree reads: nb is at most
+// TREE_PASSES * RED_THREADS (the tails check it).
+constexpr int TREE_PASSES = 3;
+
+template <bool MAX, typename T>
+__device__ __forceinline__ T fold(T a, T b) {
+  if constexpr (MAX) return nan_max(a, b);
+  else return a + b;
+}
+
+// Lane 0 of the calling warp (l: the thread's lane) gets what block_sum
+// (or block_max) over RED_THREADS threads gives when thread t first folds
+// col[b * stride] for b = t, t + RED_THREADS, ... < nb: lane l holds the
+// slots l + 32 m, runs the tree's levels 512 .. 32 on them (they pair slot
+// m with m + s / 32 of the same lane), then levels 16 .. 1 by shuffles,
+// which pair lane l with l + s as the tree does. Slots past nb hold zeros,
+// and adding or taking the max with them changes nothing, so the bits are
+// the tree's. Every index is a constant after unrolling (counted loops),
+// so the slots stay in registers, and the first pass's loads are issued
+// together.
+template <bool MAX, typename T>
+__device__ __forceinline__ T warp_tree(const T* col, int stride, int nb,
+                                       int l) {
+  T v[32];
+#pragma unroll
+  for (int m = 0; m < 32; ++m) {
+    const int b = l + 32 * m;
+    v[m] = fold<MAX>(T(0), b < nb ? col[(size_t)b * stride] : T(0));
+  }
+  if (nb > RED_THREADS) {
+#pragma unroll
+    for (int r = 1; r < TREE_PASSES; ++r) {
+#pragma unroll
+      for (int m = 0; m < 32; ++m) {
+        const int b = l + 32 * m + r * RED_THREADS;
+        if (b < nb) v[m] = fold<MAX>(v[m], col[(size_t)b * stride]);
+      }
+    }
+  }
+#pragma unroll
+  for (int lv = 0; lv < 5; ++lv) {
+    const int s = 16 >> lv;
+#pragma unroll
+    for (int m = 0; m < s; ++m) v[m] = fold<MAX>(v[m], v[m + s]);
+  }
+  T r = v[0];
+#pragma unroll
+  for (int lv = 0; lv < 5; ++lv)
+    r = fold<MAX>(r, __shfl_down_sync(0xffffffffu, r, 16 >> lv));
+  return r;
+}
+
+// Columns of a lane's tail: the last stage's NPART, the next base's NDPART
+// (a chunk step), the NQPART quadratures (a sampled step).
+constexpr int TAIL_COLS = NPART + NDPART + NQPART;
+
+// Columns [c0, c1) of a lane's partial tables into sums[c], one warp a
+// column, by a whole block (whole warps); the next base's columns only
+// where there are (a chunk), the quadratures only when sampled.
+template <typename T>
+__device__ void tail_sums(const Tail<T>& t, int lane, int nf, bool sampled,
+                          int c0, int c1, T* sums) {
+  const int nq = (int)lane_blocks(nf);
+  const T* part = t.part + (size_t)lane * t.nparts * NPART;
+  const T* dpart = t.dpart ? t.dpart + (size_t)lane * t.nparts * NDPART
+                           : nullptr;
+  const T* qpart = t.qpart + (size_t)lane * nq * NQPART;
+  const int tid = threadIdx.x + threadIdx.y * blockDim.x;
+  const int l = tid % 32, nw = blockDim.x * blockDim.y / 32;
+  for (int c = c0 + tid / 32; c < c1; c += nw) {
+    T r = T(0);
+    if (c < NPART) {
+      r = warp_tree<false>(part + c, NPART, t.nparts, l);
+    } else if (c < NPART + NDPART) {
+      const int q = c - NPART;
+      if (!dpart) continue;
+      r = q < 2 ? warp_tree<true>(dpart + q, NDPART, t.nparts, l)
+                : warp_tree<false>(dpart + q, NDPART, t.nparts, l);
+    } else {
+      if (!sampled) continue;
+      r = warp_tree<false>(qpart + (c - NPART - NDPART), NQPART, nq, l);
+    }
+    if (l == 0) sums[c] = r;
+  }
+}
+
+// The tail of one lane's step from its column sums, in one thread: a step's
+// six metrics, or a chunk step's row, state machine and next dt.
+// Replaces the per-step tail of the chunk kernels' fori_loop body
+// (anap3_tpu/ops/pallas_aligned.py make_aligned_chunk_runner, pallas_tiled.py
+// make_tiled_chunk_runner; semantics: anap3_tpu/models/runner.py
+// make_chunk_runner): rows, the rel_iter / residual criteria, the warmup
+// gate, NaN divergence, conv_iter and done. A lane that is done writes NaN
+// rows (its state was kept by the stage).
+template <typename T>
+__device__ void finish_lane(const Tail<T>& t, int lane, bool sampled,
+                            const T* sums) {
+  const T* qs = sums + NPART + NDPART;
+  T* scal = t.scal + (size_t)lane * S_COUNT;
+  if (t.metrics) {
+    T* m = t.metrics + (size_t)lane * 6;
+    m[0] = sqrt(sums[0]);
+    m[1] = sqrt(sums[1]);
+    m[2] = sqrt(sums[2]);
+    m[3] = T(0.5) * qs[0];
+    m[4] = T(0.5) * qs[1];
+    m[5] = T(0.5) * qs[2];
+  } else {
+    if (sampled) {
+      scal[S_E] = T(0.5) * qs[0];
+      scal[S_Z] = T(0.5) * qs[1];
+      scal[S_P] = T(0.5) * qs[2];
+    }
+    int* flags = t.flags + 3 * lane;
+    T* rows = t.rows + ((size_t)t.row * t.lanes + lane) * 7;
+    const int done = flags[0];
+    const T rel = nan_max(sqrt(sums[3]) / (sqrt(scal[S_U0SQ]) + T(1e-12)),
+                          sqrt(sums[4]) / (sqrt(scal[S_V0SQ]) + T(1e-12)));
+    const T vals[7] = {rel, sqrt(sums[0]), sqrt(sums[1]), sqrt(sums[2]),
+                       scal[S_E], scal[S_Z], scal[S_P]};
+    const T nan = T(NAN);
+    for (int c = 0; c < 7; ++c) rows[c] = done ? nan : vals[c];
+    // the row's values (NaN once done) feed the criteria, as in
+    // runner.make_chunk_runner
+    const T rel_row = done ? nan : rel;
+    const T cont = done ? nan : vals[3];
+    T rn = t.ref_norm[lane];
+    if (t.use_residual && t.idx == t.warmup) rn = cont;  // pinned
+    const T crit = t.use_residual ? cont / nan_max(rn, T(1e-30)) : rel_row;
+    if (!done) {
+      const bool finite = isfinite(rel);
+      const bool newly_conv = t.idx >= t.warmup && crit < t.tol && finite;
+      if (newly_conv || !finite) {
+        flags[0] = 1;
+        flags[1] = t.idx + 1;
+      }
+      if (newly_conv) flags[2] = 1;
+    }
+    t.ref_norm[lane] = rn;
+    // the next step's dt and base norms, from the base the last stage
+    // left (dt_kernel's arithmetic on the same maxima)
+    const T* ds = sums + NPART;
+    scal[S_DT] = dt_of(ds[0], ds[1], t.lsc + (size_t)lane * H_COUNT);
+    scal[S_U0SQ] = ds[2];
+    scal[S_V0SQ] = ds[3];
+  }
+}
+
 // Launchers, defined (and instantiated for float and double) in the .cu
 // file of each kernel, each for `lanes` lanes at once; pointers are lane 0's.
 // None synchronizes; each returns cudaGetLastError().
@@ -234,21 +463,21 @@ cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
                       int nf, int lanes, cudaStream_t s);
+// A chunk step's unsampled tail: one block a lane.
 template <typename T>
-cudaError_t launch_quadratures(const Ops<T>& o, const T* u, const T* v,
-                               T* omega, T* qpart, int nf, int lanes,
-                               cudaStream_t s);
-// rows: (chunk, lanes, 7), row `row` written; flags: (lanes, 3); ref_norm:
-// (lanes,); part holds nparts blocks a lane, qpart lane_blocks(nf)
+cudaError_t launch_control(const Tail<T>& t, int nf, int lanes,
+                           cudaStream_t s);
+// A sampled tail: the quadratures of (u, v) and the finish, one cooperative
+// launch of `blocks` blocks (at least `lanes`, at most tail_coresident, at
+// most MAX_TAIL_ITEMS (tile, lane) items a block).
 template <typename T>
-cudaError_t launch_control(const T* part, int nparts, const T* qpart,
-                           int sampled,
-                           T* scal, T* rows, int row, int idx, int warmup,
-                           T tol, int use_residual, int* flags, T* ref_norm,
-                           T* u, T* v, T* p, const T* u_new, const T* v_new,
-                           const T* p_new, int nf, int lanes, cudaStream_t s);
+cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
+                        const Tail<T>& t, int nf, int lanes, int blocks,
+                        cudaStream_t s);
+// Co-resident blocks of the tail kernel on the current device;
+// cudaErrorNotSupported on a card without cooperative launch.
 template <typename T>
-cudaError_t launch_step_finish(const T* part, int nparts, const T* qpart,
-                               T* metrics, int nf, int lanes, cudaStream_t s);
+cudaError_t tail_coresident(int* blocks);
+constexpr int MAX_TAIL_ITEMS = 128;
 
 }  // namespace sg

@@ -1,4 +1,5 @@
-// sg_diag: the per-step reductions of the SG step.
+// sg_diag: the reductions of the SG step over whole fields: the adaptive
+// dt, and the sampled tail (the quadratures and the step's finish).
 //
 // Replaces: the adaptive-dt pass and the conserved-quantity metrics pass of
 //   anap3_tpu/ops/pallas_tiled.py (_adaptive_dt, _stage_machinery's
@@ -7,25 +8,46 @@
 //   (adaptive_dt, metrics_pass). Semantics: anap3_tpu/models/spectral_sg.py
 //   adaptive_dt and conserved_quantities.
 //
-// Bound on the card: dt_kernel reads two (nf, nf) fields (133 KB at N=128,
-//   L2-resident) with one block, a few microseconds that launch latency
-//   dominates. The quadratures need two more dense products (omega depends
-//   on a whole product, and grad(omega) on the whole of omega), so they take
-//   two tiled launches; like sg_stage they are latency- and wave-bound.
-// Design: dt_kernel is ONE block, so max|u_tot|, max|v_tot| and the base
-//   norms |u0|^2, |v0|^2 reduce in a fixed-order tree with no cross-block
-//   step; it writes dt into a device scalar that every stage reads, so no
-//   host sync enters the step. The quadratures run only on the steps the
-//   host loop samples (metrics_every); each tile block writes partial sums
-//   and sg_control finishes them in a second pass, without atomics.
-//   The |u-u0|^2 / |v-v0|^2 partials ride the last stage's epilogue
-//   (sg_stage.cu), which already holds both states.
-// Lanes: dt_kernel runs one block per lane, the quadrature kernels take the
-//   lane as the grid's z axis (see sg_common.cuh).
+// Bound on the card: latency. dt_kernel reads two (nf, nf) fields (133 KB
+//   at N=128, L2-resident) with one block. The quadratures need two dense
+//   products in a row (omega depends on a whole product, and grad(omega) on
+//   the whole of omega: 8 nf^3 operations, 17 MFLOP at N=128), then a
+//   reduction of their per-tile partials: three dependent steps, each a
+//   few microseconds of work, against a launch floor of ~3 us and a grid
+//   barrier of ~1.2-1.7 us (scripts/launch_floor.cu, H100).
+// Design:
+//   - dt_kernel is ONE block a lane, so max|u_tot|, max|v_tot| and the base
+//     norms |u0|^2, |v0|^2 reduce in a fixed-order tree; it writes dt into a
+//     device scalar that every stage reads, so no host sync enters the
+//     step. A chunk runs it at its first step only: the last stage of every
+//     step sums the base it leaves, and the step's finish sets the next dt
+//     from those sums (sg_control.cu, finish in sg_common.cuh). The step
+//     and the smoother run it every step.
+//   - tail_kernel is the sampled tail in one persistent cooperative launch
+//     (cudaLaunchAttributeCooperative) of min(tiles^2 x lanes, co-resident)
+//     blocks of 16 x 16 threads: omega = Dx v - u DyT tile by tile with the
+//     energy and enstrophy partials; a grid barrier; grad(omega) with the
+//     palinstrophy partials; a grid barrier; then block b finishes lane b
+//     (a chunk step's row, state machine and next dt, or a step's six
+//     metrics), having reduced the stage's partial columns before the
+//     tiles. Block b takes the (tile, lane) items b, b + grid, ... in
+//     both tile phases. Each tile's partial is the 256-slot block_sum of its
+//     cells and each lane sum the 1024-slot tree over the tiles, as the
+//     three launches it replaces summed them, so E, Z and P keep their bits.
+//   - No fallback: a card without cooperative launch, a grid above the
+//     co-resident count, below the lane count, or one that leaves a block
+//     more than MAX_TAIL_ITEMS items is refused with an error.
+// Lanes: dt_kernel runs one block per lane; tail_kernel's items carry their
+//   lane, whose operators, scalars and partials they use (see
+//   sg_common.cuh), and the finish of lane b reads only lane b's partials.
+#include <cooperative_groups.h>
+
 #include "sg_common.cuh"
 
 namespace sg {
 namespace {
+
+namespace cg = cooperative_groups;
 
 template <typename T>
 __global__ void dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal,
@@ -55,111 +77,200 @@ __global__ void dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal,
   usq = block_sum(usq, sh, tid, RED_THREADS);
   vsq = block_sum(vsq, sh, tid, RED_THREADS);
   if (tid == 0) {
-    const T u_max = nan_max(umax, o.lid);
-    const T v_max = nan_max(vmax, T(1e-10));
-    const T lam_x = (u_max + sqrt(u_max * u_max + o.beta_sq)) * o.inv_dx
-                    + o.nu * (o.inv_dx * o.inv_dx);
-    const T lam_y = (v_max + sqrt(v_max * v_max + o.beta_sq)) * o.inv_dy
-                    + o.nu * (o.inv_dy * o.inv_dy);
-    scal[S_DT] = o.cfl / (lam_x + lam_y);
+    scal[S_DT] = dt_of(umax, vmax, o.lsc + (size_t)lane * H_COUNT);
     scal[S_U0SQ] = usq;
     scal[S_V0SQ] = vsq;
   }
 }
 
-// omega = Dx v - u DyT (smooth part) into scratch, plus the energy and
-// enstrophy partials over the TOTAL fields.
+// k tiles of the operands a tile stages at once: one barrier and one
+// round of load latency for KT k tiles, not one each.
+constexpr int KT = 4;
+
+// The shared memory of a tile: KT k tiles of the operands of two products
+// and the cells' values of two partial sums.
 template <typename T>
-__global__ void omega_kernel(Ops<T> o0, const T* u, const T* v, T* omega,
-                             T* qpart, int nf) {
-  const int lane = blockIdx.z;
-  const Ops<T> o = at_lane(o0, lane, nf);
-  u += lane * lane_full(nf);
-  v += lane * lane_full(nf);
-  omega += lane * lane_full(nf);
-  qpart += lane * lane_blocks(nf) * NQPART;
+struct TileSmem {
+  T A1[KT][TILE][TILE], B1[KT][TILE][TILE];
+  T A2[KT][TILE][TILE], B2[KT][TILE][TILE];
+  T vals[2][TILE * TILE];
+};
+
+// A tile's cell values col[0, 256) summed as block_sum over 256 threads
+// sums them: lane l takes the tree's first three levels from its eight
+// slots l + 32 j in the tree's pair order, then the last five by shuffles
+// (lane l with l + s). Valid in lane 0.
+template <typename T>
+__device__ __forceinline__ T tile_sum(const T* col, int l) {
+  T x = ((col[l] + col[l + 128]) + (col[l + 64] + col[l + 192])) +
+        ((col[l + 32] + col[l + 160]) + (col[l + 96] + col[l + 224]));
+#pragma unroll
+  for (int lv = 0; lv < 5; ++lv)
+    x += __shfl_down_sync(0xffffffffu, x, 16 >> lv);
+  return x;
+}
+
+// omega = Dx v - u DyT (smooth part) of tile (ti, tj) of one lane into
+// scratch, plus the energy and enstrophy partials over the TOTAL fields.
+template <typename T>
+__device__ void omega_tile(const Ops<T>& o, const T* u, const T* v,
+                           T* omega, T* qpart, int nf, int ti, int tj,
+                           TileSmem<T>& S) {
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i = blockIdx.y * TILE + ty;
-  const int j = blockIdx.x * TILE + tx;
-  __shared__ T A1[TILE][TILE], B1[TILE][TILE];
-  __shared__ T A2[TILE][TILE], B2[TILE][TILE];
-  __shared__ T red[TILE * TILE];
+  const int i = ti * TILE + ty;
+  const int j = tj * TILE + tx;
+  // the cell's fields, loaded while the products run
+  const bool in = i < nf && j < nf;
+  const size_t k = in ? (size_t)i * nf + j : 0;
+  T ut = 0, vt = 0, w = 0, sw = 0;
+  if (in) {
+    ut = u[k];
+    vt = v[k];
+    w = o.W2d[k];
+    if (o.su) {
+      ut += o.su[k];
+      vt += o.sv[k];
+      sw = o.sw[k];
+    }
+  }
   T dvdx = 0, dudy = 0;
-  for (int k0 = 0; k0 < nf; k0 += TILE) {
-    load_tiles(o.Dx, nf, nf, v, nf, nf, nf, k0, i, j, A1, B1);
-    load_tiles(u, nf, nf, o.DyT, nf, nf, nf, k0, i, j, A2, B2);
+  // k ascending, one k tile after another: the sums of a tile at a time
+  for (int k0 = 0; k0 < nf; k0 += KT * TILE) {
+#pragma unroll
+    for (int q = 0; q < KT; ++q) {
+      const int kq = k0 + q * TILE;
+      if (kq >= nf) break;
+      load_tiles(o.Dx, nf, nf, v, nf, nf, nf, kq, i, j, S.A1[q], S.B1[q]);
+      load_tiles(u, nf, nf, o.DyT, nf, nf, nf, kq, i, j, S.A2[q], S.B2[q]);
+    }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < TILE; ++kk) {
-      dvdx += A1[ty][kk] * B1[kk][tx];
-      dudy += A2[ty][kk] * B2[kk][tx];
+    for (int q = 0; q < KT; ++q) {
+      if (k0 + q * TILE >= nf) break;
+#pragma unroll
+      for (int kk = 0; kk < TILE; ++kk) {
+        dvdx += S.A1[q][ty][kk] * S.B1[q][kk][tx];
+        dudy += S.A2[q][ty][kk] * S.B2[q][kk][tx];
+      }
     }
     __syncthreads();
   }
   T e = 0, z = 0;
-  if (i < nf && j < nf) {
-    const size_t k = (size_t)i * nf + j;
+  if (in) {
     const T om = dvdx - dudy;
     omega[k] = om;
-    T ut = u[k], vt = v[k], omt = om;
-    if (o.su) {
-      ut += o.su[k];
-      vt += o.sv[k];
-      omt += o.sw[k];
-    }
-    const T w = o.W2d[k];
+    T omt = om;
+    if (o.su) omt += sw;
     e = w * (ut * ut + vt * vt);
     z = w * omt * omt;
   }
-  const int tid = ty * TILE + tx;
-  const int b = blockIdx.y * gridDim.x + blockIdx.x;
-  e = block_sum(e, red, tid, TILE * TILE);
-  z = block_sum(z, red, tid, TILE * TILE);
-  if (tid == 0) {
-    qpart[(size_t)b * NQPART + 0] = e;
-    qpart[(size_t)b * NQPART + 1] = z;
+  // e and z summed at once, a warp each
+  const int tid = ty * TILE + tx, l = tid % 32, wp = tid / 32;
+  S.vals[0][tid] = e;
+  S.vals[1][tid] = z;
+  __syncthreads();
+  if (wp < 2) {
+    const T sum = tile_sum(S.vals[wp], l);
+    if (l == 0) qpart[(size_t)(ti * tiles(nf) + tj) * NQPART + wp] = sum;
   }
 }
 
 // grad(omega) = (Dx omega, omega DyT) of the smooth vorticity plus the
-// sampled singular gradients; palinstrophy partials.
+// sampled singular gradients on tile (ti, tj); palinstrophy partials.
 template <typename T>
-__global__ void grad_kernel(Ops<T> o0, const T* omega, T* qpart, int nf) {
-  const int lane = blockIdx.z;
-  const Ops<T> o = at_lane(o0, lane, nf);
-  omega += lane * lane_full(nf);
-  qpart += lane * lane_blocks(nf) * NQPART;
+__device__ void grad_tile(const Ops<T>& o, const T* omega, T* qpart, int nf,
+                          int ti, int tj, TileSmem<T>& S) {
   const int tx = threadIdx.x, ty = threadIdx.y;
-  const int i = blockIdx.y * TILE + ty;
-  const int j = blockIdx.x * TILE + tx;
-  __shared__ T A1[TILE][TILE], B1[TILE][TILE];
-  __shared__ T A2[TILE][TILE], B2[TILE][TILE];
-  __shared__ T red[TILE * TILE];
+  const int i = ti * TILE + ty;
+  const int j = tj * TILE + tx;
+  const bool in = i < nf && j < nf;
+  const size_t k = in ? (size_t)i * nf + j : 0;
+  T w = 0, sx = 0, sy = 0;
+  if (in) {
+    w = o.W2d[k];
+    if (o.su) {
+      sx = o.sdwx[k];
+      sy = o.sdwy[k];
+    }
+  }
   T dwx = 0, dwy = 0;
-  for (int k0 = 0; k0 < nf; k0 += TILE) {
-    load_tiles(o.Dx, nf, nf, omega, nf, nf, nf, k0, i, j, A1, B1);
-    load_tiles(omega, nf, nf, o.DyT, nf, nf, nf, k0, i, j, A2, B2);
+  for (int k0 = 0; k0 < nf; k0 += KT * TILE) {
+#pragma unroll
+    for (int q = 0; q < KT; ++q) {
+      const int kq = k0 + q * TILE;
+      if (kq >= nf) break;
+      load_tiles(o.Dx, nf, nf, omega, nf, nf, nf, kq, i, j, S.A1[q], S.B1[q]);
+      load_tiles(omega, nf, nf, o.DyT, nf, nf, nf, kq, i, j, S.A2[q], S.B2[q]);
+    }
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < TILE; ++kk) {
-      dwx += A1[ty][kk] * B1[kk][tx];
-      dwy += A2[ty][kk] * B2[kk][tx];
+    for (int q = 0; q < KT; ++q) {
+      if (k0 + q * TILE >= nf) break;
+#pragma unroll
+      for (int kk = 0; kk < TILE; ++kk) {
+        dwx += S.A1[q][ty][kk] * S.B1[q][kk][tx];
+        dwy += S.A2[q][ty][kk] * S.B2[q][kk][tx];
+      }
     }
     __syncthreads();
   }
   T pal = 0;
-  if (i < nf && j < nf) {
-    const size_t k = (size_t)i * nf + j;
+  if (in) {
     if (o.su) {
-      dwx += o.sdwx[k];
-      dwy += o.sdwy[k];
+      dwx += sx;
+      dwy += sy;
     }
-    pal = o.W2d[k] * (dwx * dwx + dwy * dwy);
+    pal = w * (dwx * dwx + dwy * dwy);
   }
-  const int tid = ty * TILE + tx;
-  pal = block_sum(pal, red, tid, TILE * TILE);
-  if (tid == 0)
-    qpart[(size_t)(blockIdx.y * gridDim.x + blockIdx.x) * NQPART + 2] = pal;
+  const int tid = ty * TILE + tx, l = tid % 32;
+  S.vals[0][tid] = pal;
+  __syncthreads();
+  if (tid < 32) {
+    const T sum = tile_sum(S.vals[0], l);
+    if (l == 0) qpart[(size_t)(ti * tiles(nf) + tj) * NQPART + 2] = sum;
+  }
+}
+
+// Two blocks an SM at least: the grid is the co-resident count, and a
+// block of 256 threads may otherwise take every register of an SM.
+template <typename T>
+__global__ void __launch_bounds__(TILE * TILE, 2)
+    tail_kernel(Ops<T> o0, const T* u, const T* v, T* omega, Tail<T> t,
+                int nf) {
+  __shared__ TileSmem<T> S;
+  __shared__ T sums[TAIL_COLS];
+  cg::grid_group grid = cg::this_grid();
+  // block b finishes lane b (the grid has a block a lane at least): the
+  // stage's columns are ready at launch, so they reduce before the tiles
+  const bool finisher = blockIdx.x < t.lanes;
+  if (finisher) tail_sums(t, blockIdx.x, nf, true, 0, NPART + NDPART, sums);
+  const int nt = tiles(nf), nb = nt * nt, items = nb * t.lanes;
+  // the items of this block, in the same order in both tile phases
+  auto each = [&](auto tile) {
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int lane = it / nb, b = it % nb;
+      tile(at_lane(o0, lane, nf), lane, b / nt, b % nt);
+    }
+  };
+  each([&](const Ops<T>& o, int lane, int ti, int tj) {
+    const size_t f = lane * lane_full(nf);
+    omega_tile(o, u + f, v + f, omega + f,
+               t.qpart + lane * lane_blocks(nf) * NQPART, nf,
+               ti, tj, S);
+  });
+  grid.sync();
+  each([&](const Ops<T>& o, int lane, int ti, int tj) {
+    grad_tile(o, omega + lane * lane_full(nf),
+              t.qpart + lane * lane_blocks(nf) * NQPART, nf,
+              ti, tj, S);
+  });
+  grid.sync();
+  if (finisher) {
+    tail_sums(t, blockIdx.x, nf, true, NPART + NDPART, TAIL_COLS, sums);
+    __syncthreads();
+    if (threadIdx.x == 0 && threadIdx.y == 0)
+      finish_lane(t, blockIdx.x, true, sums);
+  }
 }
 
 }  // namespace
@@ -172,31 +283,68 @@ cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
 }
 
 template <typename T>
-cudaError_t launch_quadratures(const Ops<T>& o, const T* u, const T* v,
-                               T* omega, T* qpart, int nf, int lanes,
-                               cudaStream_t s) {
-  const dim3 grid(tiles(nf), tiles(nf), lanes), block(TILE, TILE);
-  omega_kernel<T><<<grid, block, 0, s>>>(o, u, v, omega, qpart, nf);
-  cudaError_t err = cudaGetLastError();
+cudaError_t tail_coresident(int* blocks) {
+  static int most = 0;
+  if (most) {
+    *blocks = most;
+    return cudaSuccess;
+  }
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, tail_kernel<T>, TILE * TILE, 0);
+  if (err == cudaSuccess && per_sm < 1)
+    err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return err;
-  grad_kernel<T><<<grid, block, 0, s>>>(o, omega, qpart, nf);
-  return cudaGetLastError();
+  most = per_sm * sms;
+  *blocks = most;
+  return cudaSuccess;
 }
 
-template cudaError_t launch_dt<float>(const Ops<float>&, const float*,
-                                      const float*, float*, int, int,
+template <typename T>
+cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
+                        const Tail<T>& t, int nf, int lanes, int blocks,
+                        cudaStream_t s) {
+  int most = 0;
+  cudaError_t err = tail_coresident<T>(&most);
+  if (err != cudaSuccess) return err;
+  const long items = (long)lane_blocks(nf) * lanes;
+  if (t.lanes != lanes || (!t.metrics && !(t.rows && t.dpart)) ||
+      t.nparts > TREE_PASSES * RED_THREADS ||
+      lane_blocks(nf) > (size_t)TREE_PASSES * RED_THREADS)
+    return cudaErrorInvalidValue;
+  if (blocks < lanes || blocks > most || blocks > items ||
+      (items + blocks - 1) / blocks > MAX_TAIL_ITEMS)
+    return cudaErrorCooperativeLaunchTooLarge;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(TILE, TILE);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, tail_kernel<T>, o, u, v, omega, t, nf);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+#define SG_INSTANTIATE(T)                                                   \
+  template cudaError_t launch_dt<T>(const Ops<T>&, const T*, const T*, T*,  \
+                                    int, int, cudaStream_t);                \
+  template cudaError_t tail_coresident<T>(int*);                            \
+  template cudaError_t launch_tail<T>(const Ops<T>&, const T*, const T*,    \
+                                      T*, const Tail<T>&, int, int, int,    \
                                       cudaStream_t);
-template cudaError_t launch_dt<double>(const Ops<double>&, const double*,
-                                       const double*, double*, int, int,
-                                       cudaStream_t);
-template cudaError_t launch_quadratures<float>(const Ops<float>&,
-                                               const float*, const float*,
-                                               float*, float*, int, int,
-                                               cudaStream_t);
-template cudaError_t launch_quadratures<double>(const Ops<double>&,
-                                                const double*,
-                                                const double*, double*,
-                                                double*, int, int,
-                                                cudaStream_t);
+SG_INSTANTIATE(float)
+SG_INSTANTIATE(double)
+#undef SG_INSTANTIATE
 
 }  // namespace sg

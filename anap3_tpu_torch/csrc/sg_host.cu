@@ -6,9 +6,14 @@
 // launch geometry as an int array (sg_common.cuh:GeoSlot, from
 // ops/sg_kernels.py:stage_geometry) and refuses one it cannot take.
 //
-// A step is dt (sg_diag), then ONE sg_stage launch per RK stage (four),
-// then the step's tail: 6 launches a chunk step (8 when the quadratures are
-// sampled), against 10 (12) when a stage took two launches.
+// A chunk step is ONE sg_stage launch per RK stage (four), the last one
+// writing the step into the chunk's state in place, then one tail launch:
+// sg_control's control_kernel, or on a sampled step sg_diag's tail_kernel
+// (the quadratures and the same finish, one cooperative launch). The
+// finish sets the next step's dt, so sg_diag's dt_kernel runs once a chunk,
+// at its first step: 5 launches a step and 1 a chunk (6 a step, 8 sampled,
+// when the tail copied the state and dt ran every step). A single step
+// (sg_step_run) is dt, four stages and the tail kernel: 6.
 //
 // sg_chunk_run takes the place of the Pallas fori_loop of
 // anap3_tpu/ops/pallas_aligned.py make_aligned_chunk_runner: it loops the
@@ -21,8 +26,8 @@
 // of each step being the previous step's output buffer (two buffers taken
 // in turn, arranged so the last step lands in the output: no copy), and
 // computes the metrics of the last step only, as the V-cycle keeps only
-// those: 5 launches per step plus 3, against 8 per step for n_steps calls
-// of sg_step_run. Bound: like the step, by the launches' latency at the
+// those: 5 launches per step (dt and four stages) plus 1, against 6 per
+// step for n_steps calls of sg_step_run. Bound: like the step, by the launches' latency at the
 // V-cycle's sizes (a step's products are ~0.2 GFLOP at N=192).
 //
 // sg_lanes_chunk_run is sg_chunk_run for B sweep lanes at once (the lanes'
@@ -30,8 +35,8 @@
 // chunk): it takes the place of the Pallas fori_loops of
 // anap3_tpu/ops/pallas_lanes.py make_lane_chunk_runner and
 // pallas_lanes_aligned.py make_aligned_lane_runner. Every launch covers all
-// lanes, so a B-lane step costs the launches of one step (6, 8 on a
-// sampled step), not B times as many; sg_chunk_run is its B = 1 case.
+// lanes, so a B-lane step costs the launches of one step (5), not B times
+// as many; sg_chunk_run is its B = 1 case.
 #include "sg_common.cuh"
 
 namespace sg {
@@ -46,7 +51,8 @@ namespace {
 template <typename T>
 struct Work {
   Ops<T> o;
-  T *u, *v, *p, *au, *av, *ap, *bu, *bv, *bp, *omega, *part, *qpart, *scal;
+  T *u, *v, *p, *au, *av, *ap, *bu, *bv, *bp, *omega, *part, *dpart, *qpart,
+      *scal;
   const T *tau_u, *tau_v, *tau_p;
   int lanes;
   StageGeo g;
@@ -62,27 +68,65 @@ Work<T> make_work(const void* const* P, int lanes) {
   w.au = m(P_AU); w.av = m(P_AV); w.ap = m(P_AP);
   w.bu = m(P_BU); w.bv = m(P_BV); w.bp = m(P_BP);
   w.omega = m(P_OMEGA);
-  w.part = m(P_PART); w.qpart = m(P_QPART); w.scal = m(P_SCAL);
+  w.part = m(P_PART); w.dpart = m(P_DPART); w.qpart = m(P_QPART);
+  w.scal = m(P_SCAL);
   w.tau_u = m(P_TAUU); w.tau_v = m(P_TAUV); w.tau_p = m(P_TAUP);
   w.lanes = lanes;
   return w;
 }
 
+// The tail's partials and scalars; the caller adds where the results go.
+template <typename T>
+Tail<T> make_tail(const Work<T>& w) {
+  Tail<T> t = {};
+  t.part = w.part;
+  t.nparts = w.g.nparts;
+  t.qpart = w.qpart;
+  t.scal = w.scal;
+  t.lsc = w.o.lsc;
+  t.lanes = w.lanes;
+  return t;
+}
+
+// A chunk's tail of row i at global iteration idx: rows, state machine, and
+// the next step's dt from the base the last stage left.
+template <typename T>
+Tail<T> chunk_tail(const Work<T>& w, const void* const* P, int i, int idx,
+                   int warmup, double tol, int use_residual) {
+  auto m = [&](int k) { return const_cast<void*>(P[k]); };
+  Tail<T> t = make_tail(w);
+  t.dpart = w.dpart;
+  t.rows = static_cast<T*>(m(P_ROWS));
+  t.row = i;
+  t.idx = idx;
+  t.warmup = warmup;
+  t.tol = T(tol);
+  t.use_residual = use_residual;
+  t.flags = static_cast<int*>(m(P_FLAGS));
+  t.ref_norm = static_cast<T*>(m(P_REFNORM));
+  return t;
+}
+
 const double kAlphas[4] = {0.25, 1.0 / 3.0, 0.5, 1.0};
 
-// dt plus the four RK stages from the base state into the B buffers
-// (base -> A -> B -> A -> B); the last stage writes the partials.
+// The four RK stages from the base state (base -> A -> B -> A -> out),
+// after dt when `with_dt`; the last stage writes the partials. Without
+// `flags` the step lands in the B buffers. With the chunk's `flags` it
+// lands in the base itself, except where a lane began the step done, and
+// the last stage also writes the next base's partials (w.dpart).
 template <typename T>
-int rk4(const Work<T>& w, int nf, bool with_tau, int* counts,
-        cudaStream_t s) {
-  SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, w.lanes, s));
-  counts[C_DIAG] += 1;
+int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
+        const int* flags, int* counts, cudaStream_t s) {
+  if (with_dt) {
+    SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, w.lanes, s));
+    counts[C_DIAG] += 1;
+  }
   const T* in_u[4] = {w.u, w.au, w.bu, w.au};
   const T* in_v[4] = {w.v, w.av, w.bv, w.av};
   const T* in_p[4] = {w.p, w.ap, w.bp, w.ap};
-  T* out_u[4] = {w.au, w.bu, w.au, w.bu};
-  T* out_v[4] = {w.av, w.bv, w.av, w.bv};
-  T* out_p[4] = {w.ap, w.bp, w.ap, w.bp};
+  T* out_u[4] = {w.au, w.bu, w.au, flags ? w.u : w.bu};
+  T* out_v[4] = {w.av, w.bv, w.av, flags ? w.v : w.bv};
+  T* out_p[4] = {w.ap, w.bp, w.ap, flags ? w.p : w.bp};
   for (int st = 0; st < 4; ++st) {
     StageArgs<T> a;
     a.u_in = in_u[st]; a.v_in = in_v[st]; a.p_in = in_p[st];
@@ -94,32 +138,39 @@ int rk4(const Work<T>& w, int nf, bool with_tau, int* counts,
     a.scal = w.scal;
     a.alpha = T(kAlphas[st]);
     a.part = st == 3 ? w.part : nullptr;
+    a.flags = st == 3 ? flags : nullptr;
+    a.dpart = st == 3 && flags ? w.dpart : nullptr;
     SG_CHECK(launch_stage<T>(w.o, a, nf, w.lanes, w.g, s));
     counts[C_STAGE] += 1;
   }
   return 0;
 }
 
+// The six metrics of the state in the B buffers, in one tail launch.
 template <typename T>
-int step_run(const void* const* P, int nf, const int* geo, int with_tau,
-             int* counts, cudaStream_t s) {
-  Work<T> w = make_work<T>(P, 1);
-  SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
-  int rc = rk4<T>(w, nf, with_tau != 0, counts, s);
-  if (rc) return rc;
-  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, 1,
-                                 s));
-  counts[C_DIAG] += 2;
-  SG_CHECK(launch_step_finish<T>(
-      w.part, w.g.nparts, w.qpart,
-      static_cast<T*>(const_cast<void*>(P[P_METRICS])), nf, 1, s));
-  counts[C_CONTROL] += 1;
+int metrics_tail(const Work<T>& w, const void* const* P, int nf,
+                 int tail_blocks, int* counts, cudaStream_t s) {
+  Tail<T> t = make_tail(w);
+  t.metrics = static_cast<T*>(const_cast<void*>(P[P_METRICS]));
+  SG_CHECK(launch_tail<T>(w.o, w.bu, w.bv, w.omega, t, nf, 1, tail_blocks,
+                          s));
+  counts[C_DIAG] += 1;
   return 0;
 }
 
 template <typename T>
+int step_run(const void* const* P, int nf, const int* geo, int with_tau,
+             int tail_blocks, int* counts, cudaStream_t s) {
+  Work<T> w = make_work<T>(P, 1);
+  SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
+  int rc = rk4<T>(w, nf, with_tau != 0, true, nullptr, counts, s);
+  if (rc) return rc;
+  return metrics_tail(w, P, nf, tail_blocks, counts, s);
+}
+
+template <typename T>
 int smooth_run(const void* const* P, int nf, const int* geo, int n_steps,
-               int with_tau, int* counts, cudaStream_t s) {
+               int with_tau, int tail_blocks, int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, 1);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
   auto m = [&](int k) { return static_cast<T*>(const_cast<void*>(P[k])); };
@@ -128,60 +179,51 @@ int smooth_run(const void* const* P, int nf, const int* geo, int n_steps,
   for (int i = 0; i < n_steps; ++i) {
     T* const* o = outs[(n_steps - 1 - i) % 2];
     wi.bu = o[0]; wi.bv = o[1]; wi.bp = o[2];
-    int rc = rk4<T>(wi, nf, with_tau != 0, counts, s);
+    int rc = rk4<T>(wi, nf, with_tau != 0, true, nullptr, counts, s);
     if (rc) return rc;
     wi.u = wi.bu; wi.v = wi.bv; wi.p = wi.bp;
   }
-  SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf, 1,
-                                 s));
-  counts[C_DIAG] += 2;
-  SG_CHECK(launch_step_finish<T>(w.part, w.g.nparts, w.qpart, m(P_METRICS),
-                                 nf, 1, s));
-  counts[C_CONTROL] += 1;
-  return 0;
+  return metrics_tail(w, P, nf, tail_blocks, counts, s);
 }
 
 template <typename T>
 int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
               int chunk, int start_iter, int warmup, int metrics_every,
-              int use_residual, double tol, int* counts, cudaStream_t s) {
+              int use_residual, double tol, int tail_blocks, int* counts,
+              cudaStream_t s) {
   Work<T> w = make_work<T>(P, lanes);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
-  T* rows = static_cast<T*>(const_cast<void*>(P[P_ROWS]));
-  int* flags = static_cast<int*>(const_cast<void*>(P[P_FLAGS]));
-  T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REFNORM]));
+  const int* flags = static_cast<const int*>(P[P_FLAGS]);
   for (int i = 0; i < chunk; ++i) {
     const int idx = start_iter + i;
-    int rc = rk4<T>(w, nf, false, counts, s);
+    // dt at the chunk's first step; later steps take it from the tail
+    int rc = rk4<T>(w, nf, false, i == 0, flags, counts, s);
     if (rc) return rc;
+    const Tail<T> t = chunk_tail(w, P, i, idx, warmup, tol, use_residual);
     // the aligned kernel's cadence: the first step of every chunk and
     // every metrics_every-th global iteration (one decision for all lanes)
-    const int sampled = (i == 0) || (idx % metrics_every == 0);
-    if (sampled) {
-      SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf,
-                                     lanes, s));
-      counts[C_DIAG] += 2;
+    if (i == 0 || idx % metrics_every == 0) {
+      SG_CHECK(launch_tail<T>(w.o, w.u, w.v, w.omega, t, nf, lanes,
+                              tail_blocks, s));
+      counts[C_DIAG] += 1;
+    } else {
+      SG_CHECK(launch_control<T>(t, nf, lanes, s));
+      counts[C_CONTROL] += 1;
     }
-    SG_CHECK(launch_control<T>(w.part, w.g.nparts, w.qpart, sampled, w.scal,
-                               rows, i, idx, warmup, T(tol), use_residual,
-                               flags, ref_norm, w.u, w.v, w.p, w.bu, w.bv,
-                               w.bp, nf, lanes, s));
-    counts[C_CONTROL] += 1;
   }
   return 0;
 }
 
 // Timing aid: `reps` launches of one kernel group on a chunk workspace of
-// `lanes` lanes (0: one last-stage sg_stage launch, 1: sg_diag dt +
-// quadratures, 2: sg_control on a sampled step). Not part of any solve.
+// `lanes` lanes (0: one last stage of a chunk step, out of place into the
+// B buffers, with the base's partials; 1: dt; 2: a sampled step's tail;
+// 3: an unsampled step's control). Not part of any solve.
 template <typename T>
 int bench_run(const void* const* P, int nf, const int* geo, int lanes,
-              int which, int reps, cudaStream_t s) {
+              int which, int reps, int tail_blocks, cudaStream_t s) {
   Work<T> w = make_work<T>(P, lanes);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
-  T* rows = static_cast<T*>(const_cast<void*>(P[P_ROWS]));
-  int* flags = static_cast<int*>(const_cast<void*>(P[P_FLAGS]));
-  T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REFNORM]));
+  const Tail<T> t = chunk_tail(w, P, 0, 0, 1 << 30, 0.0, 0);
   for (int r = 0; r < reps; ++r) {
     if (which == 0) {
       StageArgs<T> a;
@@ -192,16 +234,16 @@ int bench_run(const void* const* P, int nf, const int* geo, int lanes,
       a.scal = w.scal;
       a.alpha = T(1);
       a.part = w.part;
+      a.flags = t.flags;
+      a.dpart = w.dpart;
       SG_CHECK(launch_stage<T>(w.o, a, nf, lanes, w.g, s));
     } else if (which == 1) {
       SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, lanes, s));
-      SG_CHECK(launch_quadratures<T>(w.o, w.bu, w.bv, w.omega, w.qpart, nf,
-                                     lanes, s));
+    } else if (which == 2) {
+      SG_CHECK(launch_tail<T>(w.o, w.u, w.v, w.omega, t, nf, lanes,
+                              tail_blocks, s));
     } else {
-      SG_CHECK(launch_control<T>(w.part, w.g.nparts, w.qpart, 1, w.scal,
-                                 rows, 0, 0, 1 << 30, T(0), 0, flags,
-                                 ref_norm, w.u, w.v, w.p, w.bu, w.bv, w.bp,
-                                 nf, lanes, s));
+      SG_CHECK(launch_control<T>(t, nf, lanes, s));
     }
   }
   return 0;
@@ -213,50 +255,68 @@ int bench_run(const void* const* P, int nf, const int* geo, int lanes,
 extern "C" {
 
 // dtype: 0 = float32, 1 = float64. geo: the stage geometry (G_COUNT ints,
-// sg_common.cuh:GeoSlot). The per-lane scalars are the table in the pointer
-// table's P_LSC slot.
+// sg_common.cuh:GeoSlot). tail_blocks: the tail kernel's grid (the
+// wrapper's ops/sg_kernels.py:tail_grid). The per-lane scalars are the
+// table in the pointer table's P_LSC slot.
 int sg_step_run(int dtype, int nf, const int* geo, const void* const* ptrs,
-                int with_tau, int* counts, void* stream) {
+                int with_tau, int tail_blocks, int* counts, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? sg::step_run<double>(ptrs, nf, geo, with_tau, counts, s)
-               : sg::step_run<float>(ptrs, nf, geo, with_tau, counts, s);
+  return dtype ? sg::step_run<double>(ptrs, nf, geo, with_tau, tail_blocks,
+                                      counts, s)
+               : sg::step_run<float>(ptrs, nf, geo, with_tau, tail_blocks,
+                                     counts, s);
 }
 
 int sg_smooth_run(int dtype, int nf, const int* geo, const void* const* ptrs,
-                  int n_steps, int with_tau, int* counts, void* stream) {
+                  int n_steps, int with_tau, int tail_blocks, int* counts,
+                  void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? sg::smooth_run<double>(ptrs, nf, geo, n_steps, with_tau,
-                                        counts, s)
+                                        tail_blocks, counts, s)
                : sg::smooth_run<float>(ptrs, nf, geo, n_steps, with_tau,
-                                       counts, s);
+                                       tail_blocks, counts, s);
 }
 
 int sg_lanes_chunk_run(int dtype, int nf, const int* geo, int lanes,
                        const void* const* ptrs, int chunk, int start_iter,
                        int warmup, int metrics_every, int use_residual,
-                       double tol, int* counts, void* stream) {
+                       double tol, int tail_blocks, int* counts,
+                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? sg::chunk_run<double>(ptrs, nf, geo, lanes, chunk,
                                        start_iter, warmup, metrics_every,
-                                       use_residual, tol, counts, s)
+                                       use_residual, tol, tail_blocks,
+                                       counts, s)
                : sg::chunk_run<float>(ptrs, nf, geo, lanes, chunk,
                                       start_iter, warmup, metrics_every,
-                                      use_residual, tol, counts, s);
+                                      use_residual, tol, tail_blocks, counts,
+                                      s);
 }
 
 int sg_chunk_run(int dtype, int nf, const int* geo, const void* const* ptrs,
                  int chunk, int start_iter, int warmup, int metrics_every,
-                 int use_residual, double tol, int* counts, void* stream) {
+                 int use_residual, double tol, int tail_blocks, int* counts,
+                 void* stream) {
   return sg_lanes_chunk_run(dtype, nf, geo, 1, ptrs, chunk, start_iter,
-                            warmup, metrics_every, use_residual, tol, counts,
-                            stream);
+                            warmup, metrics_every, use_residual, tol,
+                            tail_blocks, counts, stream);
 }
 
 int sg_bench_run(int dtype, int nf, const int* geo, int lanes,
-                 const void* const* ptrs, int which, int reps, void* stream) {
+                 const void* const* ptrs, int which, int reps,
+                 int tail_blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype ? sg::bench_run<double>(ptrs, nf, geo, lanes, which, reps, s)
-               : sg::bench_run<float>(ptrs, nf, geo, lanes, which, reps, s);
+  return dtype ? sg::bench_run<double>(ptrs, nf, geo, lanes, which, reps,
+                                       tail_blocks, s)
+               : sg::bench_run<float>(ptrs, nf, geo, lanes, which, reps,
+                                      tail_blocks, s);
+}
+
+// The co-resident blocks of the tail kernel of `dtype` on the current
+// device into *blocks (the most its cooperative launch may take).
+int sg_tail_coresident(int dtype, int* blocks) {
+  return dtype ? (int)sg::tail_coresident<double>(blocks)
+               : (int)sg::tail_coresident<float>(blocks);
 }
 
 const char* sg_error_string(int code) {

@@ -21,8 +21,14 @@
 //   - one kernel computes the residuals, the RK update with alpha * dt read
 //     from a device scalar (no host sync), the interior/BC select, p_out
 //     and, on the last stage, the per-block partial sums of R_u^2, R_v^2,
-//     R_p^2, |u-u0|^2, |v-v0|^2 (reduced by sg_control in a second pass,
-//     without atomics). No scratch round trip: the velocity products
+//     R_p^2, |u-u0|^2, |v-v0|^2 (reduced by the step's tail in a second
+//     pass, without atomics). The last stage of a chunk step writes the
+//     chunk's state in place (each point is read as the base and written
+//     by the same thread; the products read only the stage input), skips
+//     the stores of a lane that began the step done, and also sums the base
+//     it leaves (max|u + su|, max|v + sv|, |u|^2, |v|^2: the next step's dt
+//     and rel), so no state copy and no dt pass follow it. No scratch
+//     round trip: the velocity products
 //     Dx u, Dxx u, Dx v, Dxx v of a tile take only the Dx/Dxx row band and
 //     the u/v column band of the tile, so the block computes them itself
 //     beside u DyT, u DyyT, v DyT, v DyyT.
@@ -79,7 +85,7 @@ __host__ __device__ inline int slab_elems(int na, int nb, int ks, int tn) {
 __host__ __device__ inline int red_elems(int tn, int ksplit) {
   const int nt0 = stage_group_threads(tn);
   const int groups = (ksplit - 1) * 32 * nt0;  // 32 sums a thread
-  const int warps = ksplit * nt0 / 32 * NPART;
+  const int warps = ksplit * nt0 / 32 * (NPART + NDPART);
   // an even count keeps the ring's vector reads aligned
   return ((groups > warps ? groups : warps) + 1) & ~1;
 }
@@ -324,6 +330,9 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   const int r0 = (t0 / (TN / 2)) * 2, c = (t0 % (TN / 2)) * 2;
   const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
   const int ksplit = g.ksplit, ks = g.ks, depth = g.depth;
+  // a chunk step's last stage leaves the base of a lane that began the
+  // step done as it is (runner.freeze; the Pallas pl.when(~done))
+  const bool keep = a0.flags && a0.flags[3 * lane];
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* gp_own = reinterpret_cast<T*>(smem_raw);  // (Gx p)[I, J] [TM][TN]
@@ -529,12 +538,15 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
       }
       const T u_new = in ? u0[a] + adt * R_u : bu[a];
       const T v_new = in ? v0[a] + adt * R_v : bv[a];
-      a0.u_out[kk] = u_new;
-      a0.v_out[kk] = v_new;
+      if (!keep) {
+        a0.u_out[kk] = u_new;
+        a0.v_out[kk] = v_new;
+      }
       if (in) {
         T R_p = -beta_sq * (du_dx + v_dy);
         if (a0.tau_p) R_p += tp[a];
-        a0.p_out[lq + (size_t)(i - 1) * ni + (j - 1)] = p0[a] + adt * R_p;
+        if (!keep)
+          a0.p_out[lq + (size_t)(i - 1) * ni + (j - 1)] = p0[a] + adt * R_p;
         sums[2] += R_p * R_p;
       }
       sums[0] += R_u * R_u;
@@ -545,6 +557,7 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   }
   if (a0.part) {  // last stage (uniform branch): a fixed warp tree, then
                   // group 0's warps in order (the others hold zeros)
+    constexpr int NC = NPART + NDPART;
     const int w = tid / 32;
 #pragma unroll
     for (int q = 0; q < NPART; ++q) {
@@ -552,18 +565,62 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         sq += __shfl_down_sync(0xffffffffu, sq, off);
-      if (tid % 32 == 0 && kg == 0) red[w * NPART + q] = sq;
+      if (tid % 32 == 0 && kg == 0) red[w * NC + q] = sq;
+    }
+    if (a0.dpart) {  // the base this stage leaves, read back (in place:
+                     // the new state, or the kept one): max|u + su|,
+                     // max|v + sv|, |u|^2, |v|^2, as dt_kernel takes them
+      T ds[NDPART] = {T(0), T(0), T(0), T(0)};
+      if (kg == 0) {
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = i0 + a / 2, j = j0 + a % 2;
+          if (i >= nf || j >= nf) continue;
+          const size_t kk = lf + (size_t)i * nf + j;
+          T uu = a0.u_out[kk], vv = a0.v_out[kk];
+          ds[2] += uu * uu;
+          ds[3] += vv * vv;
+          if (o0.su) {
+            uu += o0.su[kk];
+            vv += o0.sv[kk];
+          }
+          ds[0] = nan_max(ds[0], (T)fabs(uu));
+          ds[1] = nan_max(ds[1], (T)fabs(vv));
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < NDPART; ++q) {
+        T sq = ds[q];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          const T o = __shfl_down_sync(0xffffffffu, sq, off);
+          sq = q < 2 ? nan_max(sq, o) : sq + o;
+        }
+        if (tid % 32 == 0 && kg == 0) red[w * NC + NPART + q] = sq;
+      }
     }
     __syncthreads();
     if (tid == 0) {
-      T* out = a0.part + ((size_t)lane * g.nparts +
-                          (size_t)blockIdx.y * gridDim.x + blockIdx.x) *
-                             NPART;
+      const size_t blk = (size_t)lane * g.nparts +
+                         (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+      T* out = a0.part + blk * NPART;
 #pragma unroll
       for (int q = 0; q < NPART; ++q) {
         T sq = T(0);
-        for (int ww = 0; ww < NT0 / 32; ++ww) sq += red[ww * NPART + q];
+        for (int ww = 0; ww < NT0 / 32; ++ww) sq += red[ww * NC + q];
         out[q] = sq;
+      }
+      if (a0.dpart) {
+        T* dout = a0.dpart + blk * NDPART;
+#pragma unroll
+        for (int q = 0; q < NDPART; ++q) {
+          T sq = T(0);
+          for (int ww = 0; ww < NT0 / 32; ++ww) {
+            const T x = red[ww * NC + NPART + q];
+            sq = q < 2 ? nan_max(sq, x) : sq + x;
+          }
+          dout[q] = sq;
+        }
       }
     }
   }

@@ -87,17 +87,20 @@ def _bind_sg(lib: ctypes.CDLL) -> None:
     pp = ctypes.POINTER(ctypes.c_void_p)
     ip = ctypes.POINTER(ctypes.c_int)
     # (dtype, nf, stage geometry, ...): the geometry is an int array
-    lib.sg_step_run.argtypes = [i, i, ip, pp, i, ip, vp]
+    # ..., the tail kernel's grid, the launch counts, the stream
+    lib.sg_step_run.argtypes = [i, i, ip, pp, i, i, ip, vp]
     lib.sg_step_run.restype = i
-    lib.sg_chunk_run.argtypes = [i, i, ip, pp, i, i, i, i, i, d, ip, vp]
+    lib.sg_chunk_run.argtypes = [i, i, ip, pp, i, i, i, i, i, d, i, ip, vp]
     lib.sg_chunk_run.restype = i
-    lib.sg_lanes_chunk_run.argtypes = [i, i, ip, i, pp, i, i, i, i, i, d, ip,
-                                       vp]
+    lib.sg_lanes_chunk_run.argtypes = [i, i, ip, i, pp, i, i, i, i, i, d, i,
+                                       ip, vp]
     lib.sg_lanes_chunk_run.restype = i
-    lib.sg_smooth_run.argtypes = [i, i, ip, pp, i, i, ip, vp]
+    lib.sg_smooth_run.argtypes = [i, i, ip, pp, i, i, i, ip, vp]
     lib.sg_smooth_run.restype = i
-    lib.sg_bench_run.argtypes = [i, i, ip, i, pp, i, i, vp]
+    lib.sg_bench_run.argtypes = [i, i, ip, i, pp, i, i, i, vp]
     lib.sg_bench_run.restype = i
+    lib.sg_tail_coresident.argtypes = [i, ip]
+    lib.sg_tail_coresident.restype = i
     lib.sg_error_string.argtypes = [i]
     lib.sg_error_string.restype = ctypes.c_char_p
 

@@ -51,10 +51,21 @@ schedule before its first launch); ``stage_geometry`` raises above it,
 and the solvers route such a level to the plain step by design
 (``models/spectral.py:make_fused_paths``).
 
+The step's tail: the last stage of a chunk step writes the step into the
+chunk's state in place (not where a lane began the step done) and sums the
+base it leaves; then one launch finishes the step: ``control_kernel``
+(sg_control.cu) on an unsampled step, or on a sampled one ``tail_kernel``
+(sg_diag.cu), the quadratures and the same finish in one cooperative launch
+of ``tail_grid(nf, lanes, co-resident blocks)`` blocks. The finish sets the
+next step's dt, so ``dt_kernel`` runs at a chunk's first step only. A
+chunk is ``chunk_launches(chunk, start_iter, metrics_every)`` launches; a
+step is dt, four stages and the tail kernel; the smoother dt and four
+stages a step, then the tail kernel.
+
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
-by kernel (sg_stage: one per RK stage; sg_diag; sg_control);
-``PLAIN_CALLS`` counts calls of the plain versions. ``reset_counts()``
-zeroes both.
+by kernel (sg_stage: one per RK stage; sg_diag: dt and the tail kernel;
+sg_control: the unsampled control); ``PLAIN_CALLS`` counts calls of the
+plain versions. ``reset_counts()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -73,12 +84,16 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "step_plain", "chunk_plain", "smooth_plain", "LAUNCHES",
            "PLAIN_CALLS", "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS",
            "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body",
-           "stage_geometry", "StageGeometry", "MAX_KERNEL_N"]
+           "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
+           "tail_block_items", "MAX_TAIL_ITEMS", "chunk_launches",
+           "BENCH_GROUPS"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
 
 KERNELS = ("sg_stage", "sg_diag", "sg_control")
+# the timed launch groups of bench_kernel (csrc/sg_host.cu:bench_run)
+BENCH_GROUPS = ("sg_stage", "dt", "tail", "sg_control")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {"sg_step": 0, "sg_chunk": 0, "sg_smooth": 0}
 
@@ -88,13 +103,16 @@ _PTR_NAMES = (
     "W2d", "sing_u", "sing_v", "sing_dudx", "sing_dudy", "sing_dvdx",
     "sing_dvdy", "sing_w", "sing_dwx", "sing_dwy",
     "u", "v", "p", "au", "av", "ap", "bu", "bv", "bp",
-    "omega", "part", "qpart", "scal", "tau_u", "tau_v", "tau_p",
+    "omega", "part", "dpart", "qpart", "scal", "tau_u", "tau_v", "tau_p",
     "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc")
 _OP_NAMES = _PTR_NAMES[:20]
 _STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
               "palinstrophy")
-_NPART, _NQPART, _NSCAL = 5, 3, 6  # csrc/sg_common.cuh
-_TILE = 16  # the quadrature kernels' tile (csrc/sg_common.cuh:TILE)
+_NPART, _NDPART, _NQPART, _NSCAL = 5, 4, 3, 6  # csrc/sg_common.cuh
+_TILE = 16  # the quadrature tiles (csrc/sg_common.cuh:TILE)
+# (tile, lane) items a block of the tail kernel may take
+# (csrc/sg_common.cuh:MAX_TAIL_ITEMS)
+MAX_TAIL_ITEMS = 128
 # csrc/sg_common.cuh: STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER,
 # MAX_CLUSTER_NP, MAX_SMEM, GeoSlot
 STAGE_TM, STAGE_RM, STAGE_RN, MAX_CLUSTER, MAX_SMEM = 8, 2, 2, 8, 232448
@@ -142,12 +160,14 @@ def _stage_smem_elems(nf: int, tn: int, ks: int, depth: int,
     """Shared memory of a stage block in elements, as
     csrc/sg_stage.cu:stage_smem_elems lays it out: its own Gx p / Ix p
     slices, the gathered bands (nip = (nf - 2) | 1 rows of 8), the k
-    groups' reduction (32 sums a thread) or the warps' partial sums, then
+    groups' reduction (32 sums a thread) or the warps' partial sums (of
+    the stage and of the base a chunk step leaves), then
     ``depth`` ring slots of the largest phase's slab (4 row bands and 4
     column bands)."""
     nip = (nf - 2) | 1
     nt0 = stage_group_threads(tn)
-    red = max((ksplit - 1) * 32 * nt0, ksplit * nt0 // 32 * _NPART)
+    red = max((ksplit - 1) * 32 * nt0,
+              ksplit * nt0 // 32 * (_NPART + _NDPART))
     red += red % 2
     slot = 4 * ks * STAGE_TM + 4 * ks * tn
     return 2 * STAGE_TM * tn + 2 * STAGE_TM * nip + red + depth * slot
@@ -227,6 +247,72 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
         threads=ksplit * stage_group_threads(tn), grid=(cluster, rows))
 
 
+def tail_grid(nf: int, lanes: int, coresident: int) -> int:
+    """Blocks of the tail kernel's cooperative launch at order nf - 1 for
+    ``lanes`` lanes on a card where ``coresident`` of its blocks fit at
+    once: one block a (16x16 tile, lane) item, at most ``coresident``, the
+    blocks striding over the items (``tail_block_items``); block b also
+    finishes lane b. Raises where the card holds fewer blocks than lanes,
+    or where a block would take more than ``MAX_TAIL_ITEMS`` items: such a
+    launch is refused, never run another way."""
+    if coresident < max(lanes, 1):
+        raise RuntimeError(f"the tail kernel needs a cooperative launch of "
+                           f"a block a lane at least ({lanes}); the card "
+                           f"holds {coresident}")
+    nt = -(-nf // _TILE)
+    items = nt * nt * lanes
+    blocks = min(items, coresident)
+    if -(-items // blocks) > MAX_TAIL_ITEMS:
+        raise ValueError(f"order {nf - 1}, {lanes} lanes: {items} tail items "
+                         f"on {blocks} co-resident blocks is more than "
+                         f"{MAX_TAIL_ITEMS} a block")
+    return blocks
+
+
+def tail_block_items(nf: int, lanes: int, blocks: int, b: int):
+    """The (lane, tile row, tile column) items block ``b`` of a
+    ``blocks``-block tail launch takes, in its order (both tile phases of
+    csrc/sg_diag.cu:tail_kernel)."""
+    nt = -(-nf // _TILE)
+    nb = nt * nt
+    return [(it // nb, it % nb // nt, it % nt)
+            for it in range(b, nb * lanes, blocks)]
+
+
+_CORESIDENT = {}  # dtype code -> co-resident tail blocks on this card
+
+
+def _tail_blocks(ops: SpectralOps, lanes: int, lib) -> int:
+    """The tail kernel's grid for ``lanes`` lanes of ``ops`` on this card
+    (its co-resident count asked once per dtype)."""
+    code = _dtype_code(ops.dtype)
+    if code not in _CORESIDENT:
+        most = ctypes.c_int(0)
+        _raise_on(lib, lib.sg_tail_coresident(code, ctypes.byref(most)),
+                  "sg_tail_coresident")
+        _CORESIDENT[code] = most.value
+    return tail_grid(ops.nf, lanes, _CORESIDENT[code])
+
+
+def chunk_launches(chunk: int, start_iter: int, metrics_every: int) -> dict:
+    """The launches of one chunk by kernel: four stages a step, dt at the
+    first step, and one tail a step: the tail kernel (sg_diag) on a sampled
+    step (the first, and every ``metrics_every``-th global iteration, as
+    ``chunk_plain`` samples), control (sg_control) on the others."""
+    sampled = sum(1 for i in range(chunk)
+                  if i == 0 or (start_iter + i) % metrics_every == 0)
+    return {"sg_stage": 4 * chunk, "sg_diag": int(chunk > 0) + sampled,
+            "sg_control": chunk - sampled}
+
+
+def _check_launches(counts, chunk, start_iter, metrics_every):
+    """Raise where the C entry's counts differ from the chunk's plan."""
+    got = dict(zip(KERNELS, (int(n) for n in counts)))
+    want = chunk_launches(chunk, start_iter, metrics_every)
+    if got != want:
+        raise RuntimeError(f"chunk launches {got}, planned {want}")
+
+
 def reset_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -288,10 +374,12 @@ def _check_state(ops: SpectralOps, state: SpectralState):
 def _workspace(ops: SpectralOps, lanes: int = 1, **bufs) -> dict:
     """The pointer table's operators and per-step scratch for ``lanes``
     lanes (lane-major), updated with ``bufs``: the stage kernel's partial
-    sums (``stage_geometry(...).nparts`` blocks a lane) and the quadrature
-    kernels' (one per 16x16 tile) differ in number."""
+    sums (``stage_geometry(...).nparts`` blocks a lane, of the stage and of
+    the base a chunk step leaves) and the quadratures' (one per 16x16
+    tile) differ in number."""
     nf, ni = ops.nf, ops.nf - 2
     tiles = (nf + _TILE - 1) // _TILE
+    nparts = stage_geometry(nf, ops.dtype).nparts
     kw = dict(dtype=ops.dtype, device=ops.device)
     ws = {name: getattr(ops, name) for name in _OP_NAMES}
     ws.update(
@@ -299,8 +387,8 @@ def _workspace(ops: SpectralOps, lanes: int = 1, **bufs) -> dict:
         av=torch.empty((lanes, nf, nf), **kw),
         ap=torch.empty((lanes, ni, ni), **kw),
         omega=torch.empty((lanes, nf, nf), **kw),
-        part=torch.empty((lanes, stage_geometry(nf, ops.dtype).nparts,
-                          _NPART), **kw),
+        part=torch.empty((lanes, nparts, _NPART), **kw),
+        dpart=torch.empty((lanes, nparts, _NDPART), **kw),
         qpart=torch.empty((lanes, tiles * tiles, _NQPART), **kw),
         scal=torch.zeros((lanes, _NSCAL), **kw))
     ws.update(bufs)
@@ -376,8 +464,8 @@ def _step_kernel(ops, state, tau, lsc):
                     bv=out.v, bp=out.p, metrics=metrics, lsc=lsc, **taus)
     counts = (ctypes.c_int * 3)()
     rc = lib.sg_step_run(_dtype_code(ops.dtype), nf, _geo(ops),
-                         _ptr_table(ws), int(tau is not None), counts,
-                         _stream())
+                         _ptr_table(ws), int(tau is not None),
+                         _tail_blocks(ops, 1, lib), counts, _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_step_run")
     return out, dict(zip(_STEP_KEYS, metrics.unbind()))
@@ -443,7 +531,7 @@ def make_sg_smoother(ops: SpectralOps):
         counts = (ctypes.c_int * 3)()
         rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
                                _ptr_table(ws), int(n_steps), int(bool(taus)),
-                               counts, _stream())
+                               _tail_blocks(ops, 1, lib), counts, _stream())
         _count(counts)
         _raise_on(lib, rc, "sg_smooth_run")
         return out, dict(zip(_STEP_KEYS, metrics.unbind()))
@@ -531,9 +619,11 @@ def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
     rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
                           _ptr_table(ws), int(chunk), int(start_iter),
                           int(warmup), int(metrics_every), int(use_residual),
-                          float(tolerance), counts, _stream())
+                          float(tolerance), _tail_blocks(ops, 1, lib), counts,
+                          _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_chunk_run")
+    _check_launches(counts, chunk, start_iter, metrics_every)
     flags = ws["flags"]
     return (SpectralState(ws["u"], ws["v"], ws["p"]), flags[0] > 0,
             flags[1], flags[2] > 0, ws["rows"], ws["ref_norm"][0])
@@ -567,17 +657,19 @@ def make_sg_chunk_runner(ops: SpectralOps, chunk: int, tolerance: float,
 
 def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int,
                  lanes: int = 1, geometry: StageGeometry = None) -> None:
-    """Enqueue ``reps`` launches of one kernel on a chunk workspace of
-    ``lanes`` lanes, for timing only (not counted in LAUNCHES): "sg_stage"
-    is one last-stage launch, "sg_diag" the dt and quadrature launches,
-    "sg_control" one sampled-step control launch. ``geometry`` (one of
-    the same tile and cluster, so the partial sums fit) replaces the stage
-    geometry of ``ops``."""
+    """Enqueue ``reps`` launches of one group of ``BENCH_GROUPS`` on a chunk
+    workspace of ``lanes`` lanes, for timing only (not counted in
+    LAUNCHES): "sg_stage" is a chunk step's last stage (out of place, with
+    the base's partials), "dt" the dt launch, "tail" a sampled step's tail
+    launch, "sg_control" an unsampled step's control launch. ``geometry``
+    (one of the same tile and cluster, so the partial sums fit) replaces
+    the stage geometry of ``ops``."""
     from ._build import load_library
 
     lib = load_library("sg")
     geo = _geo(ops, lanes) if geometry is None else geometry.as_c()
     rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, geo,
-                          int(lanes), _ptr_table(ws), KERNELS.index(which),
-                          int(reps), _stream())
+                          int(lanes), _ptr_table(ws),
+                          BENCH_GROUPS.index(which), int(reps),
+                          _tail_blocks(ops, lanes, lib), _stream())
     _raise_on(lib, rc, f"sg_bench_run({which})")

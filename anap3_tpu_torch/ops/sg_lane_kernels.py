@@ -193,10 +193,13 @@ def _lanes_kernel(ops_list, statics, states, start_iter, carry, chunk,
                                 sgk._geo(ops0, B), B, sgk._ptr_table(ws),
                                 int(chunk), int(start_iter), int(warmup),
                                 int(metrics_every), int(use_residual),
-                                float(tolerance), counts, sgk._stream())
+                                float(tolerance),
+                                sgk._tail_blocks(ops0, B, lib), counts,
+                                sgk._stream())
     key = "sg_lanes_tiled" if metrics_every == 1 else "sg_lanes_aligned"
     LAUNCHES[key] += sum(int(n) for n in counts)
     sgk._raise_on(lib, rc, "sg_lanes_chunk_run")
+    sgk._check_launches(counts, chunk, start_iter, metrics_every)
     return (SpectralState(ws["u"], ws["v"], ws["p"]),
             LaneCarry(ws["flags"], ws["ref_norm"]), ws["rows"])
 

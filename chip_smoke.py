@@ -17,8 +17,11 @@ when it fails:
    float32 and float64, smoothed and singular lids; tolerances: relative
    max error <= 1e-11 in float64 and <= 1e-4 in float32, done/conv_iter
    equal; kernel and plain ms/step at N = 48, 96, 128; at N=128 float32 the
-   per-kernel times, the stage's library yardstick (its 12 products as
-   torch.matmul) and a torch.profiler idle share of a one-lane chunk;
+   times of the last stage, dt_kernel, tail_kernel (a sampled step's
+   quadratures and finish) and control_kernel (an unsampled step's
+   finish), each beside its plain version and bound, the stage's library
+   yardstick (its 12 products as torch.matmul) and a torch.profiler idle
+   share and kernel shares of a one-lane chunk;
 2b. FV kernels: a 32-iteration chunk from rest and one step from the flow
    it reaches, kernel against plain, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64 (float64 with n_refine 0 and 1), TVD and upwind;
@@ -133,7 +136,7 @@ from anap3_tpu_torch.models import fv as fvm  # noqa: E402
 from anap3_tpu_torch.models import spectral_sg as core  # noqa: E402
 from anap3_tpu_torch.models.params import (FVParameters,  # noqa: E402
                                            SpectralParameters)
-from anap3_tpu_torch.models.runner import control_step, freeze  # noqa: E402
+from anap3_tpu_torch.models.runner import control_step  # noqa: E402
 from anap3_tpu_torch.models import runner as TR  # noqa: E402
 from anap3_tpu_torch.models import spectral_vmg as vmg  # noqa: E402
 from anap3_tpu_torch.models.spectral import (FSGSolver, SGSolver,  # noqa: E402
@@ -259,27 +262,35 @@ def bound(flops, nbytes, dtype):
 
 def sg_work(nf, dtype):
     """(operations, bytes) of the SG kernels' timed launch groups at order
-    nf - 1, counted from the shapes: a product of (m x k) by (k x n) is
-    2mkn operations; elementwise work is left out (it only lowers the
-    bound).
+    nf - 1, one lane, counted from the shapes: a product of (m x k) by
+    (k x n) is 2mkn operations; elementwise work is left out (it only
+    lowers the bound).
 
     - sg_stage, one RK stage: the 8 full-grid products of the residuals
       (Dx, Dxx from the left and DyT, DyyT from the right on u and v) and
       the two pressure-gradient chains Gx p IyT, Ix p GyT; it reads the
       stage and base states, 8 operators and the BCs, writes a state;
-    - sg_diag, dt and the quadratures: omega = Dx v - u DyT, then Dx omega
-      and omega DyT; reads u, v, Dx, DyT, W2d;
-    - sg_control, one sampled step: the reductions and the state commit;
-      reads and writes a state.
+    - dt (dt_kernel): reads u and v;
+    - tail (tail_kernel, a sampled step's tail): omega = Dx v - u DyT, then
+      Dx omega and omega DyT; reads u, v, Dx, DyT, W2d and the stage's 9
+      partial columns, writes the row;
+    - sg_control (control_kernel, an unsampled step's tail): reads the 9
+      partial columns of every stage block, writes the row and the next
+      dt (the state stays where the last stage wrote it);
+    - sg_diag, the counter's two kernels once each: dt and tail.
     """
     ni, e = nf - 2, torch.finfo(dtype).bits // 8
     full, inner = nf * nf, ni * ni
-    return {
+    cols = e * (sgk.stage_geometry(nf, dtype).nparts * 9 + 7)
+    work = {
         "sg_stage": (16 * nf ** 3 + 4 * nf * ni * ni + 4 * nf * nf * ni,
                      e * (12 * full + 3 * inner + 4 * nf * ni)),
-        "sg_diag": (8 * nf ** 3, e * 5 * full),
-        "sg_control": (0, e * 2 * (2 * full + inner)),
+        "dt": (0, e * 2 * full),
+        "tail": (8 * nf ** 3, e * 5 * full + cols),
+        "sg_control": (0, cols),
     }
+    work["sg_diag"] = tuple(a + b for a, b in zip(work["dt"], work["tail"]))
+    return work
 
 
 def sg_bounds(nf, dtype):
@@ -293,7 +304,7 @@ def steps_bound(nf, dtype, n_steps, n_quad):
     loop."""
     ni, e = nf - 2, torch.finfo(dtype).bits // 8
     work = sg_work(nf, dtype)
-    flops = 4 * n_steps * work["sg_stage"][0] + n_quad * work["sg_diag"][0]
+    flops = 4 * n_steps * work["sg_stage"][0] + n_quad * work["tail"][0]
     return bound(flops, e * (13 * nf * nf + 3 * ni * ni + 4 * nf * ni), dtype)
 
 
@@ -447,7 +458,10 @@ def phase_kernels(summary):
 
 def time_kernels(ops, st0, summary):
     """Per-kernel time (bench entry of the library, CUDA events) beside
-    its plain PyTorch counterpart, at N=128 float32."""
+    its plain PyTorch counterpart and its bound, at N=128 float32: the
+    last stage, dt_kernel, tail_kernel (a sampled step's tail),
+    control_kernel (an unsampled step's), and sg_diag as one dt and one
+    tail launch."""
     run = sgk.make_sg_chunk_runner(ops, 16, 1e-30, 10, "rel_iter", 16)
     st = run(st0, 0, float("inf"))[0]  # a developing flow, not rest
     ws = sgk.chunk_workspace(ops, st, 16, float("inf"))
@@ -455,9 +469,13 @@ def time_kernels(ops, st0, summary):
                  ("bv", st.v), ("bp", st.p)):
         ws[a].copy_(b)
     reps = 200
-    for name in sgk.KERNELS:
-        summary[name]["ms"] = cuda_ms(
-            lambda: sgk.bench_kernel(ops, ws, name, reps), 1) / reps
+    # the partials every tail reads, from this state
+    sgk.bench_kernel(ops, ws, "sg_stage", 1)
+    ms = {name: cuda_ms(lambda: sgk.bench_kernel(ops, ws, name, reps),
+                        1) / reps for name in sgk.BENCH_GROUPS}
+    ms["sg_diag"] = cuda_ms(lambda: (sgk.bench_kernel(ops, ws, "dt", reps),
+                                     sgk.bench_kernel(ops, ws, "tail", reps)),
+                            1) / reps
     u, v, p = st
     dt = core.adaptive_dt(ops, u, v)
 
@@ -466,9 +484,8 @@ def time_kernels(ops, st0, summary):
         core.enforce_bc(ops, u + dt * R_u, v + dt * R_v)
         return p + dt * R_p
 
-    def plain_diag():
-        core.adaptive_dt(ops, u, v)
-        return core.conserved_quantities(ops, u, v)
+    def plain_dt():
+        return (core.adaptive_dt(ops, u, v), (u * u).sum(), (v * v).sum())
 
     done = torch.zeros((), dtype=torch.bool, device=ops.device)
     conv = torch.full((), -1, dtype=torch.int32, device=ops.device)
@@ -478,27 +495,40 @@ def time_kernels(ops, st0, summary):
         row = torch.stack([torch.linalg.norm(u - v), torch.linalg.norm(u),
                            torch.linalg.norm(v), torch.linalg.norm(p),
                            dt, dt, dt])
-        row, d, c, cv, r = control_step(row, 100, done, conv, done, ref,
-                                        1e-30, 10, False)
-        return freeze(d, st, st)
+        control_step(row, 100, done, conv, done, ref, 1e-30, 10, False)
+        return plain_dt()
 
-    for name, fn in (("sg_stage", plain_stage), ("sg_diag", plain_diag),
-                     ("sg_control", plain_control)):
-        summary[name]["plain_ms"] = cuda_ms(fn, 50)
-    for name, (b_ms, b_by) in sg_bounds(ops.nf, ops.dtype).items():
-        summary[name].update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    def plain_tail():
+        core.conserved_quantities(ops, u, v)
+        return plain_control()
+
+    plain = {"sg_stage": plain_stage, "dt": plain_dt, "tail": plain_tail,
+             "sg_control": plain_control,
+             "sg_diag": lambda: (plain_dt(), plain_tail())}
+    bounds = sg_bounds(ops.nf, ops.dtype)
+    rows = {}
+    for name, fn in plain.items():
+        b_ms, b_by = bounds[name]
+        rows[name] = dict(ms=ms[name], plain_ms=cuda_ms(fn, 50),
+                          bound_ms=b_ms, bound_by=b_by)
+    for name in sgk.KERNELS:
+        summary[name].update(rows[name], library_ms=None)
+    summary["sg_diag"]["parts"] = {"dt_kernel": rows["dt"],
+                                   "tail_kernel": rows["tail"]}
     summary["sg_stage"]["library_ms"] = stage_library_ms(ops, st)
     print(f"[kernels] sg_stage library yardstick (12 products as "
           f"torch.matmul, TF32 off): {summary['sg_stage']['library_ms']:.4f}"
           f" ms", flush=True)
     profile_chunk(lambda: run(st, 16, float("inf")),
                   "profile SG N=128 float32 one lane, 16-step chunk")
-    for name in sgk.KERNELS:
-        print(f"[kernels] {name} at N=128 float32: kernel "
-              f"{summary[name]['ms']:.4f} ms, plain "
-              f"{summary[name]['plain_ms']:.4f} ms, bound "
-              f"{summary[name]['bound_ms']:.5f} ms "
-              f"({summary[name]['bound_by']})", flush=True)
+    for name, what in (("sg_stage", "sg_stage (last stage)"),
+                       ("dt", "dt_kernel"), ("tail", "tail_kernel"),
+                       ("sg_control", "control_kernel"),
+                       ("sg_diag", "sg_diag (dt + tail)")):
+        r = rows[name]
+        print(f"[kernels] {what} at N=128 float32: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.3g} ms "
+              f"({r['bound_by']})", flush=True)
 
 
 def stage_library_ms(ops, st):
@@ -1625,14 +1655,18 @@ def flagship_vmg() -> int:
 
 
 # the main paths: (name, phase, the kernels it must launch)
+SG_NO_CONTROL = ("sg_stage", "sg_diag")
 MAIN_PATHS = (
     ("sg N=128", phase_sg, sgk.KERNELS),
     ("fsg N=96", phase_fsg, sgk.KERNELS),
     ("fv Re=100", lambda: phase_fv_solve(100.0), fvk.KERNELS),
     ("fv Re=1000", lambda: phase_fv_solve(1000.0), fvk.KERNELS),
-    ("vmg [192, 96]", phase_vmg_wide, sgk.KERNELS),
-    ("vmg N=48", phase_vmg48, sgk.KERNELS),
-    ("fmg N=96", phase_fmg96, sgk.KERNELS),
+    # the V-cycles step through the smoother and the step, whose tail is
+    # tail_kernel (sg_diag); FMG's x6 chunk samples every step: no
+    # control_kernel on these paths
+    ("vmg [192, 96]", phase_vmg_wide, SG_NO_CONTROL),
+    ("vmg N=48", phase_vmg48, SG_NO_CONTROL),
+    ("fmg N=96", phase_fmg96, SG_NO_CONTROL),
     ("fsg sweep N=40", phase_fsg_sweep, sgl.KERNELS),
     ("sg sweep N=128", phase_sg_sweep, ("sg_lanes_aligned",)),
     ("fv sweep N=128", phase_fv_sweep, fvl.KERNELS),
@@ -1684,6 +1718,8 @@ def main() -> int:
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for k in names]
+    # sg_diag's two kernels (dt_kernel, tail_kernel) alone
+    kernels[names.index("sg_diag")]["parts"] = summary["sg_diag"]["parts"]
     print(f"[chip_smoke] {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -112,7 +112,10 @@ def worker(root: Path) -> dict:
             ref_norm=torch.full((B,), float("inf"), **kw))
         for name, src in (("au", st.u), ("av", st.v), ("ap", st.p)):
             ws[name].copy_(src)
-        sgk.bench_kernel(o0, ws, "sg_diag", 1, B)  # dt of this state
+        # dt of this state (a checkout before the one-launch tail had it
+        # in its "sg_diag" group)
+        sgk.bench_kernel(o0, ws, "dt" if "dt" in getattr(
+            sgk, "BENCH_GROUPS", ()) else "sg_diag", 1, B)
         out["stage_ms"][key] = cuda_ms(
             torch, lambda: sgk.bench_kernel(o0, ws, "sg_stage", 200, B),
             1) / 200

@@ -82,7 +82,7 @@ def sweep(n, B, dtype):
         ref_norm=torch.full((B,), float("inf"), **kw))
     for dst, src in (("au", st.u), ("av", st.v), ("ap", st.p)):
         ws[dst].copy_(src)
-    sgk.bench_kernel(o0, ws, "sg_diag", 1, B)  # dt of this state
+    sgk.bench_kernel(o0, ws, "dt", 1, B)  # dt of this state
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     ref, rows = None, []
     for g in [sgk.stage_geometry(o0.nf, dtype, B)] + variants(o0.nf,

@@ -404,23 +404,24 @@ class TestOnCard:
         st = T.initial_state(ops)
         sgk.reset_counts()
         sgk.make_sg_step(ops)(st)
-        # one stage launch per RK stage
-        assert sgk.LAUNCHES == {"sg_stage": 4, "sg_diag": 3, "sg_control": 1}
+        # dt, one stage launch per RK stage, and the tail kernel (the
+        # quadratures and the metrics)
+        assert sgk.LAUNCHES == {"sg_stage": 4, "sg_diag": 2, "sg_control": 0}
         sgk.reset_counts()
         sgk.make_sg_chunk_runner(ops, 20, 1e-30, 10, "rel_iter", 16)(
             st, 0, np.inf)
-        # 6 launches a step; 2 sampled steps (i=0, idx=16) run the two
-        # quadrature launches
-        assert sgk.LAUNCHES == {"sg_stage": 80, "sg_diag": 24,
-                                "sg_control": 20}
+        # 5 launches a step: 4 stages and one tail; the 2 sampled steps
+        # (i=0, idx=16) take the tail kernel, the 18 others control; dt
+        # once, at the chunk's first step
+        assert sgk.LAUNCHES == {"sg_stage": 80, "sg_diag": 3,
+                                "sg_control": 18}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
         sgk.reset_counts()
         sgk.make_sg_smoother(ops)(st, None, 5)
-        # 5 launches a step (dt, 4 stages) and 3 at the end
-        # (quadratures, metrics)
-        assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 7,
-                                "sg_control": 1}
+        # 5 launches a step (dt, 4 stages) and the tail kernel at the end
+        assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 6,
+                                "sg_control": 0}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
 

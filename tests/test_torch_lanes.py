@@ -554,9 +554,10 @@ class TestOnCard:
         sgl.reset_counts()
         sgk.reset_counts()
         sgl.make_lane_chunk_runner(ops, 20, 1e-30)(st, 0)
-        # 6 launches a step for all lanes, 2 more on the sampled steps
-        # (i = 0 and idx = 16)
-        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 124}
+        # 5 launches a step for all lanes (4 stages and one tail: the tail
+        # kernel on the sampled steps i = 0 and idx = 16, control on the
+        # others), and dt once
+        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 101}
         assert sgk.LAUNCHES == {k: 0 for k in sgk.KERNELS}
         assert sgl.PLAIN_CALLS == {"sg_lanes": 0}
 
