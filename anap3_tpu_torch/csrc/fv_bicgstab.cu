@@ -36,10 +36,11 @@
 //   the thread sums over the tiles; a warp a column computes the tree's
 //   first three levels from eight values and its last five by
 //   __shfl_down_sync at strides 16..1, which pairs lane l with l + s as the
-//   tree does, so all columns of a phase are summed in one pass with one
-//   __syncthreads instead of 9 a column. The loads that do not depend on
-//   the phase's scalars are issued before its lane sums, so that their
-//   latency overlaps the reductions. The scalars of an iteration (rho,
+//   tree does (warp_col_sum and write_partials of fv_phases.cuh), so all
+//   columns of a phase are summed in one pass with one __syncthreads
+//   instead of 9 a column. The loads that do not depend on the phase's
+//   scalars are issued before its lane sums, so that their latency
+//   overlaps the reductions. The scalars of an iteration (rho,
 //   alpha, omega, the guard) stay in shared memory per item across phases,
 //   from the start values the assembly writes into the lane's slot.
 // Lanes: a lane's items reduce their own lane's partials, so its rho,
@@ -50,7 +51,7 @@
 //   not fit MAX_ITEMS a co-resident block, is refused with an error.
 #include <cooperative_groups.h>
 
-#include "fv_common.cuh"
+#include "fv_phases.cuh"
 
 namespace fv {
 namespace {
@@ -120,63 +121,6 @@ __device__ __forceinline__ void load_coefs(const Work<T>& w, bool own,
   const T* src[5] = {w.aPr, w.aE, w.aW, w.aN, w.aS};
 #pragma unroll
   for (int q = 0; q < 5; ++q) a[q] = own ? src[q][k0] : T(0);
-}
-
-// This thread's cell of tile `tile` (row-major over the tiles).
-__device__ __forceinline__ TileCell tile_at(int tile, int tiles_x) {
-  TileCell c;
-  c.tid = threadIdx.x;
-  c.tx = c.tid % TILE;
-  c.ty = c.tid / TILE;
-  c.j0 = (tile / tiles_x) * TILE;
-  c.i0 = (tile % tiles_x) * TILE;
-  c.j = c.j0 + c.ty;
-  c.i = c.i0 + c.tx;
-  c.b = tile;
-  return c;
-}
-
-// Column `col` of a lane's (nb, ncol) partial table, summed by one warp as
-// reduce_col sums it: thread t's running sum over b = t, t + NT, ...,
-// then the NT-slot tree. Lane l holds the running sums of threads
-// l + 32 j (j < 8) and adds them as the tree's first three levels pair
-// them; the last five levels are shuffles. Valid in lane 0.
-template <typename T>
-__device__ T warp_col_sum(const T* part, int ncol, int col, int nb) {
-  static_assert(NT == 256, "eight running sums a warp lane");
-  const int l = threadIdx.x % 32;
-  T a[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a[j] = T(0);
-    for (int b = l + 32 * j; b < nb; b += NT)
-      a[j] += part[(size_t)b * ncol + col];
-  }
-  T v = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]));
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) v += __shfl_down_sync(0xffffffffu, v, s);
-  return v;
-}
-
-// The threads' values v[0, NCOL) summed per column as block_sum sums them,
-// into part[tile * NCOL + c]: the values go through shared memory, then
-// warp c adds column c (the tree's first three levels from eight slots,
-// the last five as shuffles).
-template <typename T, int NCOL>
-__device__ void write_partials(const T (&v)[NCOL], Smem<T>& S, T* part,
-                               int tile) {
-  const int tid = threadIdx.x, wp = tid / 32, l = tid % 32;
-#pragma unroll
-  for (int q = 0; q < NCOL; ++q) S.vals[q * NT + tid] = v[q];
-  __syncthreads();
-  if (wp < NCOL) {
-    const T* col = S.vals + wp * NT + l;
-    T x = ((col[0] + col[128]) + (col[64] + col[192]))
-          + ((col[32] + col[160]) + (col[96] + col[224]));
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) x += __shfl_down_sync(0xffffffffu, x, s);
-    if (l == 0) part[(size_t)tile * NCOL + wp] = x;
-  }
 }
 
 template <typename T>
@@ -271,7 +215,7 @@ __device__ void direction(int k, const Grid<T>& g, const Work<T>& w,
       pr[q] = rh[q] * vn;
     }
   }
-  write_partials(pr, S, w.part_v, c.b);  // every thread has read sc
+  write_partials(pr, S.vals, w.part_v, c.b);  // every thread has read sc
   if (c.tid == 0) {
     sc[SC_RHO] = rho1;
     sc[SC_ALPHA] = alpha_k;
@@ -341,7 +285,7 @@ __device__ void stabilize(int k, const Grid<T>& g, const Work<T>& w,
       pr[2 + q] = t * t;
     }
   }
-  write_partials(pr, S, w.part_t, c.b);
+  write_partials(pr, S.vals, w.part_t, c.b);
   if (c.tid == 0) sc[SC_ALPHA] = alpha;
 }
 
@@ -391,7 +335,7 @@ __device__ void update(int k, const Grid<T>& g, const Work<T>& w,
       pr[2 + q] = rh[q] * rn;
     }
   }
-  write_partials(pr, S, w.part_r, c.b);
+  write_partials(pr, S.vals, w.part_r, c.b);
   if (c.tid == 0) sc[SC_OMEGA] = omega;
 }
 

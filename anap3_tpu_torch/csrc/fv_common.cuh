@@ -1,6 +1,7 @@
 // Shared declarations of the FV-SIMPLE kernels (fv_stencil.cu,
-// fv_bicgstab.cu, fv_dense.cu, fv_control.cu) and their C host entries
-// (fv_host.cu).
+// fv_bicgstab.cu, fv_pressure.cu, fv_control.cu) and their C host entries
+// (fv_host.cu); the device functions that several kernels run are in
+// fv_phases.cuh.
 //
 // Layout: cell fields are (ny, nx) row-major, index [j * nx + i]; the state's
 // face fluxes are unpadded, mx (ny, nx-1) and my (ny-1, nx), as
@@ -11,10 +12,10 @@
 // Tile kernels run one thread per cell on TILE x TILE tiles; a block that
 // needs a field at its neighbours' cells computes it on the haloed
 // (TILE+2)^2 tile into shared memory from values of the previous launch
-// (or, in the cooperative BiCGSTAB launch, of the phase before its last
-// grid barrier). Grid-wide sums go through per-tile partials that the NEXT
-// launch or phase reduces, in a fixed order, in every block: no atomics,
-// and a run repeats bit for bit.
+// (or, in the cooperative BiCGSTAB and pressure launches, of the phase
+// before its last grid barrier). Grid-wide sums go through per-tile
+// partials that the NEXT launch or phase reduces, in a fixed order, in
+// every block: no atomics, and a run repeats bit for bit.
 //
 // Lanes: every kernel runs B independent solves ("lanes") of one grid in one
 // launch, the lane being the grid's z axis (blockIdx.x of the one-block
@@ -78,7 +79,7 @@ constexpr int NPART_C = 7;
 constexpr int NPART_Q = 3;
 
 // Kernel counts reported to the wrapper's launch counters.
-enum Count { C_STENCIL, C_BICG, C_DENSE, C_CONTROL, C_COUNT };
+enum Count { C_STENCIL, C_BICG, C_PRESSURE, C_CONTROL, C_COUNT };
 
 template <typename T>
 struct Grid {
@@ -132,15 +133,15 @@ struct Work {
 };
 
 // The buffers as lane b sees them (shared operators stay). Rows are lane
-// b's slot of row 0: row r is r * lanes * 7 further on. Lane 0 takes the
-// pointers as they are, with no arithmetic: the one-lane entries pass null
-// for the outputs they do not write, and a lane b > 0 exists only in a lane
-// chunk, whose buffers are all allocated. (A null test per pointer would
-// put a chain of ~50 branches in front of every block.)
+// b's slot of row 0: row r is r * lanes * 7 further on. The one-lane
+// entries pass null for the outputs they do not write, which lane 0 keeps
+// (null + 0 is null), and a lane b > 0 exists only in a lane chunk, whose
+// buffers are all allocated. No branch on b: each pointer is its lane-0
+// value plus a product the compiler can recompute where it is used, which
+// keeps the cooperative kernels' registers free of ~50 lane pointers.
 template <typename T>
 __device__ __forceinline__ Work<T> at_lane(Work<T> w, int b, int ny, int nx,
                                            int nb) {
-  if (b == 0) return w;
   const size_t c = (size_t)ny * nx, B = (size_t)b;
   auto off = [&](auto* p, size_t stride) { return p + B * stride; };
   w.aP_bc = off(w.aP_bc, c); w.b_bc_u = off(w.b_bc_u, c);
@@ -220,26 +221,25 @@ __device__ __forceinline__ TileCell tile_cell() {
 // Launchers, defined and instantiated for float and double in the .cu file
 // of each kernel, each for g.lanes lanes at once (pointers are lane 0's).
 // None synchronizes; each returns cudaGetLastError().
-enum StencilPhase { PH_ASSEMBLE, PH_RHIE_CHOW, PH_RESIDUAL, PH_CORRECT,
-                    PH_METRICS };
-
+// The assembly: gradient, momentum coefficients, deferred correction,
+// right-hand sides and the BiCGSTAB start (r0 and the start values).
 template <typename T>
-cudaError_t launch_stencil(int phase, const Grid<T>& g, const Work<T>& w,
-                           int upwind, cudaStream_t s);
+cudaError_t launch_stencil(const Grid<T>& g, const Work<T>& w, int upwind,
+                           cudaStream_t s);
 // The whole K-iteration solve in one cooperative launch; refused (an
 // error, never another path) where the card cannot launch it.
 template <typename T>
 cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, cudaStream_t s);
-// C (M x N) = op(A) op(B), op = transpose when trans*; B minus the mean of
-// a partial column when mean_part is set; epilogue * scale, or += into C.
-// For `lanes` lanes: lane b's A, B, mean_part and C lie b times their lane
-// stride (sA, sB, sM, sC elements; 0 for a shared operand) further on.
+// Rhie-Chow, the pressure solve with n_refine refinement steps, the
+// corrections and the metrics' partials in one cooperative launch; refused
+// like launch_bicg, by the rule of
+// anap3_tpu_torch/ops/fv_kernels.py:pressure_grid. pressure_coresident
+// gives the card's co-resident blocks of the kernel.
 template <typename T>
-cudaError_t launch_dense(int M, int N, int K, const T* A, int transA,
-                         size_t sA, const T* B, int transB, size_t sB,
-                         const T* mean_part, size_t sM, int nb, int n_total,
-                         const T* scale, int accumulate, T* C, size_t sC,
-                         int lanes, cudaStream_t s);
+cudaError_t launch_pressure(const Grid<T>& g, const Work<T>& w, int n_refine,
+                            cudaStream_t s);
+template <typename T>
+cudaError_t pressure_coresident(int* blocks);
 // ref_norm: (lanes,) normalizations of the residual criterion, read and
 // written only when use_residual is set.
 template <typename T>

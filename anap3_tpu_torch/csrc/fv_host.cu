@@ -4,23 +4,23 @@
 // buffer in the pointer table, see fv_common.cuh:Ptr) and returns the first
 // cudaGetLastError() that is not cudaSuccess.
 //
-// One SIMPLE iteration is 1 + 1 + 1 + 4 (1 + n_refine) + n_refine + 2 + 1
-// = 10 + 5 n_refine launches: assemble, the BiCGSTAB solve (one
-// cooperative launch for its K iterations), Rhie-Chow, the pressure
-// solve's products (and the refinement residual), correct, metrics, and
-// control (15 in float32, whose n_refine is 1; 10 in float64, whatever K
-// is). fv_chunk_run takes the
-// place of the Pallas fori_loop of anap3_tpu/ops/pallas_fv.py
-// make_pallas_fv_chunk_runner: it loops the iteration `chunk` times with no
-// Python and no host sync per iteration.
+// One SIMPLE iteration is 4 launches in float32 and in float64, whatever
+// K and n_refine are: the assembly (fv_stencil), the BiCGSTAB solve (one
+// cooperative launch for its K iterations), the pressure stage (one
+// cooperative launch for Rhie-Chow, the pressure solve and its refinement,
+// the corrections and the metrics' partials), and control (15 in float32
+// and 10 in float64 before the pressure stage was one launch).
+// fv_chunk_run takes the place of the Pallas fori_loop of
+// anap3_tpu/ops/pallas_fv.py make_pallas_fv_chunk_runner: it loops the
+// iteration `chunk` times with no Python and no host sync per iteration.
 //
 // fv_lanes_chunk_run is fv_chunk_run for B sweep lanes at once (each lane's
 // flags carried in from its previous chunk): it takes the place of the
 // Pallas fori_loop of anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner.
 // Every launch covers all lanes, so a B-lane iteration costs the launches of
-// one iteration (15 in float32), not B times as many, and the chain of
-// dependent grid-wide reductions that bounds one solve is paid once for
-// all lanes. fv_chunk_run and fv_step_run are its B = 1 case.
+// one iteration (4), not B times as many, and the chain of dependent
+// grid-wide reductions that bounds one solve is paid once for all lanes.
+// fv_chunk_run and fv_step_run are its B = 1 case.
 #include "fv_common.cuh"
 
 namespace fv {
@@ -59,44 +59,15 @@ Work<T> make_work(const void* const* P) {
   return w;
 }
 
-// p' (+)= V1 ((V1^T (f - mean) V2) * inv_lam) V2^T, for every lane: the
-// bases are shared (lane stride 0), f, the mean's partials and the
-// products per lane
-template <typename T>
-int psolve(const Grid<T>& g, const Work<T>& w, const T* f,
-           const T* mean_part, int accumulate, int* counts, cudaStream_t s) {
-  const int ny = g.ny, nx = g.nx, n = ny * nx, L = g.lanes;
-  const size_t c = (size_t)n, m = (size_t)g.nb;
-  FV_CHECK(launch_dense<T>(ny, nx, ny, w.V1, 1, 0, f, 0, c, mean_part, m,
-                           g.nb, n, nullptr, 0, w.g1, c, L, s));
-  FV_CHECK(launch_dense<T>(ny, nx, nx, w.g1, 0, c, w.V2, 0, 0, nullptr, 0,
-                           g.nb, n, w.inv_lam, 0, w.g2, c, L, s));
-  FV_CHECK(launch_dense<T>(ny, nx, ny, w.V1, 0, 0, w.g2, 0, c, nullptr, 0,
-                           g.nb, n, nullptr, 0, w.g3, c, L, s));
-  FV_CHECK(launch_dense<T>(ny, nx, nx, w.g3, 0, c, w.V2, 1, 0, nullptr, 0,
-                           g.nb, n, nullptr, accumulate, w.pp, c, L, s));
-  counts[C_DENSE] += 4;
-  return 0;
-}
-
 template <typename T>
 int iterate(const Grid<T>& g, const Work<T>& w, int n_refine,
             int upwind, int* counts, cudaStream_t s) {
-  FV_CHECK(launch_stencil<T>(PH_ASSEMBLE, g, w, upwind, s));
+  FV_CHECK(launch_stencil<T>(g, w, upwind, s));
+  counts[C_STENCIL] += 1;
   FV_CHECK(launch_bicg<T>(g, w, s));
   counts[C_BICG] += 1;
-  FV_CHECK(launch_stencil<T>(PH_RHIE_CHOW, g, w, upwind, s));
-  int rc = psolve<T>(g, w, w.rhsp, w.part_m, 0, counts, s);
-  if (rc) return rc;
-  for (int r = 0; r < n_refine; ++r) {
-    FV_CHECK(launch_stencil<T>(PH_RESIDUAL, g, w, upwind, s));
-    counts[C_STENCIL] += 1;
-    rc = psolve<T>(g, w, w.res, w.part_m2, 1, counts, s);
-    if (rc) return rc;
-  }
-  FV_CHECK(launch_stencil<T>(PH_CORRECT, g, w, upwind, s));
-  FV_CHECK(launch_stencil<T>(PH_METRICS, g, w, upwind, s));
-  counts[C_STENCIL] += 4;
+  FV_CHECK(launch_pressure<T>(g, w, n_refine, s));
+  counts[C_PRESSURE] += 1;
   return 0;
 }
 
@@ -131,32 +102,21 @@ int chunk_run(const void* const* P, int ny, int nx, int lanes, int K,
   return 0;
 }
 
-// Timing aid: `reps` times the launches one kernel makes in one SIMPLE
-// iteration (0: fv_stencil's phases, 1: fv_bicgstab's one launch of K
-// iterations, 2: fv_dense's products, 3: one fv_control launch). Not part
-// of a solve.
+// Timing aid: `reps` times one kernel's launch of one SIMPLE iteration
+// (the index of ops/fv_kernels.py:KERNELS: 0 the assembly, 1 the BiCGSTAB
+// solve, 2 the pressure stage, 3 control). Not part of a solve.
 template <typename T>
 int bench_run(const void* const* P, int ny, int nx, int lanes, int K,
               int n_refine, int upwind, int which, int reps, cudaStream_t s) {
   const Grid<T> g = make_grid<T>(P, ny, nx, K, lanes);
   const Work<T> w = make_work<T>(P);
-  int counts[C_COUNT] = {0, 0, 0, 0};
   for (int r = 0; r < reps; ++r) {
     if (which == 0) {
-      FV_CHECK(launch_stencil<T>(PH_ASSEMBLE, g, w, upwind, s));
-      FV_CHECK(launch_stencil<T>(PH_RHIE_CHOW, g, w, upwind, s));
-      for (int q = 0; q < n_refine; ++q)
-        FV_CHECK(launch_stencil<T>(PH_RESIDUAL, g, w, upwind, s));
-      FV_CHECK(launch_stencil<T>(PH_CORRECT, g, w, upwind, s));
-      FV_CHECK(launch_stencil<T>(PH_METRICS, g, w, upwind, s));
+      FV_CHECK(launch_stencil<T>(g, w, upwind, s));
     } else if (which == 1) {
       FV_CHECK(launch_bicg<T>(g, w, s));
     } else if (which == 2) {
-      for (int q = 0; q <= n_refine; ++q) {
-        const int rc = psolve<T>(g, w, q ? w.res : w.rhsp,
-                                 q ? w.part_m2 : w.part_m, q, counts, s);
-        if (rc) return rc;
-      }
+      FV_CHECK(launch_pressure<T>(g, w, n_refine, s));
     } else {
       FV_CHECK(launch_control<T>(g, w, 0, 0, 1 << 30, T(0), 0, nullptr,
                                  s));
@@ -214,6 +174,12 @@ int fv_bench_run(int dtype, int ny, int nx, int lanes,
                                        upwind, which, reps, s)
                : fv::bench_run<float>(ptrs, ny, nx, lanes, K, n_refine,
                                       upwind, which, reps, s);
+}
+
+// The co-resident blocks of the pressure kernel on the current card.
+int fv_pressure_coresident(int dtype, int* blocks) {
+  return dtype ? (int)fv::pressure_coresident<double>(blocks)
+               : (int)fv::pressure_coresident<float>(blocks);
 }
 
 const char* fv_error_string(int code) {

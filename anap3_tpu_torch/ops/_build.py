@@ -119,6 +119,8 @@ def _bind_fv(lib: ctypes.CDLL) -> None:
     lib.fv_lanes_chunk_run.restype = i
     lib.fv_bench_run.argtypes = lanes + [i, i, vp]
     lib.fv_bench_run.restype = i
+    lib.fv_pressure_coresident.argtypes = [i, ip]
+    lib.fv_pressure_coresident.restype = i
     lib.fv_error_string.argtypes = [i]
     lib.fv_error_string.restype = ctypes.c_char_p
 

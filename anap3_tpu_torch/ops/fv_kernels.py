@@ -1,8 +1,9 @@
 """Wrappers of the hand-written FV-SIMPLE CUDA kernels, each beside its plain
 PyTorch version.
 
-``csrc/`` holds four FV kernels (fv_stencil.cu, fv_bicgstab.cu, fv_dense.cu,
-fv_control.cu; see the note at the top of each) and two C host entries
+``csrc/`` holds four FV kernels (fv_stencil.cu, fv_bicgstab.cu,
+fv_pressure.cu, fv_control.cu; see the note at the top of each, and
+fv_phases.cuh for the device functions they share) and the C host entries
 (fv_host.cu) that this module calls through ``ctypes``:
 
 - ``make_fv_step(params, ops, bicgstab_iters)`` has the contract of
@@ -35,12 +36,14 @@ dx, dy, alpha_uv, alpha_p, rho, lid) reach the kernels as a device table in
 the working dtype (``scalar_table``).
 
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
-by kernel (a SIMPLE iteration: fv_stencil 4 + n_refine, fv_bicgstab 1,
-one cooperative launch for its K iterations, fv_dense 4 (1 + n_refine),
-fv_control 1; 15 in float32, 10 in float64); ``PLAIN_CALLS`` counts
-calls of the plain versions ("fv_step", "fv_chunk") and of the unfused
-``models/fv.fv_step`` on a CUDA solve ("fv_unfused"). ``reset_counts()``
-zeroes both.
+by kernel. A SIMPLE iteration is 4 launches in float32 and in float64:
+fv_stencil 1 (the assembly), fv_bicgstab 1 (one cooperative launch for
+its K iterations), fv_pressure 1 (one cooperative launch for Rhie-Chow,
+the pressure solve with its n_refine refinement steps, the corrections and
+the metrics' partials; its grid is ``pressure_grid``) and fv_control 1.
+``PLAIN_CALLS`` counts calls of the plain versions ("fv_step",
+"fv_chunk") and of the unfused ``models/fv.fv_step`` on a CUDA solve
+("fv_unfused"). ``reset_counts()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -60,9 +63,11 @@ __all__ = ["make_fv_step", "make_fv_chunk_runner", "fv_iterate_plain",
            "scalar_table", "workspace", "chunk_workspace", "unfused_step",
            "bench_workspace",
            "bench_kernel", "pad_state", "unpad_state", "LAUNCHES",
-           "PLAIN_CALLS", "KERNELS", "reset_counts", "METRIC_NAMES"]
+           "PLAIN_CALLS", "KERNELS", "reset_counts", "METRIC_NAMES",
+           "plain_pressure_stage", "pressure_grid", "coresident",
+           "check_launch", "MAX_ITEMS"]
 
-KERNELS = ("fv_stencil", "fv_bicgstab", "fv_dense", "fv_control")
+KERNELS = ("fv_stencil", "fv_bicgstab", "fv_pressure", "fv_control")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {"fv_step": 0, "fv_chunk": 0, "fv_unfused": 0}
 METRIC_NAMES = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
@@ -85,6 +90,7 @@ _PARTS = {"part_rhs": 2, "part_r": 4, "part_v": 2, "part_t": 4,
           "part_m": 1, "part_m2": 1, "part_c": 7, "part_q": 3}
 _NSLOT = 3  # the BiCGSTAB start values rho, alpha, omega
 _TILE = 16
+MAX_ITEMS = 64  # (tile, lane) items a block of the pressure launch may take
 
 
 def reset_counts() -> None:
@@ -292,7 +298,7 @@ def plain_rhie_chow(S, c, u_star, v_star, p):
 
 def plain_pressure(S, rhs_p):
     """The tensor-product pressure solve with refinement and the gauge
-    (the products of ``csrc/fv_dense.cu``)."""
+    (the product phases of ``csrc/fv_pressure.cu``)."""
     V1, V2, inv_lam = S["V1"], S["V2"], S["inv_lam"]
 
     def psolve(f):
@@ -334,12 +340,21 @@ def plain_correct(S, Du, u_star, v_star, p, mx_star, my_star, p_prime):
     return (u_new, v_new, p_new, mx_new, my_new), metrics
 
 
-def _iterate_padded(S, K, u, v, p, mx, my):
-    c = plain_assemble(S, u, v, p, mx, my)
-    u_star, v_star = plain_bicgstab(c, u, v, K)
+def plain_pressure_stage(S, c, u_star, v_star, p):
+    """The pressure stage (``csrc/fv_pressure.cu``'s one launch): Rhie-Chow
+    from the assembly ``c`` of ``plain_assemble``, the momentum solution
+    u*, v* and the pressure ``p``, the pressure solve with its refinement
+    and gauge, and the corrections. Returns the new state (faces padded)
+    and the six metrics."""
     Du, mx_star, my_star, rhs_p = plain_rhie_chow(S, c, u_star, v_star, p)
     p_prime = plain_pressure(S, rhs_p)
     return plain_correct(S, Du, u_star, v_star, p, mx_star, my_star, p_prime)
+
+
+def _iterate_padded(S, K, u, v, p, mx, my):
+    c = plain_assemble(S, u, v, p, mx, my)
+    u_star, v_star = plain_bicgstab(c, u, v, K)
+    return plain_pressure_stage(S, c, u_star, v_star, p)
 
 
 def fv_iterate_plain(S: dict, state: FVState, K: int):
@@ -439,6 +454,49 @@ def _tiles(n: int) -> int:
     return (n + _TILE - 1) // _TILE
 
 
+def pressure_grid(ny: int, nx: int, lanes: int, coresident: int) -> int:
+    """Blocks of the pressure stage's cooperative launch for ``lanes`` lanes
+    of ny x nx cells on a card where ``coresident`` of its blocks fit at
+    once: a block a (16x16 tile, lane) item, at most ``coresident``; block
+    b takes items b, b + blocks, ... (item i is lane i // tiles, tile
+    i % tiles, tiles row-major) in every phase. Raises ValueError where a
+    block would take more than ``MAX_ITEMS`` items: such a launch is
+    refused (csrc/fv_pressure.cu:pressure_grid, the same rule), never run
+    another way."""
+    if min(ny, nx, lanes, coresident) < 1:
+        raise ValueError(f"no pressure launch for {ny}x{nx}, {lanes} lanes, "
+                         f"{coresident} co-resident blocks")
+    items = _tiles(ny) * _tiles(nx) * lanes
+    blocks = min(items, coresident)
+    if -(-items // blocks) > MAX_ITEMS:
+        raise ValueError(f"{ny}x{nx}, {lanes} lanes: {items} pressure items "
+                         f"on {blocks} co-resident blocks is more than "
+                         f"{MAX_ITEMS} a block")
+    return blocks
+
+
+_CORESIDENT = {}
+
+
+def coresident(dtype: torch.dtype) -> int:
+    """Co-resident blocks of the pressure kernel on the current card (asked
+    once a dtype)."""
+    code = _dtype_code(dtype)
+    if code not in _CORESIDENT:
+        lib = _lib()
+        most = ctypes.c_int(0)
+        _raise_on(lib, lib.fv_pressure_coresident(code, ctypes.byref(most)),
+                  "fv_pressure_coresident")
+        _CORESIDENT[code] = most.value
+    return _CORESIDENT[code]
+
+
+def check_launch(ops: FVOps, lanes: int = 1) -> None:
+    """Raise ValueError before any launch where the card cannot take the
+    pressure stage of ``lanes`` lanes of this grid (``pressure_grid``)."""
+    pressure_grid(ops.ny, ops.nx, lanes, coresident(ops.dtype))
+
+
 def workspace(S, ops: FVOps, state: FVState, K: int, chunk: int, lsc,
               flags, lanes=None, ref_norm=None, **statics) -> dict:
     """Every buffer of one kernel call for ``lanes`` lanes (None: one, with
@@ -515,6 +573,7 @@ def _common_args(S, ops, ws, K):
 
 def _run_step(S, ops, state, K):
     lib = _lib()
+    check_launch(ops)
     ws = chunk_workspace(S, ops, state, K)
     counts = (ctypes.c_int * len(KERNELS))()
     rc = lib.fv_step_run(*_common_args(S, ops, ws, K), counts, _stream())
@@ -546,6 +605,7 @@ def make_fv_step(params, ops: FVOps, bicgstab_iters: int = 16):
 def _chunk_kernel(S, ops, state, start_iter, ref_norm, chunk, tolerance,
                   warmup, K):
     lib = _lib()
+    check_launch(ops)
     ws = chunk_workspace(S, ops, state, K, chunk)
     counts = (ctypes.c_int * len(KERNELS))()
     rc = lib.fv_chunk_run(*_common_args(S, ops, ws, K), int(chunk),
@@ -589,12 +649,12 @@ def bench_workspace(S, ops: FVOps, state: FVState, K: int) -> dict:
 
 def bench_kernel(S, ops: FVOps, ws: dict, which: str, K: int,
                  reps: int, lanes: int = 1) -> None:
-    """Enqueue ``reps`` times the launches one kernel makes in one SIMPLE
+    """Enqueue ``reps`` times the launch one kernel makes in one SIMPLE
     iteration, on a workspace of ``bench_workspace`` (or of ``workspace``
     for ``lanes`` lanes), for timing only (not counted in LAUNCHES):
-    fv_stencil its 4-5 phases, fv_bicgstab its one launch of K
-    iterations, fv_dense the 4(1 + n_refine) products, fv_control one
-    control launch."""
+    fv_stencil the assembly, fv_bicgstab the K-iteration solve, fv_pressure
+    the pressure stage (it updates the workspace's state in place), and
+    fv_control one control launch."""
     lib = _lib()
     rc = lib.fv_bench_run(_dtype_code(ops.dtype), ops.ny, ops.nx, int(lanes),
                           _ptr_table(ws), int(K), S["n_refine"],

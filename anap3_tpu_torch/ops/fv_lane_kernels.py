@@ -5,9 +5,9 @@ The counterpart of ``anap3_tpu/ops/pallas_fv_lanes.py``
 (``_validate_fv_lanes``, ``fv_lanes_supported``, ``maybe_fv_lane_runner``,
 ``make_fv_lane_runner``: TPU kernel #11). ``csrc/fv_host.cu:
 fv_lanes_chunk_run`` runs the kernels of ``ops/fv_kernels.py`` with every
-launch covering all lanes, so a B-lane SIMPLE iteration costs the 15
-launches of one (float32) and the chain of dependent grid-wide
-reductions that bounds a single solve is paid once for the batch. Lanes
+launch covering all lanes, so a B-lane SIMPLE iteration costs the 4
+launches of one and the chain of dependent grid-wide reductions that
+bounds a single solve is paid once for the batch. Lanes
 share the grid, scheme and pressure-solve operators; mu, alpha_uv, alpha_p,
 rho and the lid (so aP_bc and b_bc_u) are per lane. Lane b of a B-lane chunk
 gives the bits of a one-lane ``fv_chunk_run`` on its data, in float32 and
@@ -138,6 +138,7 @@ def run_lanes(S_list, ops, statics, states, start_iter, carry, chunk,
     intermediates: ``x`` holds each lane's BiCGSTAB solution u*, v*)."""
     lib = fvk._lib()
     S0, B = S_list[0], len(S_list)
+    fvk.check_launch(ops, B)
     ws = fvk.workspace(S0, ops, states, K, chunk, statics["lsc"],
                        carry.flags, lanes=B, ref_norm=carry.ref_norm,
                        aP_bc=statics["aP_bc"], b_bc_u=statics["b_bc_u"])

@@ -9,7 +9,7 @@ and a solve is four matrix products and one elementwise scale,
 The products are plain ``torch.matmul`` in the working dtype (never TF32),
 outside any kernel, as they are plain XLA products in the JAX package. The
 FV pressure solve inside the fused SIMPLE kernel runs its own products
-(``csrc/fv_dense.cu``) on these operators.
+(``csrc/fv_pressure.cu``) on these operators.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ when it fails:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the cold build of the SG and FV kernels from ``csrc/``
    (one ``nvcc`` per family, started together); ptxas must report no
-   spill and no stack frame in any instantiation of the stage kernel;
+   spill and no stack frame in any instantiation of the SG stage kernel
+   and of the FV pressure kernel;
 2. SG kernels: every kernel wrapper (step, tau step, chunk of 64 steps with
    metrics_every=16 and warmup 10) against its plain PyTorch version on the
    same CUDA tensors, at N = 20, 48, 96, 128, 192, 320, 400 (the stage
@@ -27,10 +28,14 @@ when it fails:
    float32 and float64 (float64 with n_refine 0 and 1), TVD and upwind;
    tolerances: relative max error <= 1e-10 in float64, <= 1e-4 in float32
    (step and chunk), flags equal; the same kernel chunk run twice must
-   agree bit for bit; the chunk's launches must be 10 + 5 n_refine an
-   iteration, fv_bicgstab one (the whole BiCGSTAB solve in one cooperative
-   launch); kernel and plain ms per SIMPLE iteration at N=128,
-   per-kernel times, and a torch.profiler idle share of one N=128 float32
+   agree bit for bit; the chunk's launches must be 4 an iteration, one of
+   each FV kernel (the BiCGSTAB solve and the pressure stage each one
+   cooperative launch); kernel and plain ms per SIMPLE iteration at N=128;
+   at N=128 float32 each kernel on the main path's inputs (fv_pressure
+   against plain_pressure_stage on the kernel's own momentum solution:
+   rhs_p, p' after the gauge, the new state and the metrics from its
+   partials), its time beside its plain version and bound, and a
+   torch.profiler idle share of one N=128 float32
    chunk; wherever the pressure solve is refined, one step with perturbed
    eigenvalue inverses, so that the refinement moves the state by far more
    than the bound; then, at N=128 in float32 and float64, a chunk whose
@@ -84,7 +89,7 @@ when it fails:
    alpha_p and the lid speed varying, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64, TVD and upwind, against lanes_plain (the bounds of
    phase 2b), every lane against a one-lane fv_chunk_run bit for bit, a NaN
-   lane isolated, 15 launches a float32 iteration whatever B; ms per
+   lane isolated, 4 launches a float32 iteration whatever B; ms per
    iteration at 128x128 for B = 1, 3 and 8;
 10. fsg sweep N=40: one round of the corner-smoothing optimization
    (conf/experiment/optimization/corner_smoothing.yaml at N=40: FSG
@@ -173,7 +178,7 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     # the body _make_iterate of make_pallas_fv_step / _chunk_runner
     "fv_stencil": "anap3_tpu/ops/pallas_fv.py:415",
     "fv_bicgstab": "anap3_tpu/ops/pallas_fv.py:415",
-    "fv_dense": "anap3_tpu/ops/pallas_fv.py:415",
+    "fv_pressure": "anap3_tpu/ops/pallas_fv.py:415",
     # the chunk's state machine (and the step's metrics vector)
     "fv_control": "anap3_tpu/ops/pallas_fv.py:515",
     # the sweep lanes: the kernels above with a lane axis, looped by the
@@ -318,20 +323,29 @@ def params(n, dtype, corner="smoothing", **kw):
     return SpectralParameters(**base)
 
 
-def stage_build_check(report):
-    """ptxas's report of the stage kernel (every instantiation): the
-    largest stack frame and spill stores, both of which must be 0."""
-    blocks = re.findall(r"Function properties for \S*stage_kernel\S*\n"
-                        r"\s*(\d+) bytes stack frame, (\d+) bytes spill "
-                        r"stores", report)
-    check(blocks, "ptxas reported no stage_kernel")
-    frame = max(int(f) for f, _ in blocks)
-    spill = max(int(sp) for _, sp in blocks)
-    print(f"[device] stage_kernel: {len(blocks)} instantiations, largest "
-          f"stack frame {frame} bytes, spill stores {spill} bytes",
-          flush=True)
-    check(frame == 0 and spill == 0, "stage_kernel spills or has a stack "
-          "frame")
+def ptxas_kernels(report):
+    """(kernel, type letter, registers, stack frame, spill stores) of every
+    entry function in a ptxas -v report, the kernel by its template name
+    (f: float, d: double)."""
+    return [(k, t, int(r), int(f), int(sp)) for k, t, f, sp, r in re.findall(
+        r"Function properties for \S*?\d+([A-Za-z_]+_kernel)I([fd])\S*\n"
+        r"\s*(\d+) bytes stack frame, (\d+) bytes spill stores[^\n]*\n"
+        r"[^\n]*Used (\d+) registers", report)]
+
+
+def kernel_build_check(report, name):
+    """ptxas's report of kernel ``name`` (every instantiation): its
+    registers, the largest stack frame and spill stores, both of which
+    must be 0."""
+    blocks = [k for k in ptxas_kernels(report) if k[0] == name]
+    check(blocks, f"ptxas reported no {name}")
+    frame = max(k[3] for k in blocks)
+    spill = max(k[4] for k in blocks)
+    regs = ", ".join(f"{t} {r}" for _, t, r, _, _ in blocks)
+    print(f"[device] {name}: {len(blocks)} instantiations, registers "
+          f"({regs}), largest stack frame {frame} bytes, spill stores "
+          f"{spill} bytes", flush=True)
+    check(frame == 0 and spill == 0, f"{name} spills or has a stack frame")
 
 
 def phase_device():
@@ -364,8 +378,12 @@ def phase_device():
               f"spill stores, largest stack frame {max(stacks, default=0)} "
               f"bytes (report: {Path(info['path']).parent / 'build.log'})",
               flush=True)
-        if family == "sg":
-            stage_build_check(report)
+        if family == "fv":
+            print("[device] fv registers (f, d): " + ", ".join(
+                f"{k}<{t}> {r}" for k, t, r, _, _ in ptxas_kernels(report)),
+                flush=True)
+        kernel_build_check(report, {"sg": "stage_kernel",
+                                    "fv": "pressure_kernel"}[family])
     return card
 
 
@@ -911,7 +929,7 @@ def phase_fv_lanes(summary):
     per_iter = fvl.LAUNCHES["fv_lanes"] / 2
     print(f"[lanes] FV 128x128 float32 B=8: {per_iter:g} launches an "
           "iteration", flush=True)
-    check(per_iter == 15, f"FV B=8: {per_iter} launches an iteration")
+    check(per_iter == 4, f"FV B=8: {per_iter} launches an iteration")
     one = fvk.make_fv_chunk_runner(ps[0], ops_list[0], chunk, 1e-30, 10,
                                    FV_K)
     t1 = cuda_ms(lambda: one(lane_of(st8, 0), 0, float("inf")), 2) / chunk
@@ -988,9 +1006,8 @@ def phase_fv_kernels(summary):
         out_k = run_k(st0, 0, inf)
         torch.cuda.synchronize()  # a fault shows where it happened
         per_iter = {k: v / chunk for k, v in fvk.LAUNCHES.items()}
-        check(per_iter["fv_bicgstab"] == 1 and sum(per_iter.values())
-              == 10 + 5 * ops.n_refine, f"FV {case}: launches an iteration "
-              f"{per_iter}")
+        check(all(n == 1 for n in per_iter.values()), f"FV {case}: "
+              f"launches an iteration {per_iter}")
         out_p = fvk.chunk_plain(S, st0, 0, inf, chunk, 1e-30, 10, FV_K)
         e_chunk = max(rel_err(a, b) for a, b in zip(out_k[0], out_p[0]))
         e_rows = max(rel_err(out_k[4][:, c], out_p[4][:, c])
@@ -1010,8 +1027,9 @@ def phase_fv_kernels(summary):
         print(f"[fv kernels] {case}: step state {e_step:.2e} metrics "
               f"{e_met:.2e} chunk state {e_chunk:.2e} rows {e_rows:.2e} "
               f"flags {flags_k} bitwise repeat {bitwise} (tol {tol:.0e}); "
-              f"launches an iteration {sum(per_iter.values()):g}, "
-              f"fv_bicgstab {per_iter['fv_bicgstab']:g}", flush=True)
+              f"launches an iteration {sum(per_iter.values()):g} "
+              f"({', '.join(f'{k} {n:g}' for k, n in per_iter.items())})",
+              flush=True)
         check(worst <= tol, f"FV {case}: relative error {worst:.3e} > "
               f"{tol:.0e}")
         check(flags_k == flags_p, f"FV flags differ: {flags_k} vs {flags_p}")
@@ -1122,31 +1140,47 @@ def phase_fv_flags():
 def fv_kernel_checks(p, ops, state, summary):
     """Each FV kernel on the main path's inputs (one step from a developing
     N=128 float32 flow): its output's absolute error against the plain
-    phase it stands for, then the time of one iteration's launches of it
-    (bench entry of the library, CUDA events) beside that plain phase."""
+    phase it stands for, then the time of one iteration's launch of it
+    (bench entry of the library, CUDA events) beside that plain phase.
+    fv_pressure is held against plain_pressure_stage started from the
+    kernel's own momentum solution u*, v*: rhs_p, p' after the gauge, the
+    new state, and the six metrics formed from the stage's partial sums
+    (part_c, part_q) as fv_control forms them, within FV_F32_TOL relative."""
     S = fvk.statics(p, ops)
     ws = fvk.bench_workspace(S, ops, state, FV_K)
     u, v, pr, mx, my = fvk.pad_state(state)
     c = fvk.plain_assemble(S, u, v, pr, mx, my)
     us, vs = fvk.plain_bicgstab(c, u, v, FV_K)
-    Du, mxs, mys, rhsp = fvk.plain_rhie_chow(S, c, us, vs, pr)
+    xu, xv = ws["x"][0], ws["x"][1]
+    rhsp = fvk.plain_rhie_chow(S, c, xu, xv, pr)[3]
     pp = fvk.plain_pressure(S, rhsp)
-    new, met = fvk.plain_correct(S, Du, us, vs, pr, mxs, mys, pp)
+    new, met = fvk.plain_pressure_stage(S, c, xu, xv, pr)
+    cs = ws["part_c"].double().sum(0)
+    qs = ws["part_q"].double().sum(0)
+    dA = ops.dx * ops.dy
+    met_parts = torch.stack([cs[0].sqrt(), cs[1].sqrt(), qs[0].sqrt(),
+                             0.5 * cs[2] * dA, 0.5 * qs[1] * dA,
+                             0.5 * qs[2] * dA])
+    stage_out = ([(ws["rhsp"], rhsp), (ws["pp"] - ws["pp"][0, 0], pp),
+                  (met_parts, met)]
+                 + list(zip((ws[k] for k in fvm.FVState._fields),
+                            fvk.unpad_state(*new))))
 
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
 
-    new_k = [ws[k] for k in fvm.FVState._fields]
-    summary["fv_stencil"]["max_abs_err"] = max(
-        [err(ws["aPr"], c["aP_rel"]), err(ws["rhsp"], rhsp)]
-        + [err(a, b) for a, b in zip(new_k, fvk.unpad_state(*new))])
-    summary["fv_bicgstab"]["max_abs_err"] = max(err(ws["x"][0], us),
-                                                err(ws["x"][1], vs))
-    summary["fv_dense"]["max_abs_err"] = err(ws["pp"] - ws["pp"][0, 0], pp)
+    summary["fv_stencil"]["max_abs_err"] = err(ws["aPr"], c["aP_rel"])
+    summary["fv_bicgstab"]["max_abs_err"] = max(err(xu, us), err(xv, vs))
+    summary["fv_pressure"]["max_abs_err"] = max(err(a, b)
+                                                for a, b in stage_out)
     summary["fv_control"]["max_abs_err"] = err(ws["metrics"], met)
+    e_stage = max(rel_err(a, b) for a, b in stage_out)
     print("[fv kernels] N=128 float32 developing flow: abs err "
           + ", ".join(f"{k} {summary[k]['max_abs_err']:.3e}"
-                      for k in fvk.KERNELS), flush=True)
+                      for k in fvk.KERNELS)
+          + f"; fv_pressure relative {e_stage:.3e}", flush=True)
+    check(e_stage <= FV_F32_TOL, f"fv_pressure against plain_pressure_stage:"
+          f" relative error {e_stage:.3e} > {FV_F32_TOL:.0e}")
 
     reps = 50  # the bench launches update ws in place: errors first
     for name in fvk.KERNELS:
@@ -1156,11 +1190,6 @@ def fv_kernel_checks(p, ops, state, summary):
     nan = torch.full((), float("nan"), dtype=ops.dtype, device=ops.device)
     nrm = lambda a: torch.sqrt(torch.sum(a * a))
 
-    def plain_stencil():
-        cc = fvk.plain_assemble(S, u, v, pr, mx, my)
-        d = fvk.plain_rhie_chow(S, cc, us, vs, pr)
-        return fvk.plain_correct(S, d[0], us, vs, pr, d[1], d[2], pp)
-
     def plain_control():
         rel = torch.maximum(nrm(new[0] - u) / (nrm(u) + 1e-12),
                             nrm(new[1] - v) / (nrm(v) + 1e-12))
@@ -1169,61 +1198,64 @@ def fv_kernel_checks(p, ops, state, summary):
         return row, now, [torch.where(done, a, b)
                           for a, b in zip((u, v, pr, mx, my), new)]
 
-    for name, fn in (("fv_stencil", plain_stencil),
-                     ("fv_bicgstab", lambda: fvk.plain_bicgstab(c, u, v,
-                                                                FV_K)),
-                     ("fv_dense", lambda: fvk.plain_pressure(S, rhsp)),
-                     ("fv_control", plain_control)):
+    for name, fn in (
+            ("fv_stencil", lambda: fvk.plain_assemble(S, u, v, pr, mx, my)),
+            ("fv_bicgstab", lambda: fvk.plain_bicgstab(c, u, v, FV_K)),
+            ("fv_pressure",
+             lambda: fvk.plain_pressure_stage(S, c, xu, xv, pr)),
+            ("fv_control", plain_control)):
         summary[name]["plain_ms"] = cuda_ms(fn, 20)
     for name, (flops, nbytes) in fv_work(ops).items():
         b_ms, b_by = bound(flops, nbytes, ops.dtype)
         summary[name].update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    summary["fv_dense"]["library_ms"] = dense_library_ms(ops)
+    summary["fv_pressure"]["library_ms"] = dense_library_ms(ops)
     for name in fvk.KERNELS:
         lib = summary[name]["library_ms"]
         print(f"[fv kernels] {name} at N=128 float32, one iteration's "
-              f"launches: kernel {summary[name]['ms']:.4f} ms, plain "
+              f"launch: kernel {summary[name]['ms']:.4f} ms, plain "
               f"{summary[name]['plain_ms']:.4f} ms, bound "
               f"{summary[name]['bound_ms']:.5f} ms "
               f"({summary[name]['bound_by']})"
-              + ("" if lib is None else f", torch.matmul {lib:.4f} ms"),
-              flush=True)
+              + ("" if lib is None else f", its products as torch.matmul "
+                 f"{lib:.4f} ms"), flush=True)
 
 
 def fv_work(ops):
-    """(operations, bytes) of one SIMPLE iteration's launches of each FV
+    """(operations, bytes) of one SIMPLE iteration's launch of each FV
     kernel at ny x nx cells (c of them), from the shapes; arithmetic not
     counted below only lowers the bound.
 
-    - fv_stencil: assembly, Rhie-Chow, refinement residual, correction and
-      metrics read the state (u, v, p and the two face fluxes), the
-      momentum solution and p' (8 c) and write the five coefficient
-      arrays with the two right-hand sides, the pressure right-hand side
-      and the new state (13 c); ~100 operations a cell;
+    - fv_stencil (the assembly): reads the state (u, v, p and the two face
+      fluxes) and the boundary statics aP_bc, b_bc_u (7 c) and writes the
+      five coefficient arrays, the pressure gradient, Du and the two
+      initial residuals (10 c); ~60 operations a cell;
     - fv_bicgstab: K iterations on the two momentum systems, each two
       5-point applications with the Jacobi scaling (11 operations a cell),
       four dots and six axpys (2 each): 40 operations a cell a system an
       iteration; it reads the 5 coefficients, 2 right-hand sides and 2
       starting vectors and writes the 2 solutions;
-    - fv_dense: 4 (1 + n_refine) products of the separable pressure solve,
-      2 ny^2 nx or 2 ny nx^2 each; it reads the two eigenvector bases, the
-      eigenvalue inverses and the right-hand side and writes p';
+    - fv_pressure: 4 (1 + n_refine) products of the separable pressure
+      solve, 2 ny^2 nx or 2 ny nx^2 each, and ~80 operations a cell for
+      Rhie-Chow, the refinement residual, the corrections and the metrics;
+      it reads the two eigenvector bases and the eigenvalue inverses, the
+      momentum solution, Du, the pressure gradient, p, u and v (ny^2 +
+      nx^2 + 9 c) and writes the new state (5 c);
     - fv_control: the rows' norms of the new and old velocities (4 c read).
     """
     ny, nx = ops.ny, ops.nx
     c, e = ny * nx, torch.finfo(ops.dtype).bits // 8
     solves = 1 + ops.n_refine
     return {
-        "fv_stencil": (100 * c, e * 21 * c),
+        "fv_stencil": (60 * c, e * 17 * c),
         "fv_bicgstab": (FV_K * 2 * 40 * c, e * 11 * c),
-        "fv_dense": (solves * (4 * ny * ny * nx + 4 * ny * nx * nx),
-                     e * (ny * ny + nx * nx + 3 * c)),
+        "fv_pressure": (solves * (4 * ny * ny * nx + 4 * ny * nx * nx)
+                        + 80 * c, e * (ny * ny + nx * nx + 14 * c)),
         "fv_control": (4 * c, e * 4 * c),
     }
 
 
 def dense_library_ms(ops):
-    """torch.matmul doing fv_dense's products: per solve, the two basis
+    """torch.matmul doing fv_pressure's products: per solve, the two basis
     changes and their inverses (V1^T R, . V2, V1 ., . V2^T) on ny x nx
     operands in the working dtype, TF32 off."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
