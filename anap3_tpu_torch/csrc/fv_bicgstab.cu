@@ -1,9 +1,12 @@
-// fv_bicgstab: the fixed-count joint u/v Jacobi-BiCGSTAB of the momentum
-// predictor, one cooperative launch per solve.
+// fv_bicgstab: the momentum predictor of one SIMPLE iteration, one
+// cooperative launch: the assembly, then the fixed-count joint u/v
+// Jacobi-BiCGSTAB.
 //
-// Replaces: bicg_iter, the fori_loop body of the body _make_iterate of
+// Replaces: the assembly part of the body _make_iterate of
 //   anap3_tpu/ops/pallas_fv.py (make_pallas_fv_step,
-//   make_pallas_fv_chunk_runner): K warm-started iterations with the
+//   make_pallas_fv_chunk_runner): cell_gradient, the momentum coefficients,
+//   the psi == 1 deferred correction, the Patankar right-hand sides and r0;
+//   then bicg_iter, its fori_loop body: K warm-started iterations with the
 //   breakdown guard active = ||r||^2 > 1e-16 (||rhs||^2 + 1e-30), every
 //   scalar frozen by sel() once inactive, 1e-30 in every divisor, and the
 //   Pallas operation order in rho/beta/alpha/omega. The guard constants are
@@ -15,14 +18,16 @@
 //   K=16. The arithmetic (two 5-point applies on 2 x 16K cells at N=128) is
 //   far below a microsecond; the chain is latency: a grid barrier costs
 //   1.2-1.7 us at 64-512 blocks, a launch 3.1-3.6 us (scripts/
-//   launch_floor.cu, H100 700 W), so one launch with 47 barriers replaces
-//   48 launches.
+//   launch_floor.cu, H100 700 W), so one launch with 48 barriers (the
+//   assembly's and the solve's 47) replaces 49 launches.
 // Design: one persistent cooperative launch (cudaLaunchAttributeCooperative)
 //   of min(tiles x lanes, co-resident) blocks of 256 threads, a thread a
 //   cell of a 16 x 16 tile; block
 //   blockIdx.x takes the (tile, lane) items blockIdx.x, blockIdx.x + grid,
-//   ... in every phase, and K x (direction, stabilize, update) run with a
-//   grid barrier between phases. Each phase starts by reducing the previous
+//   ... in every phase: the assembly (fv_phases.cuh), then K x (direction,
+//   stabilize, update), with a grid barrier between phases (the assembly
+//   as a phase costs a 1.2-1.7 us barrier, as a launch 3.1-3.6 us). Each
+//   phase starts by reducing the previous
 //   phase's per-tile partials of its lane in every block, so every block
 //   holds the same scalars without atomics; the direction phase computes p
 //   on its haloed tile (from r, p_old, v_old of the previous phases) so v =
@@ -69,7 +74,7 @@ enum Sc { SC_RHO, SC_ALPHA, SC_OMEGA, SC_RHSN2, SC_ACTIVE, SC_COUNT };
 template <typename T>
 struct Smem {
   T sm[4][HT][HT];             // haloed tiles of the applies
-  T vals[4 * NT];              // the threads' values of a phase's partials
+  T vals[6 * NT];              // the threads' values of a phase's partials
   T sums[8];                   // the lane sums a phase starts from
   T sc[MAX_ITEMS][SC_COUNT];   // per item scalars, across phases
 };
@@ -339,12 +344,24 @@ __device__ void update(int k, const Grid<T>& g, const Work<T>& w,
   if (c.tid == 0) sc[SC_OMEGA] = omega;
 }
 
+// `with_assembly` 0 skips the assembly and starts from the workspace's
+// last solve (the bench entry's timing of the solve alone).
 template <typename T>
-__global__ void __launch_bounds__(NT) bicg_kernel(Grid<T> g, Work<T> w0) {
+__global__ void __launch_bounds__(NT)
+bicg_kernel(Grid<T> g, Work<T> w0, int upwind, int with_assembly) {
   __shared__ Smem<T> S;
   cg::grid_group grid = cg::this_grid();
   const int tiles_x = (g.nx + TILE - 1) / TILE;
   const int items = g.nb * g.lanes;
+  if (with_assembly) {
+    for (int it = blockIdx.x; it < items; it += gridDim.x) {
+      const int lane = it / g.nb;
+      const Work<T> w = at_lane(w0, lane, g.ny, g.nx, g.nb);
+      assemble(at_lane(g, lane), w, upwind, tile_at(it % g.nb, tiles_x),
+               S.vals);
+    }
+    grid.sync();
+  }
   // the items of this block, in the same order in every phase
   auto each = [&](auto phase) {
     for (int it = blockIdx.x, i = 0; it < items; it += gridDim.x, ++i) {
@@ -395,7 +412,8 @@ int coresident_blocks(cudaError_t* err) {
 }  // namespace
 
 template <typename T>
-cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, cudaStream_t s) {
+cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, int upwind,
+                        int with_assembly, cudaStream_t s) {
   cudaError_t err = cudaSuccess;
   const int most = coresident_blocks<T>(&err);
   if (!most) return err;
@@ -413,13 +431,16 @@ cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, cudaStream_t s) {
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, bicg_kernel<T>, g, w);
+  err = cudaLaunchKernelEx(&cfg, bicg_kernel<T>, g, w, upwind,
+                           with_assembly);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 template cudaError_t launch_bicg<float>(const Grid<float>&,
-                                        const Work<float>&, cudaStream_t);
+                                        const Work<float>&, int, int,
+                                        cudaStream_t);
 template cudaError_t launch_bicg<double>(const Grid<double>&,
-                                         const Work<double>&, cudaStream_t);
+                                         const Work<double>&, int, int,
+                                         cudaStream_t);
 
 }  // namespace fv

@@ -1,6 +1,6 @@
-// Shared declarations of the FV-SIMPLE kernels (fv_stencil.cu,
-// fv_bicgstab.cu, fv_pressure.cu, fv_control.cu) and their C host entries
-// (fv_host.cu); the device functions that several kernels run are in
+// Shared declarations of the FV-SIMPLE kernels (fv_bicgstab.cu,
+// fv_pressure.cu: two cooperative launches an iteration) and their C host
+// entries (fv_host.cu); the device functions that both kernels run are in
 // fv_phases.cuh.
 //
 // Layout: cell fields are (ny, nx) row-major, index [j * nx + i]; the state's
@@ -12,14 +12,13 @@
 // Tile kernels run one thread per cell on TILE x TILE tiles; a block that
 // needs a field at its neighbours' cells computes it on the haloed
 // (TILE+2)^2 tile into shared memory from values of the previous launch
-// (or, in the cooperative BiCGSTAB and pressure launches, of the phase
-// before its last grid barrier). Grid-wide sums go through per-tile
-// partials that the NEXT launch or phase reduces, in a fixed order, in
-// every block: no atomics, and a run repeats bit for bit.
+// or of the phase before its last grid barrier. Grid-wide sums go through
+// per-tile partials that the NEXT launch or phase reduces, in a fixed
+// order, in every block: no atomics, and a run repeats bit for bit.
 //
 // Lanes: every kernel runs B independent solves ("lanes") of one grid in one
-// launch, the lane being the grid's z axis (blockIdx.x of the one-block
-// control kernel). The pressure solve's operators (V1, V2, inv_lam, A1, A2)
+// launch, a block taking (tile, lane) items (and, in the control phase,
+// whole lanes). The pressure solve's operators (V1, V2, inv_lam, A1, A2)
 // are shared; the scalars (mu, alpha_uv, alpha_p, rho, lid), the boundary
 // statics aP_bc and b_bc_u, the state, every work array, partial table,
 // BiCGSTAB slot, flag and row are per lane, lane b at b times the lane
@@ -38,7 +37,6 @@ namespace fv {
 constexpr int TILE = 16;
 constexpr int NT = TILE * TILE;    // threads of a tile block
 constexpr int HT = TILE + 2;       // haloed tile edge
-constexpr int RED_THREADS = 1024;  // threads of the one-block control kernel
 
 // Slots of the pointer table (the order of
 // anap3_tpu_torch/ops/fv_kernels.py:_PTR_NAMES).
@@ -79,7 +77,7 @@ constexpr int NPART_C = 7;
 constexpr int NPART_Q = 3;
 
 // Kernel counts reported to the wrapper's launch counters.
-enum Count { C_STENCIL, C_BICG, C_PRESSURE, C_CONTROL, C_COUNT };
+enum Count { C_BICG, C_PRESSURE, C_COUNT };
 
 template <typename T>
 struct Grid {
@@ -130,6 +128,7 @@ struct Work {
   T* slots;
   T *metrics, *rows;
   int* flags;
+  T* ref_norm;
 };
 
 // The buffers as lane b sees them (shared operators stay). Rows are lane
@@ -167,6 +166,7 @@ __device__ __forceinline__ Work<T> at_lane(Work<T> w, int b, int ny, int nx,
   w.metrics = off(w.metrics, 6);
   w.rows = off(w.rows, 7);
   w.flags = off(w.flags, 3);
+  w.ref_norm = off(w.ref_norm, 1);
   return w;
 }
 
@@ -176,75 +176,42 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (a > b || a != a) ? a : b;
 }
 
-// Fixed-order tree sum over the block (sh holds nthreads values).
-template <typename T>
-__device__ T block_sum(T v, T* sh, int tid, int nthreads) {
-  sh[tid] = v;
-  __syncthreads();
-  for (int s = nthreads / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] += sh[tid + s];
-    __syncthreads();
-  }
-  T r = sh[0];
-  __syncthreads();
-  return r;
-}
-
-// Column `col` of a (nb, ncol) partial table summed in a fixed order: the
-// same arithmetic in every block, so every block gets the same bits.
-template <typename T>
-__device__ T reduce_col(const T* part, int ncol, int col, int nb, T* sh,
-                        int tid, int nthreads) {
-  T acc = 0;
-  for (int b = tid; b < nb; b += nthreads) acc += part[(size_t)b * ncol + col];
-  return block_sum(acc, sh, tid, nthreads);
-}
-
-// Tile-block geometry: this thread's cell (j, i) and the block's index.
+// Tile-block geometry: this thread's cell (j, i) and its tile's index b.
 struct TileCell {
   int j, i, ty, tx, tid, j0, i0, b;
 };
 
-__device__ __forceinline__ TileCell tile_cell() {
-  TileCell c;
-  c.tx = threadIdx.x;
-  c.ty = threadIdx.y;
-  c.tid = c.ty * TILE + c.tx;
-  c.j0 = blockIdx.y * TILE;
-  c.i0 = blockIdx.x * TILE;
-  c.j = c.j0 + c.ty;
-  c.i = c.i0 + c.tx;
-  c.b = blockIdx.y * gridDim.x + blockIdx.x;
-  return c;
-}
+// The convergence state machine's arguments of one iteration of a chunk
+// (history row `row`, global iteration `idx`) or of a step (rows null).
+// ref_norm (Work) is read and written only when use_residual is set.
+template <typename T>
+struct Control {
+  int row, idx, warmup, use_residual;
+  T tol;
+};
 
 // Launchers, defined and instantiated for float and double in the .cu file
 // of each kernel, each for g.lanes lanes at once (pointers are lane 0's).
-// None synchronizes; each returns cudaGetLastError().
-// The assembly: gradient, momentum coefficients, deferred correction,
-// right-hand sides and the BiCGSTAB start (r0 and the start values).
+// None synchronizes; each returns cudaGetLastError(). Both launches are
+// cooperative and refused (an error, never another path) where the card
+// cannot launch them.
+// The assembly (gradient, momentum coefficients, deferred correction,
+// right-hand sides, r0 and the start values; skipped when with_assembly
+// is 0, which only the bench entry asks for) and the whole K-iteration
+// solve.
 template <typename T>
-cudaError_t launch_stencil(const Grid<T>& g, const Work<T>& w, int upwind,
-                           cudaStream_t s);
-// The whole K-iteration solve in one cooperative launch; refused (an
-// error, never another path) where the card cannot launch it.
-template <typename T>
-cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, cudaStream_t s);
+cudaError_t launch_bicg(const Grid<T>& g, const Work<T>& w, int upwind,
+                        int with_assembly, cudaStream_t s);
 // Rhie-Chow, the pressure solve with n_refine refinement steps, the
-// corrections and the metrics' partials in one cooperative launch; refused
-// like launch_bicg, by the rule of
-// anap3_tpu_torch/ops/fv_kernels.py:pressure_grid. pressure_coresident
+// corrections, the metrics' partials and, unless `ctl` is null (the bench
+// entry only), control: the metrics or the history row and the state
+// machine. The grid is the rule of
+// anap3_tpu_torch/ops/fv_kernels.py:pressure_grid; pressure_coresident
 // gives the card's co-resident blocks of the kernel.
 template <typename T>
 cudaError_t launch_pressure(const Grid<T>& g, const Work<T>& w, int n_refine,
-                            cudaStream_t s);
+                            const Control<T>* ctl, cudaStream_t s);
 template <typename T>
 cudaError_t pressure_coresident(int* blocks);
-// ref_norm: (lanes,) normalizations of the residual criterion, read and
-// written only when use_residual is set.
-template <typename T>
-cudaError_t launch_control(const Grid<T>& g, const Work<T>& w, int row,
-                           int idx, int warmup, T tol, int use_residual,
-                           T* ref_norm, cudaStream_t s);
 
 }  // namespace fv

@@ -4,12 +4,12 @@
 // buffer in the pointer table, see fv_common.cuh:Ptr) and returns the first
 // cudaGetLastError() that is not cudaSuccess.
 //
-// One SIMPLE iteration is 4 launches in float32 and in float64, whatever
-// K and n_refine are: the assembly (fv_stencil), the BiCGSTAB solve (one
-// cooperative launch for its K iterations), the pressure stage (one
-// cooperative launch for Rhie-Chow, the pressure solve and its refinement,
-// the corrections and the metrics' partials), and control (15 in float32
-// and 10 in float64 before the pressure stage was one launch).
+// One SIMPLE iteration is 2 launches in float32 and in float64, whatever
+// K, n_refine and the number of lanes are, and a chunk or a step adds none:
+// the momentum predictor (fv_bicgstab: the assembly, then the K-iteration
+// solve, one cooperative launch) and the pressure stage (fv_pressure:
+// Rhie-Chow, the pressure solve and its refinement, the corrections, the
+// metrics and control, one cooperative launch).
 // fv_chunk_run takes the place of the Pallas fori_loop of
 // anap3_tpu/ops/pallas_fv.py make_pallas_fv_chunk_runner: it loops the
 // iteration `chunk` times with no Python and no host sync per iteration.
@@ -18,7 +18,7 @@
 // flags carried in from its previous chunk): it takes the place of the
 // Pallas fori_loop of anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner.
 // Every launch covers all lanes, so a B-lane iteration costs the launches of
-// one iteration (4), not B times as many, and the chain of dependent
+// one iteration (2), not B times as many, and the chain of dependent
 // grid-wide reductions that bounds one solve is paid once for all lanes.
 // fv_chunk_run and fv_step_run are its B = 1 case.
 #include "fv_common.cuh"
@@ -56,17 +56,16 @@ Work<T> make_work(const void* const* P) {
   w.metrics = m(P_METRICS);
   w.rows = m(P_ROWS);
   w.flags = static_cast<int*>(const_cast<void*>(P[P_FLAGS]));
+  w.ref_norm = m(P_REF);
   return w;
 }
 
 template <typename T>
-int iterate(const Grid<T>& g, const Work<T>& w, int n_refine,
-            int upwind, int* counts, cudaStream_t s) {
-  FV_CHECK(launch_stencil<T>(g, w, upwind, s));
-  counts[C_STENCIL] += 1;
-  FV_CHECK(launch_bicg<T>(g, w, s));
+int iterate(const Grid<T>& g, const Work<T>& w, int n_refine, int upwind,
+            const Control<T>& ctl, int* counts, cudaStream_t s) {
+  FV_CHECK(launch_bicg<T>(g, w, upwind, 1, s));
   counts[C_BICG] += 1;
-  FV_CHECK(launch_pressure<T>(g, w, n_refine, s));
+  FV_CHECK(launch_pressure<T>(g, w, n_refine, &ctl, s));
   counts[C_PRESSURE] += 1;
   return 0;
 }
@@ -78,11 +77,7 @@ int step_run(const void* const* P, int ny, int nx, int K, int n_refine,
   Work<T> w = make_work<T>(P);
   w.flags = nullptr;  // a step always commits
   w.rows = nullptr;   // control writes the six metrics
-  const int rc = iterate<T>(g, w, n_refine, upwind, counts, s);
-  if (rc) return rc;
-  FV_CHECK(launch_control<T>(g, w, 0, 0, 0, T(0), 0, nullptr, s));
-  counts[C_CONTROL] += 1;
-  return 0;
+  return iterate<T>(g, w, n_refine, upwind, Control<T>{}, counts, s);
 }
 
 template <typename T>
@@ -91,35 +86,33 @@ int chunk_run(const void* const* P, int ny, int nx, int lanes, int K,
               int use_residual, double tol, int* counts, cudaStream_t s) {
   const Grid<T> g = make_grid<T>(P, ny, nx, K, lanes);
   const Work<T> w = make_work<T>(P);
-  T* ref_norm = static_cast<T*>(const_cast<void*>(P[P_REF]));
   for (int i = 0; i < chunk; ++i) {
-    const int rc = iterate<T>(g, w, n_refine, upwind, counts, s);
+    const Control<T> ctl{i, start_iter + i, warmup, use_residual, T(tol)};
+    const int rc = iterate<T>(g, w, n_refine, upwind, ctl, counts, s);
     if (rc) return rc;
-    FV_CHECK(launch_control<T>(g, w, i, start_iter + i, warmup, T(tol),
-                               use_residual, ref_norm, s));
-    counts[C_CONTROL] += 1;
   }
   return 0;
 }
 
 // Timing aid: `reps` times one kernel's launch of one SIMPLE iteration
-// (the index of ops/fv_kernels.py:KERNELS: 0 the assembly, 1 the BiCGSTAB
-// solve, 2 the pressure stage, 3 control). Not part of a solve.
+// (the index of ops/fv_kernels.py:KERNELS: 0 the momentum predictor, 1 the
+// pressure stage), with its folded phase (`folded`: the assembly, control)
+// or without it (the solve alone, the pressure stage without control).
+// Control runs as a chunk's first row with the warmup out of reach, so it
+// sets no flag. Not part of a solve.
 template <typename T>
 int bench_run(const void* const* P, int ny, int nx, int lanes, int K,
-              int n_refine, int upwind, int which, int reps, cudaStream_t s) {
+              int n_refine, int upwind, int which, int folded, int reps,
+              cudaStream_t s) {
   const Grid<T> g = make_grid<T>(P, ny, nx, K, lanes);
   const Work<T> w = make_work<T>(P);
+  const Control<T> ctl{0, 0, 1 << 30, 0, T(0)};
   for (int r = 0; r < reps; ++r) {
     if (which == 0) {
-      FV_CHECK(launch_stencil<T>(g, w, upwind, s));
-    } else if (which == 1) {
-      FV_CHECK(launch_bicg<T>(g, w, s));
-    } else if (which == 2) {
-      FV_CHECK(launch_pressure<T>(g, w, n_refine, s));
+      FV_CHECK(launch_bicg<T>(g, w, upwind, folded, s));
     } else {
-      FV_CHECK(launch_control<T>(g, w, 0, 0, 1 << 30, T(0), 0, nullptr,
-                                 s));
+      FV_CHECK(launch_pressure<T>(g, w, n_refine, folded ? &ctl : nullptr,
+                                  s));
     }
   }
   return 0;
@@ -168,12 +161,12 @@ int fv_chunk_run(int dtype, int ny, int nx, const void* const* ptrs, int K,
 
 int fv_bench_run(int dtype, int ny, int nx, int lanes,
                  const void* const* ptrs, int K, int n_refine, int upwind,
-                 int which, int reps, void* stream) {
+                 int which, int folded, int reps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? fv::bench_run<double>(ptrs, ny, nx, lanes, K, n_refine,
-                                       upwind, which, reps, s)
+                                       upwind, which, folded, reps, s)
                : fv::bench_run<float>(ptrs, ny, nx, lanes, K, n_refine,
-                                      upwind, which, reps, s);
+                                      upwind, which, folded, reps, s);
 }
 
 // The co-resident blocks of the pressure kernel on the current card.

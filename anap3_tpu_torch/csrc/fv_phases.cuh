@@ -1,21 +1,21 @@
-// Device functions that more than one FV-SIMPLE kernel runs, so that every
-// value is computed by one code path: the cell accessors, the pinned
-// gradient and the FD-ghost derivatives (fv_stencil.cu's assembly and
-// fv_pressure.cu), the (tile, lane) geometry of the cooperative launches
-// and their fixed-order warp reductions (fv_bicgstab.cu, fv_pressure.cu),
-// and the stencil phases of the pressure stage (fv_pressure.cu): Rhie-Chow,
-// the refinement residual, the correction and the metrics, each on one
-// 16 x 16 tile of one lane.
+// Device functions of the FV-SIMPLE kernels, so that every value is
+// computed by one code path: the cell accessors, the pinned gradient and
+// the FD-ghost derivatives, the (tile, lane) geometry of the cooperative
+// launches and their fixed-order warp reductions, and the phases that are
+// not the BiCGSTAB solve's: the assembly (the head of fv_bicgstab.cu's
+// launch), and Rhie-Chow, the refinement residual, the correction, the
+// metrics and control (fv_pressure.cu's), each on one 16 x 16 tile of one
+// lane (control on one lane).
 //
 // A phase function runs on one item of a 256-thread block (TileCell from
 // tile_at) and writes its grid-wide sums as per-tile partials that a later
-// phase (or fv_control.cu) reduces in a fixed order. `vals` is NCOL x NT
-// values of shared memory for write_partials; a phase that stages a haloed
-// tile takes `sm`, two (TILE + 2)^2 tiles (and the correction `pgs`, one
-// (TILE + 4)^2 tile). Each phase ends with a block barrier inside
-// write_partials, after which the block has read every shared value the
-// phase wrote except the warps' column reads of `vals`; the next item's
-// first shared write comes after another barrier.
+// phase reduces in a fixed order. `vals` is NCOL x NT values of shared
+// memory for write_partials; a phase that stages a haloed tile takes `sm`,
+// two (TILE + 2)^2 tiles (and the correction `pgs`, one (TILE + 4)^2
+// tile). Each phase ends with a block barrier inside write_partials, after
+// which the block has read every shared value the phase wrote except the
+// warps' column reads of `vals`; the next item's first shared write comes
+// after another barrier.
 #pragma once
 
 #include "fv_common.cuh"
@@ -96,8 +96,8 @@ __device__ __forceinline__ TileCell tile_at(int tile, int tiles_x,
   return c;
 }
 
-// Column `col` of a lane's (nb, ncol) partial table, summed by one warp as
-// reduce_col sums it: thread t's running sum over b = t, t + NT, ...,
+// Column `col` of a lane's (nb, ncol) partial table, summed by one warp in
+// the order of NT threads: thread t's running sum over b = t, t + NT, ...,
 // then the NT-slot tree. Lane l holds the running sums of threads
 // l + 32 j (j < 8), each over its b ascending, and adds them as the tree's
 // first three levels pair them; the last five levels are shuffles. Valid
@@ -118,21 +118,32 @@ __device__ T warp_col_sum(const T* part, int ncol, int col, int nb) {
   return v;
 }
 
+// NT values in shared memory (`col`) summed by one warp in the fixed order
+// of the NT-slot tree (slot t += slot t + s for s = NT/2, ..., 1): lane l
+// adds slots l + 32 j as the tree's first three levels pair them, the last
+// five levels are shuffles. Valid in lane 0.
+template <typename T>
+__device__ __forceinline__ T col_tree(const T* col, int l = threadIdx.x % 32) {
+  static_assert(NT == 256, "eight slots a warp lane");
+  col += l;
+  T x = ((col[0] + col[128]) + (col[64] + col[192]))
+        + ((col[32] + col[160]) + (col[96] + col[224]));
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_down_sync(0xffffffffu, x, s);
+  return x;
+}
+
 // The threads' values in shared memory (`vals`, NCOL x NT, thread t's
-// value of column c at vals[c * NT + t]) summed per column as block_sum
-// sums them, into part[tile * NCOL + c]: warp c adds column c (the tree's
-// first three levels from eight slots, the last five as shuffles).
+// value of column c at vals[c * NT + t]) summed per column in the NT-slot
+// tree's order (col_tree: warp c adds column c), into
+// part[tile * NCOL + c].
 template <typename T, int NCOL>
 __device__ void sum_partials(const T* vals, T* part, int tile) {
-  const int wp = threadIdx.x / 32, l = threadIdx.x % 32;
+  const int wp = threadIdx.x / 32;
   __syncthreads();
   if (wp < NCOL) {
-    const T* col = vals + wp * NT + l;
-    T x = ((col[0] + col[128]) + (col[64] + col[192]))
-          + ((col[32] + col[160]) + (col[96] + col[224]));
-#pragma unroll
-    for (int s = 16; s > 0; s >>= 1) x += __shfl_down_sync(0xffffffffu, x, s);
-    if (l == 0) part[(size_t)tile * NCOL + wp] = x;
+    const T x = col_tree(vals + wp * NT);
+    if (threadIdx.x % 32 == 0) part[(size_t)tile * NCOL + wp] = x;
   }
 }
 
@@ -157,6 +168,115 @@ __device__ T lane_mean(const T* part, const Grid<T>& g, T* sum) {
   }
   __syncthreads();
   return *sum / T(g.ny * g.nx);
+}
+
+// The assembly of an iteration (the head of the BiCGSTAB launch): the
+// pinned pressure gradient, the momentum coefficients, the psi == 1
+// deferred correction, the Patankar right-hand sides, the solve's start
+// x = (u, v), r = rh = rhs - A x, p = v = 0, and the per-tile partials
+// |rhs|^2 (part_rhs) and |r|^2, <rh, r> (part_r); lane tile 0 writes the
+// solve's start values rho, alpha, omega = 1. Every value the cell reads
+// is loaded first, so that the loads issue together. Reads the state with
+// its halo; writes only this tile's cells. `vals` holds 6 x NT values.
+template <typename T>
+__device__ void assemble(const Grid<T>& g, const Work<T>& w, int upwind,
+                         const TileCell& c, T* vals) {
+  const Cells<T> C{g};
+  const int n = g.ny * g.nx;
+  const int j = c.j, i = c.i;
+  const size_t k = (size_t)j * g.nx + i;
+  // |rhs|^2 per component, then |r|^2 and <rh,r> per component
+  T pr[6] = {0, 0, 0, 0, 0, 0};
+  if (C.in(j, i)) {
+    // the cell and its E, W, N, S neighbours (zero off the grid)
+    auto five = [&](const T* a, T (&f)[5]) {
+      f[0] = C.at(a, j, i);
+      f[1] = C.at(a, j, i + 1);
+      f[2] = C.at(a, j, i - 1);
+      f[3] = C.at(a, j + 1, i);
+      f[4] = C.at(a, j - 1, i);
+    };
+    T fp[5], fu[5], fv[5];
+    five(w.p, fp);
+    five(w.u, fu);
+    five(w.v, fv);
+    const T mxE = C.mx(w.mx, j, i), mxW = C.mx(w.mx, j, i - 1);
+    const T myN = C.my(w.my, j, i), myS = C.my(w.my, j - 1, i);
+    const T aPbc = w.aP_bc[k], bbcu = w.b_bc_u[k];
+    T gpx, gpy;
+    grad_pinned(g, [&](int jj, int ii) {
+      return jj > j ? fp[3] : jj < j ? fp[4] : ii > i ? fp[1]
+                    : ii < i ? fp[2] : fp[0];
+    }, j, i, gpx, gpy);
+    const bool he = i < g.nx - 1, hw = i > 0, hn = j < g.ny - 1, hs = j > 0;
+    const T zero = T(0);
+    const T aE = he ? -(fmax(-mxE, zero) + g.Dxc) : zero;
+    const T aW = hw ? -(fmax(mxW, zero) + g.Dxc) : zero;
+    const T aN = hn ? -(fmax(-myN, zero) + g.Dyc) : zero;
+    const T aS = hs ? -(fmax(myS, zero) + g.Dyc) : zero;
+    const T aP = (he ? fmax(mxE, zero) + g.Dxc : zero)
+                 + (hw ? fmax(-mxW, zero) + g.Dxc : zero)
+                 + (hn ? fmax(myN, zero) + g.Dyc : zero)
+                 + (hs ? fmax(-myS, zero) + g.Dyc : zero) + aPbc;
+    const T aPr = aP / g.auv;
+    const T* fs[2] = {fu, fv};
+    T def[2] = {zero, zero};
+    if (!upwind) {
+      // psi == 1: the face source |m| (N - P) / 2 for both flux signs
+      for (int q = 0; q < 2; ++q) {
+        const T* f = fs[q];
+        const T dcxE = he ? (T(0.5) * fabs(mxE)) * (f[1] - f[0]) : zero;
+        const T dcxW = (T(0.5) * fabs(mxW)) * (f[0] - f[2]);
+        const T dcyN = hn ? (T(0.5) * fabs(myN)) * (f[3] - f[0]) : zero;
+        const T dcyS = (T(0.5) * fabs(myS)) * (f[0] - f[4]);
+        def[q] = ((-dcxE + (hw ? dcxW : zero)) - dcyN) + (hs ? dcyS : zero);
+      }
+    }
+    const T b_u = (bbcu + def[0]) - gpx * g.vol;
+    const T b_v = def[1] - gpy * g.vol;
+    const T scale = (T(1) - g.auv) / g.auv;
+    const T rhs[2] = {b_u + (scale * aP) * fu[0], b_v + (scale * aP) * fv[0]};
+    for (int q = 0; q < 2; ++q) {
+      const T* f = fs[q];
+      const T Ax = aPr * f[0] + aE * f[1] + aW * f[2] + aN * f[3] + aS * f[4];
+      const T r0 = rhs[q] - Ax;
+      const size_t o = (size_t)q * n + k;
+      w.x[o] = f[0];
+      w.r[o] = r0;
+      w.rh[o] = r0;
+      w.pv[0][o] = zero;
+      w.vv[0][o] = zero;
+      pr[q] = rhs[q] * rhs[q];
+      pr[2 + q] = r0 * r0;
+      pr[4 + q] = r0 * r0;
+    }
+    w.gpx[k] = gpx;
+    w.gpy[k] = gpy;
+    w.aPr[k] = aPr;
+    w.aE[k] = aE;
+    w.aW[k] = aW;
+    w.aN[k] = aN;
+    w.aS[k] = aS;
+    w.Du[k] = g.vol / (aP + T(1e-14));
+  }
+  // the six columns in one pass (col_tree), into the two tables
+  __syncthreads();  // the previous item's column reads of vals are done
+#pragma unroll
+  for (int q = 0; q < 6; ++q) vals[q * NT + c.tid] = pr[q];
+  __syncthreads();
+  const int wp = c.tid / 32;
+  if (wp < 6) {
+    const T x = col_tree(vals + wp * NT);
+    if (c.tid % 32 == 0) {
+      if (wp < 2) w.part_rhs[(size_t)c.b * 2 + wp] = x;
+      else w.part_r[(size_t)c.b * 4 + wp - 2] = x;
+    }
+  }
+  if (c.b == 0 && c.tid == 0) {
+    w.slots[SL_RHO] = T(1);
+    w.slots[SL_ALPHA] = T(1);
+    w.slots[SL_OMEGA] = T(1);
+  }
 }
 
 // Rhie-Chow compact face fluxes mdot* and rhs_p = -div(mdot*), with the
@@ -335,6 +455,133 @@ __device__ void metrics(const Grid<T>& g, const Work<T>& w,
     pr[2] = dwx * dwx + dwy * dwy;
   }
   write_partials(pr, vals, w.part_q, c.b);
+}
+
+// Slots of the tree the control phase sums a lane's metric partials in:
+// thread t of CTREE first sums column q of tiles t, t + CTREE, ...
+// ascending, then slot t += slot t + s for s = CTREE/2, ..., 1.
+constexpr int CTREE = 1024;
+constexpr int NPART_CQ = NPART_C + NPART_Q;  // part_c's columns, part_q's
+
+// Column q of the lane's metric partials (part_c's columns, then
+// part_q's) at tile b.
+template <typename T>
+__device__ __forceinline__ T metric_part(const Work<T>& w, int b, int q) {
+  return q < NPART_C ? w.part_c[(size_t)b * NPART_C + q]
+                     : w.part_q[(size_t)b * NPART_Q + q - NPART_C];
+}
+
+// The running sums of CTREE thread b0 (tiles b0, b0 + CTREE, ...
+// ascending) of columns Q0 .. Q0 + NQ - 1.
+template <int Q0, int NQ, typename T>
+__device__ __forceinline__ void tree_sums(const Work<T>& w, int nb, int b0,
+                                          T (&a)[NQ]) {
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) a[q] = 0;
+  for (int b = b0; b < nb; b += CTREE) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) a[q] += metric_part(w, b, Q0 + q);
+  }
+}
+
+// vals[q * NT + t] += A1 + A3 for columns Q0 .. Q0 + NQ - 1.
+template <int Q0, int NQ, typename T>
+__device__ __forceinline__ void add_odd_slots(const Work<T>& w, int nb,
+                                              int t, T* vals) {
+  T a[NQ], b[NQ];
+  tree_sums<Q0>(w, nb, t + NT, a);
+  tree_sums<Q0>(w, nb, t + 3 * NT, b);
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    vals[(Q0 + q) * NT + t] = vals[(Q0 + q) * NT + t] + (a[q] + b[q]);
+}
+
+// vals[q * NT + t] for every column q: slot t of the CTREE tree after its
+// first two levels, (A0 + A2) + (A1 + A3), A_k the running sums of CTREE
+// thread t + k NT. Ten columns at a time, then five (fewer live
+// registers).
+template <typename T>
+__device__ __forceinline__ void control_slots(const Work<T>& w, int nb, int t,
+                                              T* vals) {
+  T a[NPART_CQ];
+  tree_sums<0>(w, nb, t, a);
+#pragma unroll
+  for (int q = 0; q < NPART_CQ; ++q) vals[q * NT + t] = a[q];
+  tree_sums<0>(w, nb, t + 2 * NT, a);
+#pragma unroll
+  for (int q = 0; q < NPART_CQ; ++q) vals[q * NT + t] = vals[q * NT + t] + a[q];
+  add_odd_slots<0, NPART_CQ / 2>(w, nb, t, vals);
+  add_odd_slots<NPART_CQ / 2, NPART_CQ - NPART_CQ / 2>(w, nb, t, vals);
+}
+
+// Control of one lane of an iteration (one block of NT threads): the
+// lane's part_c and part_q columns summed in the CTREE-slot tree's order
+// (thread t holds slots t, t + NT, t + 2 NT, t + 3 NT, combined as the
+// tree's first two levels combine them, so the zero slots beyond the
+// tiles are added as the tree adds them; warp c then adds column c's NT
+// slots as col_tree), then the six metrics. On a step (no rows) it writes
+// them to `metrics`. In a chunk it writes the history row (rel_iter = the
+// larger relative change of u and v, then the metrics; NaN once the lane
+// is done) and runs the convergence state machine: after the warmup a
+// finite criterion below tol converges, a non-finite rel_iter diverges,
+// both set done and conv_iter = idx + 1, and converged with the first.
+// The criterion is rel_iter, or with use_residual the continuity norm over
+// its value at the warmup iteration (ref_norm, pinned then). A done lane
+// keeps its flags. `t` is the thread's index, `vals` holds NPART_CQ x NT
+// values, `sums` NPART_CQ. Starts with a block barrier; the flags it
+// writes are read by the next launch's correction, never by this one's (a
+// grid barrier is between).
+template <typename T>
+__device__ void control(const Grid<T>& g, const Work<T>& w,
+                        const Control<T>& ctl, int t, T* vals, T* sums) {
+  const bool chunk = w.rows != nullptr;
+  int done = 0;
+  T rn = 0;
+  __syncthreads();  // the block's earlier reads of shared memory are done
+  control_slots(w, g.nb, t, vals);
+  __syncthreads();
+  for (int q = t / 32; q < NPART_CQ; q += NT / 32) {
+    const T x = col_tree(vals + q * NT, t % 32);
+    if (t % 32 == 0) sums[q] = x;
+  }
+  __syncthreads();
+  if (t != 0) return;
+  if (chunk) {
+    done = w.flags[0];
+    if (ctl.use_residual) rn = w.ref_norm[0];
+  }
+  const T* cs = sums;
+  const T* qs = sums + NPART_C;
+  const T dA = g.dx * g.dy;
+  const T m[6] = {sqrt(cs[0]), sqrt(cs[1]), sqrt(qs[0]),
+                  T(0.5) * cs[2] * dA, T(0.5) * qs[1] * dA,
+                  T(0.5) * qs[2] * dA};
+  if (!chunk) {
+    for (int q = 0; q < 6; ++q) w.metrics[q] = m[q];
+    return;
+  }
+  const T rel = nan_max(sqrt(cs[3]) / (sqrt(cs[5]) + T(1e-12)),
+                        sqrt(cs[4]) / (sqrt(cs[6]) + T(1e-12)));
+  const T nan = T(NAN);
+  T* r = w.rows + (size_t)ctl.row * g.lanes * 7;
+  r[0] = done ? nan : rel;
+  for (int q = 0; q < 6; ++q) r[1 + q] = done ? nan : m[q];
+  T crit = rel;
+  if (ctl.use_residual) {
+    const T cont = done ? nan : m[2];
+    if (ctl.idx == ctl.warmup) rn = cont;
+    crit = cont / nan_max(rn, T(1e-30));
+    w.ref_norm[0] = rn;
+  }
+  if (!done) {
+    const bool finite = isfinite(rel);
+    const bool newly_conv = ctl.idx >= ctl.warmup && crit < ctl.tol && finite;
+    if (newly_conv || !finite) {
+      w.flags[0] = 1;
+      w.flags[1] = ctl.idx + 1;
+    }
+    if (newly_conv) w.flags[2] = 1;
+  }
 }
 
 }  // namespace fv

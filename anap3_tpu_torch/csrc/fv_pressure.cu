@@ -1,23 +1,30 @@
-// fv_pressure: the pressure stage of one SIMPLE iteration in one
-// cooperative launch: Rhie-Chow, the separable pressure solve with its
-// refinement, the gauge, the corrections and the metrics' partials.
+// fv_pressure: the pressure stage and control of one SIMPLE iteration in
+// one cooperative launch: Rhie-Chow, the separable pressure solve with its
+// refinement, the gauge, the corrections, the metrics and the convergence
+// state machine.
 //
 // Replaces: the body _make_iterate of anap3_tpu/ops/pallas_fv.py
 //   (make_pallas_fv_step, make_pallas_fv_chunk_runner) from Rhie-Chow on:
 //   the compact face fluxes and rhs_p = -div(mdot*); psolve at HIGHEST
 //   precision, p' = V1 ((V1^T f V2) * inv_lam) V2^T, and its n_refine
 //   refinement steps (one in float32); the p'[0,0] gauge; the corrections
-//   and the new state; the FD-ghost metrics. V1 = P.Vx is the y eigenbasis
-//   (ny, ny), V2 = P.Vy the x eigenbasis (nx, nx), inv_lam (ny, nx). With a
-//   lane axis it also replaces the row-stacked pressure stage of
-//   anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner.
+//   and the new state; the FD-ghost metrics; and the tail of the chunk
+//   runner's loop_body (rel_iter, rows NaN once done, the warmup gate, NaN
+//   divergence, conv_iter = idx + 1, the done flag) or the step's metrics
+//   vector. V1 = P.Vx is the y eigenbasis (ny, ny), V2 = P.Vy the x
+//   eigenbasis (nx, nx), inv_lam (ny, nx). With a lane axis it also
+//   replaces the row-stacked pressure stage and the per-lane state machine
+//   of anap3_tpu/ops/pallas_fv_lanes.py make_fv_lane_runner. With
+//   use_residual the criterion is the continuity norm over its value at
+//   the warmup iteration (runner.control_step), each lane with its own
+//   normalization; the Pallas kernels take rel_iter only.
 //
 // Bound on the card: latency. At N=128 a product is 2 x 128^3 = 4.2 MFLOP
 //   (about 0.06 us at the card's float32 FMA rate) on operands that sit in
-//   L2, and a stencil phase touches ~0.6 MB; the stage is a chain of 12
-//   dependent phases in float32 (7 in float64), each reading what the one
-//   before wrote across tiles. As separate launches they cost 13 x 3.1-3.6
-//   us of launch floor (scripts/launch_floor.cu); a grid barrier costs
+//   L2, and a stencil phase touches ~0.6 MB; the launch is a chain of 13
+//   dependent phases in float32 (8 in float64), each reading what the one
+//   before wrote across tiles. As separate launches they cost 3.1-3.6 us
+//   each of launch floor (scripts/launch_floor.cu); a grid barrier costs
 //   1.2-1.7 us.
 // Design: one persistent cooperative launch (cudaLaunchAttributeCooperative)
 //   of min(items, co-resident) blocks of 256 threads, an item a (16 x 16
@@ -25,21 +32,22 @@
 //   order in every phase, with grid.sync() between phases: Rhie-Chow | the
 //   four products g1 = V1^T (rhs_p - mean), g2 = (g1 V2) * inv_lam,
 //   g3 = V1 g2, p' = g3 V2^T | (per refinement: the residual | the four
-//   products again, accumulating into p') | correct | metrics. A phase
-//   that needs a lane sum (the means) reduces the previous phase's
-//   per-tile partials of its lane in every block, in the fixed order of
-//   the separate launches (warp_col_sum), so there are no atomics and the
-//   bits are those of the launches it replaces. The stencil phases are the
-//   functions of fv_phases.cuh.
+//   products again, accumulating into p') | correct | metrics | control.
+//   A phase that needs a lane sum (the means, control's sums) reduces the
+//   previous phase's per-tile partials of its lane in a fixed order
+//   (warp_col_sum; control's CTREE tree), so there are no atomics and a
+//   run repeats bit for bit. The stencil phases and control are the
+//   functions of fv_phases.cuh. Control takes whole lanes: block b runs
+//   lanes b, b + grid, ...; the barrier before it also orders its flag
+//   writes after every block's correction has read the start flag.
 // Products: an item computes one 16 x 16 output tile. The A row band and
 //   the B column band stream through shared memory in slabs of KS = 32 k by
 //   cp.async, in a ring of NST slabs, so that later slabs' loads overlap
 //   this slab's FMAs; the bases V1, V2 and inv_lam are shared by all lanes
 //   and stay in L2. Each output is the FMA chain over k ascending from 0 in
 //   the working type, over the depth padded to a multiple of 16 with exact
-//   zeros, which is how the separate product kernel summed it, so the bits
-//   are kept. No tensor cores: the JAX kernel computes at HIGHEST, TF32
-//   would change the solution, and FP64 mma would change the sum order; the
+//   zeros. No tensor cores: the JAX kernel computes at HIGHEST, TF32 would
+//   change the solution, and FP64 mma would change the sum order; the
 //   stage is bound by latency, not by FMAs.
 // No fallback: a card without cooperative launch, or a grid whose items do
 //   not fit MAX_ITEMS a co-resident block, is refused with an error.
@@ -74,6 +82,10 @@ struct Smem {
       T pgs[HT + 2][HT + 2];
       T vals[NPART_C * NT];
     } st;
+    struct {  // control: the tree's slots and the lane's sums
+      T vals[NPART_CQ * NT];
+      T sums[NPART_CQ];
+    } ctl;
   };
   T sum;  // a lane mean's column sum
 };
@@ -230,7 +242,8 @@ __device__ void product(int q, bool refine, const Grid<T>& g,
 
 template <typename T>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS<T>)
-pressure_kernel(Grid<T> g0, Work<T> w0, int n_refine) {
+pressure_kernel(Grid<T> g0, Work<T> w0, int n_refine, Control<T> ctl,
+                int with_control) {
   __shared__ Smem<T> S;
   cg::grid_group grid = cg::this_grid();
   const int tiles_x = (g0.nx + TILE - 1) / TILE;
@@ -272,6 +285,14 @@ pressure_kernel(Grid<T> g0, Work<T> w0, int n_refine) {
   each([&](const Grid<T>& g, const Work<T>& w, const TileCell& c) {
     metrics(g, w, c, S.st.sm, S.st.vals);
   });
+  if (!with_control) return;
+  grid.sync();
+  for (int lane = blockIdx.x; lane < g0.lanes; lane += gridDim.x) {
+    Grid<T> g = at_lane(g0, lane);
+    g.nb = per_item(g.nb);
+    const Work<T> w = at_lane(w0, lane, g.ny, g.nx, g.nb);
+    control(g, w, ctl, per_item(threadIdx.x), S.ctl.vals, S.ctl.sums);
+  }
 }
 
 }  // namespace
@@ -324,7 +345,7 @@ cudaError_t pressure_grid(int ny, int nx, int lanes, int* blocks) {
 
 template <typename T>
 cudaError_t launch_pressure(const Grid<T>& g, const Work<T>& w, int n_refine,
-                            cudaStream_t s) {
+                            const Control<T>* ctl, cudaStream_t s) {
   int blocks = 0;
   cudaError_t err = pressure_grid<T>(g.ny, g.nx, g.lanes, &blocks);
   if (err != cudaSuccess) return err;
@@ -338,14 +359,17 @@ cudaError_t launch_pressure(const Grid<T>& g, const Work<T>& w, int n_refine,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, pressure_kernel<T>, g, w, n_refine);
+  const Control<T> c = ctl ? *ctl : Control<T>{};
+  err = cudaLaunchKernelEx(&cfg, pressure_kernel<T>, g, w, n_refine, c,
+                           ctl ? 1 : 0);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 #define FV_INSTANTIATE(T)                                                   \
   template cudaError_t pressure_coresident<T>(int*);                        \
   template cudaError_t launch_pressure<T>(const Grid<T>&, const Work<T>&,   \
-                                          int, cudaStream_t);
+                                          int, const Control<T>*,           \
+                                          cudaStream_t);
 FV_INSTANTIATE(float)
 FV_INSTANTIATE(double)
 #undef FV_INSTANTIATE

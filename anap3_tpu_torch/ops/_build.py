@@ -117,7 +117,7 @@ def _bind_fv(lib: ctypes.CDLL) -> None:
     lib.fv_chunk_run.restype = i
     lib.fv_lanes_chunk_run.argtypes = lanes + [i, i, i, i, d, ip, vp]
     lib.fv_lanes_chunk_run.restype = i
-    lib.fv_bench_run.argtypes = lanes + [i, i, vp]
+    lib.fv_bench_run.argtypes = lanes + [i, i, i, vp]  # which folded reps
     lib.fv_bench_run.restype = i
     lib.fv_pressure_coresident.argtypes = [i, ip]
     lib.fv_pressure_coresident.restype = i

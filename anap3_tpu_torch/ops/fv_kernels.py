@@ -1,10 +1,10 @@
 """Wrappers of the hand-written FV-SIMPLE CUDA kernels, each beside its plain
 PyTorch version.
 
-``csrc/`` holds four FV kernels (fv_stencil.cu, fv_bicgstab.cu,
-fv_pressure.cu, fv_control.cu; see the note at the top of each, and
-fv_phases.cuh for the device functions they share) and the C host entries
-(fv_host.cu) that this module calls through ``ctypes``:
+``csrc/`` holds two FV kernels (fv_bicgstab.cu, fv_pressure.cu; see the
+note at the top of each, and fv_phases.cuh for the device functions they
+share) and the C host entries (fv_host.cu) that this module calls through
+``ctypes``:
 
 - ``make_fv_step(params, ops, bicgstab_iters)`` has the contract of
   ``anap3_tpu/ops/pallas_fv.py:make_pallas_fv_step``: ``step(state) ->
@@ -36,14 +36,15 @@ dx, dy, alpha_uv, alpha_p, rho, lid) reach the kernels as a device table in
 the working dtype (``scalar_table``).
 
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
-by kernel. A SIMPLE iteration is 4 launches in float32 and in float64:
-fv_stencil 1 (the assembly), fv_bicgstab 1 (one cooperative launch for
-its K iterations), fv_pressure 1 (one cooperative launch for Rhie-Chow,
-the pressure solve with its n_refine refinement steps, the corrections and
-the metrics' partials; its grid is ``pressure_grid``) and fv_control 1.
-``PLAIN_CALLS`` counts calls of the plain versions ("fv_step",
-"fv_chunk") and of the unfused ``models/fv.fv_step`` on a CUDA solve
-("fv_unfused"). ``reset_counts()`` zeroes both.
+by kernel. A SIMPLE iteration is 2 launches in float32 and in float64, and
+a step or a chunk adds none: fv_bicgstab 1 (one cooperative launch for the
+assembly and the K-iteration solve; plain version ``plain_momentum``) and
+fv_pressure 1 (one cooperative launch for Rhie-Chow, the pressure solve
+with its n_refine refinement steps, the corrections, the metrics and
+control; its grid is ``pressure_grid``; plain version
+``plain_pressure_launch``). ``PLAIN_CALLS`` counts calls of the plain
+versions ("fv_step", "fv_chunk") and of the unfused ``models/fv.fv_step``
+on a CUDA solve ("fv_unfused"). ``reset_counts()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -64,10 +65,11 @@ __all__ = ["make_fv_step", "make_fv_chunk_runner", "fv_iterate_plain",
            "bench_workspace",
            "bench_kernel", "pad_state", "unpad_state", "LAUNCHES",
            "PLAIN_CALLS", "KERNELS", "reset_counts", "METRIC_NAMES",
-           "plain_pressure_stage", "pressure_grid", "coresident",
+           "plain_momentum", "plain_pressure_stage", "plain_control",
+           "plain_pressure_launch", "pressure_grid", "coresident",
            "check_launch", "MAX_ITEMS"]
 
-KERNELS = ("fv_stencil", "fv_bicgstab", "fv_pressure", "fv_control")
+KERNELS = ("fv_bicgstab", "fv_pressure")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {"fv_step": 0, "fv_chunk": 0, "fv_unfused": 0}
 METRIC_NAMES = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
@@ -351,16 +353,56 @@ def plain_pressure_stage(S, c, u_star, v_star, p):
     return plain_correct(S, Du, u_star, v_star, p, mx_star, my_star, p_prime)
 
 
-def _iterate_padded(S, K, u, v, p, mx, my):
+def plain_momentum(S, u, v, p, mx, my, K: int):
+    """The momentum launch (``csrc/fv_bicgstab.cu``): the assembly
+    ``plain_assemble`` of the padded state, then K iterations of
+    ``plain_bicgstab`` from (u, v). Returns the assembly and u*, v*."""
     c = plain_assemble(S, u, v, p, mx, my)
-    u_star, v_star = plain_bicgstab(c, u, v, K)
-    return plain_pressure_stage(S, c, u_star, v_star, p)
+    return (c,) + plain_bicgstab(c, u, v, K)
+
+
+def plain_control(cur, new, metrics, idx, flags, ref_norm, tolerance,
+                  warmup, use_residual=False):
+    """Control, the last phase of the pressure launch, for one iteration of
+    a chunk that started from the padded state ``cur`` and reached ``new``
+    with the six ``metrics``: rel_iter, the history row and the state
+    machine ``runner.control_step`` (global iteration ``idx``, flags
+    (done, conv_iter, converged), the residual criterion's ``ref_norm``).
+    Returns the state (``cur`` where the lane began done), the row, the new
+    flags and ref_norm."""
+    done, conv_iter, converged = flags
+    nrm = lambda a: torch.sqrt(torch.sum(a * a))
+    rel = torch.maximum(nrm(new[0] - cur[0]) / (nrm(cur[0]) + 1e-12),
+                        nrm(new[1] - cur[1]) / (nrm(cur[1]) + 1e-12))
+    row, now_done, conv_iter, converged, ref_norm = control_step(
+        torch.cat([rel.reshape(1), metrics]), idx, done, conv_iter,
+        converged, ref_norm, tolerance, warmup, use_residual)
+    state = tuple(torch.where(done, a, b) for a, b in zip(cur, new))
+    return state, row, (now_done, conv_iter, converged), ref_norm
+
+
+def plain_pressure_launch(S, c, u_star, v_star, cur, ctl=None):
+    """The pressure launch (``csrc/fv_pressure.cu``): the pressure stage
+    (``plain_pressure_stage``) from the padded start state ``cur``, its
+    assembly ``c`` and u*, v*, then control. A step (``ctl`` None) returns
+    the new state and the six metrics; an iteration of a chunk passes
+    ``ctl`` = (idx, flags, ref_norm, tolerance, warmup, use_residual) and
+    returns what ``plain_control`` returns."""
+    new, metrics = plain_pressure_stage(S, c, u_star, v_star, cur[2])
+    if ctl is None:
+        return new, metrics
+    return plain_control(cur, new, metrics, *ctl)
+
+
+def _iterate_padded(S, K, cur, ctl=None):
+    c, u_star, v_star = plain_momentum(S, *cur, K)
+    return plain_pressure_launch(S, c, u_star, v_star, cur, ctl)
 
 
 def fv_iterate_plain(S: dict, state: FVState, K: int):
     """One fused SIMPLE iteration in plain torch (``_make_iterate``):
     ``(new_state, metrics[6])`` for the statics ``S`` of ``statics()``."""
-    new, metrics = _iterate_padded(S, K, *pad_state(state))
+    new, metrics = _iterate_padded(S, K, pad_state(state))
     return unpad_state(*new), metrics
 
 
@@ -391,25 +433,17 @@ def chunk_body(S, state: FVState, start_iter, ref_norm, chunk: int,
     cur = pad_state(state)
     dev, dt = state.u.device, state.u.dtype
     if carry is None:
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        conv_iter = torch.full((), -1, dtype=torch.int32, device=dev)
-        converged = torch.zeros((), dtype=torch.bool, device=dev)
-    else:
-        done, conv_iter, converged = carry
+        carry = (torch.zeros((), dtype=torch.bool, device=dev),
+                 torch.full((), -1, dtype=torch.int32, device=dev),
+                 torch.zeros((), dtype=torch.bool, device=dev))
     ref_norm = torch.as_tensor(ref_norm, dtype=dt, device=dev)
-    nrm = lambda a: torch.sqrt(torch.sum(a * a))
     rows = []
     for i in range(int(chunk)):
-        idx = int(start_iter) + i
-        new, m = _iterate_padded(S, K, *cur)
-        rel = torch.maximum(nrm(new[0] - cur[0]) / (nrm(cur[0]) + 1e-12),
-                            nrm(new[1] - cur[1]) / (nrm(cur[1]) + 1e-12))
-        row, now_done, conv_iter, converged, ref_norm = control_step(
-            torch.cat([rel.reshape(1), m]), idx, done, conv_iter, converged,
-            ref_norm, tolerance, warmup, use_residual)
+        cur, row, carry, ref_norm = _iterate_padded(
+            S, K, cur, (int(start_iter) + i, carry, ref_norm, tolerance,
+                        warmup, use_residual))
         rows.append(row)
-        cur = tuple(torch.where(done, a, b) for a, b in zip(cur, new))
-        done = now_done
+    done, conv_iter, converged = carry
     return (unpad_state(*cur), done, conv_iter, converged, torch.stack(rows),
             ref_norm)
 
@@ -648,16 +682,19 @@ def bench_workspace(S, ops: FVOps, state: FVState, K: int) -> dict:
 
 
 def bench_kernel(S, ops: FVOps, ws: dict, which: str, K: int,
-                 reps: int, lanes: int = 1) -> None:
+                 reps: int, lanes: int = 1, folded: bool = True) -> None:
     """Enqueue ``reps`` times the launch one kernel makes in one SIMPLE
     iteration, on a workspace of ``bench_workspace`` (or of ``workspace``
     for ``lanes`` lanes), for timing only (not counted in LAUNCHES):
-    fv_stencil the assembly, fv_bicgstab the K-iteration solve, fv_pressure
-    the pressure stage (it updates the workspace's state in place), and
-    fv_control one control launch."""
+    fv_bicgstab the assembly and the K-iteration solve, fv_pressure the
+    pressure stage and control (it updates the workspace's state in place;
+    control writes the first row, and sets no flag). With ``folded`` False
+    each launch leaves out the phase folded into it: the solve alone (from
+    the workspace's last solve) and the pressure stage without control, so
+    that the folded phase's cost is the difference."""
     lib = _lib()
     rc = lib.fv_bench_run(_dtype_code(ops.dtype), ops.ny, ops.nx, int(lanes),
                           _ptr_table(ws), int(K), S["n_refine"],
-                          int(S["upwind"]), KERNELS.index(which), int(reps),
-                          _stream())
+                          int(S["upwind"]), KERNELS.index(which),
+                          int(bool(folded)), int(reps), _stream())
     _raise_on(lib, rc, f"fv_bench_run({which})")

@@ -5,7 +5,7 @@ The counterpart of ``anap3_tpu/ops/pallas_fv_lanes.py``
 (``_validate_fv_lanes``, ``fv_lanes_supported``, ``maybe_fv_lane_runner``,
 ``make_fv_lane_runner``: TPU kernel #11). ``csrc/fv_host.cu:
 fv_lanes_chunk_run`` runs the kernels of ``ops/fv_kernels.py`` with every
-launch covering all lanes, so a B-lane SIMPLE iteration costs the 4
+launch covering all lanes, so a B-lane SIMPLE iteration costs the 2
 launches of one and the chain of dependent grid-wide reductions that
 bounds a single solve is paid once for the batch. Lanes
 share the grid, scheme and pressure-solve operators; mu, alpha_uv, alpha_p,

@@ -9,7 +9,9 @@ when it fails:
    versions, and the cold build of the SG and FV kernels from ``csrc/``
    (one ``nvcc`` per family, started together); ptxas must report no
    spill and no stack frame in any instantiation of the SG stage kernel
-   and of the FV pressure kernel;
+   and of the FV BiCGSTAB and pressure kernels, and their registers must
+   leave 3 blocks an SM to the BiCGSTAB kernel in float32 and 4 (float32)
+   and 3 (float64) to the pressure kernel;
 2. SG kernels: every kernel wrapper (step, tau step, chunk of 64 steps with
    metrics_every=16 and warmup 10) against its plain PyTorch version on the
    same CUDA tensors, at N = 20, 48, 96, 128, 192, 320, 400 (the stage
@@ -28,14 +30,18 @@ when it fails:
    float32 and float64 (float64 with n_refine 0 and 1), TVD and upwind;
    tolerances: relative max error <= 1e-10 in float64, <= 1e-4 in float32
    (step and chunk), flags equal; the same kernel chunk run twice must
-   agree bit for bit; the chunk's launches must be 4 an iteration, one of
-   each FV kernel (the BiCGSTAB solve and the pressure stage each one
-   cooperative launch); kernel and plain ms per SIMPLE iteration at N=128;
-   at N=128 float32 each kernel on the main path's inputs (fv_pressure
-   against plain_pressure_stage on the kernel's own momentum solution:
-   rhs_p, p' after the gauge, the new state and the metrics from its
-   partials), its time beside its plain version and bound, and a
-   torch.profiler idle share of one N=128 float32
+   agree bit for bit; the chunk's launches must be 2 an iteration, one of
+   each FV kernel (fv_bicgstab: the assembly and the BiCGSTAB solve;
+   fv_pressure: the pressure stage and control; each one cooperative
+   launch); kernel and plain ms per SIMPLE iteration at N=128; at N=128
+   float32 each kernel on the main path's inputs (fv_bicgstab's assembly
+   and u*, v* against plain_momentum; fv_pressure against
+   plain_pressure_stage on the kernel's own momentum solution: rhs_p, p'
+   after the gauge, the new state, the metrics from its partials and the
+   metrics its control wrote), its time beside its plain version and
+   bound, the time of each launch without its folded phase (the solve
+   alone, the pressure stage without control), and a torch.profiler idle
+   share of one N=128 float32
    chunk; wherever the pressure solve is refined, one step with perturbed
    eigenvalue inverses, so that the refinement moves the state by far more
    than the bound; then, at N=128 in float32 and float64, a chunk whose
@@ -89,7 +95,7 @@ when it fails:
    alpha_p and the lid speed varying, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64, TVD and upwind, against lanes_plain (the bounds of
    phase 2b), every lane against a one-lane fv_chunk_run bit for bit, a NaN
-   lane isolated, 4 launches a float32 iteration whatever B; ms per
+   lane isolated, 2 launches a float32 iteration whatever B; ms per
    iteration at 128x128 for B = 1, 3 and 8;
 10. fsg sweep N=40: one round of the corner-smoothing optimization
    (conf/experiment/optimization/corner_smoothing.yaml at N=40: FSG
@@ -175,12 +181,11 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     "sg_stage": _SG_SITES,
     "sg_diag": _SG_SITES,
     "sg_control": _SG_SITES,
-    # the body _make_iterate of make_pallas_fv_step / _chunk_runner
-    "fv_stencil": "anap3_tpu/ops/pallas_fv.py:415",
+    # the body _make_iterate of make_pallas_fv_step / _chunk_runner: the
+    # assembly and the solve, then the pressure stage with the chunk's
+    # state machine (and the step's metrics vector)
     "fv_bicgstab": "anap3_tpu/ops/pallas_fv.py:415",
-    "fv_pressure": "anap3_tpu/ops/pallas_fv.py:415",
-    # the chunk's state machine (and the step's metrics vector)
-    "fv_control": "anap3_tpu/ops/pallas_fv.py:515",
+    "fv_pressure": "anap3_tpu/ops/pallas_fv.py:415, pallas_fv.py:515",
     # the sweep lanes: the kernels above with a lane axis, looped by the
     # lane entries of csrc/sg_host.cu and csrc/fv_host.cu
     "sg_lanes_tiled": "anap3_tpu/ops/pallas_lanes.py:364",
@@ -333,19 +338,32 @@ def ptxas_kernels(report):
         r"[^\n]*Used (\d+) registers", report)]
 
 
-def kernel_build_check(report, name):
+def blocks_per_sm(regs, threads=256):
+    """Blocks of ``threads`` threads an H100 SM holds at ``regs`` registers
+    a thread (64K registers an SM, allocated in 8s a thread; 2,048 threads
+    an SM), shared memory aside."""
+    return min(65536 // (threads * (-(-regs // 8) * 8)), 2048 // threads)
+
+
+def kernel_build_check(report, name, min_blocks=None):
     """ptxas's report of kernel ``name`` (every instantiation): its
     registers, the largest stack frame and spill stores, both of which
-    must be 0."""
+    must be 0, and, by type letter in ``min_blocks``, the blocks an SM its
+    registers must leave."""
     blocks = [k for k in ptxas_kernels(report) if k[0] == name]
     check(blocks, f"ptxas reported no {name}")
     frame = max(k[3] for k in blocks)
     spill = max(k[4] for k in blocks)
-    regs = ", ".join(f"{t} {r}" for _, t, r, _, _ in blocks)
+    regs = ", ".join(f"{t} {r} ({blocks_per_sm(r)} blocks an SM)"
+                     for _, t, r, _, _ in blocks)
     print(f"[device] {name}: {len(blocks)} instantiations, registers "
           f"({regs}), largest stack frame {frame} bytes, spill stores "
           f"{spill} bytes", flush=True)
     check(frame == 0 and spill == 0, f"{name} spills or has a stack frame")
+    for _, t, r, _, _ in blocks:
+        want = (min_blocks or {}).get(t, 1)
+        check(blocks_per_sm(r) >= want, f"{name}<{t}>: {r} registers leave "
+              f"{blocks_per_sm(r)} blocks an SM, fewer than {want}")
 
 
 def phase_device():
@@ -382,8 +400,11 @@ def phase_device():
             print("[device] fv registers (f, d): " + ", ".join(
                 f"{k}<{t}> {r}" for k, t, r, _, _ in ptxas_kernels(report)),
                 flush=True)
-        kernel_build_check(report, {"sg": "stage_kernel",
-                                    "fv": "pressure_kernel"}[family])
+        if family == "sg":
+            kernel_build_check(report, "stage_kernel")
+        else:
+            kernel_build_check(report, "bicg_kernel", {"f": 3})
+            kernel_build_check(report, "pressure_kernel", {"f": 4, "d": 3})
     return card
 
 
@@ -929,7 +950,7 @@ def phase_fv_lanes(summary):
     per_iter = fvl.LAUNCHES["fv_lanes"] / 2
     print(f"[lanes] FV 128x128 float32 B=8: {per_iter:g} launches an "
           "iteration", flush=True)
-    check(per_iter == 4, f"FV B=8: {per_iter} launches an iteration")
+    check(per_iter == 2, f"FV B=8: {per_iter} launches an iteration")
     one = fvk.make_fv_chunk_runner(ps[0], ops_list[0], chunk, 1e-30, 10,
                                    FV_K)
     t1 = cuda_ms(lambda: one(lane_of(st8, 0), 0, float("inf")), 2) / chunk
@@ -1139,80 +1160,86 @@ def phase_fv_flags():
 
 def fv_kernel_checks(p, ops, state, summary):
     """Each FV kernel on the main path's inputs (one step from a developing
-    N=128 float32 flow): its output's absolute error against the plain
-    phase it stands for, then the time of one iteration's launch of it
-    (bench entry of the library, CUDA events) beside that plain phase.
-    fv_pressure is held against plain_pressure_stage started from the
-    kernel's own momentum solution u*, v*: rhs_p, p' after the gauge, the
-    new state, and the six metrics formed from the stage's partial sums
-    (part_c, part_q) as fv_control forms them, within FV_F32_TOL relative."""
+    N=128 float32 flow): its outputs' absolute error against the plain
+    function it stands for, then the time of one iteration's launch of it
+    (bench entry of the library, CUDA events) beside that plain function,
+    and the time of the launch without its folded phase. fv_bicgstab's
+    assembly (the coefficients, the pressure gradient and Du) and its
+    u*, v* are held against plain_momentum. fv_pressure is held against
+    plain_pressure_stage started from the kernel's own momentum solution
+    u*, v*: rhs_p, p' after the gauge, the new state, the six metrics
+    formed from the stage's partial sums (part_c, part_q), and the six
+    metrics its control phase wrote, within FV_F32_TOL relative."""
     S = fvk.statics(p, ops)
     ws = fvk.bench_workspace(S, ops, state, FV_K)
-    u, v, pr, mx, my = fvk.pad_state(state)
-    c = fvk.plain_assemble(S, u, v, pr, mx, my)
-    us, vs = fvk.plain_bicgstab(c, u, v, FV_K)
+    cur = fvk.pad_state(state)
+    c, us, vs = fvk.plain_momentum(S, *cur, FV_K)
     xu, xv = ws["x"][0], ws["x"][1]
-    rhsp = fvk.plain_rhie_chow(S, c, xu, xv, pr)[3]
+    rhsp = fvk.plain_rhie_chow(S, c, xu, xv, cur[2])[3]
     pp = fvk.plain_pressure(S, rhsp)
-    new, met = fvk.plain_pressure_stage(S, c, xu, xv, pr)
+    new, met = fvk.plain_pressure_stage(S, c, xu, xv, cur[2])
     cs = ws["part_c"].double().sum(0)
     qs = ws["part_q"].double().sum(0)
     dA = ops.dx * ops.dy
     met_parts = torch.stack([cs[0].sqrt(), cs[1].sqrt(), qs[0].sqrt(),
                              0.5 * cs[2] * dA, 0.5 * qs[1] * dA,
                              0.5 * qs[2] * dA])
+    assembly = [(ws[k], c[name]) for k, name in (
+        ("aPr", "aP_rel"), ("aE", "aE"), ("aW", "aW"), ("aN", "aN"),
+        ("aS", "aS"), ("gpx", "gpx"), ("gpy", "gpy"))]
+    assembly.append((ws["Du"], S["dx"] * S["dy"] / (c["aP"] + 1e-14)))
+    momentum = assembly + [(xu, us), (xv, vs)]
     stage_out = ([(ws["rhsp"], rhsp), (ws["pp"] - ws["pp"][0, 0], pp),
-                  (met_parts, met)]
+                  (met_parts, met), (ws["metrics"], met)]
                  + list(zip((ws[k] for k in fvm.FVState._fields),
                             fvk.unpad_state(*new))))
 
     def err(a, b):
         return float((a.double() - b.double()).abs().max())
 
-    summary["fv_stencil"]["max_abs_err"] = err(ws["aPr"], c["aP_rel"])
-    summary["fv_bicgstab"]["max_abs_err"] = max(err(xu, us), err(xv, vs))
+    summary["fv_bicgstab"]["max_abs_err"] = max(err(a, b)
+                                                for a, b in momentum)
     summary["fv_pressure"]["max_abs_err"] = max(err(a, b)
                                                 for a, b in stage_out)
-    summary["fv_control"]["max_abs_err"] = err(ws["metrics"], met)
+    e_asm = max(rel_err(a, b) for a, b in assembly)
     e_stage = max(rel_err(a, b) for a, b in stage_out)
     print("[fv kernels] N=128 float32 developing flow: abs err "
           + ", ".join(f"{k} {summary[k]['max_abs_err']:.3e}"
                       for k in fvk.KERNELS)
-          + f"; fv_pressure relative {e_stage:.3e}", flush=True)
+          + f"; assembly relative {e_asm:.3e}, fv_pressure relative "
+          f"{e_stage:.3e}", flush=True)
+    check(e_asm <= FV_F32_TOL, f"fv_bicgstab's assembly against "
+          f"plain_assemble: relative error {e_asm:.3e} > {FV_F32_TOL:.0e}")
     check(e_stage <= FV_F32_TOL, f"fv_pressure against plain_pressure_stage:"
           f" relative error {e_stage:.3e} > {FV_F32_TOL:.0e}")
 
     reps = 50  # the bench launches update ws in place: errors first
+    alone = {}
     for name in fvk.KERNELS:
         summary[name]["ms"] = cuda_ms(
             lambda: fvk.bench_kernel(S, ops, ws, name, FV_K, reps), 1) / reps
+        alone[name] = cuda_ms(lambda: fvk.bench_kernel(
+            S, ops, ws, name, FV_K, reps, folded=False), 1) / reps
     done = torch.zeros((), dtype=torch.bool, device=ops.device)
-    nan = torch.full((), float("nan"), dtype=ops.dtype, device=ops.device)
-    nrm = lambda a: torch.sqrt(torch.sum(a * a))
-
-    def plain_control():
-        rel = torch.maximum(nrm(new[0] - u) / (nrm(u) + 1e-12),
-                            nrm(new[1] - v) / (nrm(v) + 1e-12))
-        row = torch.where(done, nan, rel)
-        now = done | ((rel < 1e-30) & torch.isfinite(rel))
-        return row, now, [torch.where(done, a, b)
-                          for a, b in zip((u, v, pr, mx, my), new)]
-
-    for name, fn in (
-            ("fv_stencil", lambda: fvk.plain_assemble(S, u, v, pr, mx, my)),
-            ("fv_bicgstab", lambda: fvk.plain_bicgstab(c, u, v, FV_K)),
-            ("fv_pressure",
-             lambda: fvk.plain_pressure_stage(S, c, xu, xv, pr)),
-            ("fv_control", plain_control)):
+    flags = (done, torch.full((), -1, dtype=torch.int32, device=ops.device),
+             done)
+    ctl = (0, flags, torch.full((), float("inf"), dtype=ops.dtype,
+                                device=ops.device), 1e-30, 10, False)
+    plain = {"fv_bicgstab": lambda: fvk.plain_momentum(S, *cur, FV_K),
+             "fv_pressure": lambda: fvk.plain_pressure_launch(
+                 S, c, xu, xv, cur, ctl)}
+    for name, fn in plain.items():
         summary[name]["plain_ms"] = cuda_ms(fn, 20)
     for name, (flops, nbytes) in fv_work(ops).items():
         b_ms, b_by = bound(flops, nbytes, ops.dtype)
         summary[name].update(bound_ms=b_ms, bound_by=b_by, library_ms=None)
     summary["fv_pressure"]["library_ms"] = dense_library_ms(ops)
-    for name in fvk.KERNELS:
+    for name, phase in zip(fvk.KERNELS, ("the assembly", "control")):
         lib = summary[name]["library_ms"]
         print(f"[fv kernels] {name} at N=128 float32, one iteration's "
-              f"launch: kernel {summary[name]['ms']:.4f} ms, plain "
+              f"launch: kernel {summary[name]['ms']:.4f} ms ({alone[name]:.4f}"
+              f" without {phase}: {phase} "
+              f"{summary[name]['ms'] - alone[name]:.4f}), plain "
               f"{summary[name]['plain_ms']:.4f} ms, bound "
               f"{summary[name]['bound_ms']:.5f} ms "
               f"({summary[name]['bound_by']})"
@@ -1223,34 +1250,32 @@ def fv_kernel_checks(p, ops, state, summary):
 def fv_work(ops):
     """(operations, bytes) of one SIMPLE iteration's launch of each FV
     kernel at ny x nx cells (c of them), from the shapes; arithmetic not
-    counted below only lowers the bound.
+    counted below only lowers the bound. A phase folded into a launch
+    keeps its work there; what one phase writes and the next reads within
+    the launch is not counted.
 
-    - fv_stencil (the assembly): reads the state (u, v, p and the two face
-      fluxes) and the boundary statics aP_bc, b_bc_u (7 c) and writes the
-      five coefficient arrays, the pressure gradient, Du and the two
-      initial residuals (10 c); ~60 operations a cell;
-    - fv_bicgstab: K iterations on the two momentum systems, each two
-      5-point applications with the Jacobi scaling (11 operations a cell),
-      four dots and six axpys (2 each): 40 operations a cell a system an
-      iteration; it reads the 5 coefficients, 2 right-hand sides and 2
-      starting vectors and writes the 2 solutions;
+    - fv_bicgstab: the assembly (~60 operations a cell), then K iterations
+      on the two momentum systems, each two 5-point applications with the
+      Jacobi scaling (11 operations a cell), four dots and six axpys (2
+      each): 40 operations a cell a system an iteration. It reads the
+      state (u, v, p and the two face fluxes) and the boundary statics
+      aP_bc, b_bc_u (7 c) and writes the five coefficient arrays, the
+      pressure gradient, Du and the two solutions (10 c);
     - fv_pressure: 4 (1 + n_refine) products of the separable pressure
-      solve, 2 ny^2 nx or 2 ny nx^2 each, and ~80 operations a cell for
-      Rhie-Chow, the refinement residual, the corrections and the metrics;
-      it reads the two eigenvector bases and the eigenvalue inverses, the
-      momentum solution, Du, the pressure gradient, p, u and v (ny^2 +
-      nx^2 + 9 c) and writes the new state (5 c);
-    - fv_control: the rows' norms of the new and old velocities (4 c read).
+      solve, 2 ny^2 nx or 2 ny nx^2 each, ~80 operations a cell for
+      Rhie-Chow, the refinement residual, the corrections and the metrics,
+      and ~4 for control's norms; it reads the two eigenvector bases and
+      the eigenvalue inverses, the momentum solution, Du, the pressure
+      gradient, p, u and v (ny^2 + nx^2 + 9 c) and writes the new state
+      (5 c) and a history row.
     """
     ny, nx = ops.ny, ops.nx
     c, e = ny * nx, torch.finfo(ops.dtype).bits // 8
     solves = 1 + ops.n_refine
     return {
-        "fv_stencil": (60 * c, e * 17 * c),
-        "fv_bicgstab": (FV_K * 2 * 40 * c, e * 11 * c),
+        "fv_bicgstab": (60 * c + FV_K * 2 * 40 * c, e * 17 * c),
         "fv_pressure": (solves * (4 * ny * ny * nx + 4 * ny * nx * nx)
-                        + 80 * c, e * (ny * ny + nx * nx + 14 * c)),
-        "fv_control": (4 * c, e * 4 * c),
+                        + 84 * c, e * (ny * ny + nx * nx + 14 * c + 7)),
     }
 
 

@@ -16,7 +16,9 @@ checkout:
   the launch counters of a 10-iteration chunk) and the time of that
   iteration's launches of each kernel (the bench entry of the library,
   CUDA events over 200 repetitions) at 128x128, float32 and float64, on
-  the workspace of one step from a seeded state;
+  the workspace of one step from a seeded state; ``kernel_alone_ms`` the
+  same launches without the phase folded into them, where the checkout's
+  ``bench_kernel`` takes ``folded``;
 - ``iter_ms``: ms per SIMPLE iteration of a 100-iteration chunk from rest
   at 128x128, float32 with B = 1, 3, 8 lanes and float64 with B = 1;
 - ``fv_solve``: FV N=128 Re=100 and Re=1000 tol 1e-6 float32 through
@@ -37,6 +39,7 @@ It uses only what every checkout since the FV lane kernels has:
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import subprocess
 import sys
@@ -117,6 +120,11 @@ def worker(root: Path) -> dict:
             name: cuda_ms(torch, lambda: fvk.bench_kernel(
                 S, ops, ws, name, K, 200), 1) / 200
             for name in fvk.KERNELS}
+        if "folded" in inspect.signature(fvk.bench_kernel).parameters:
+            out.setdefault("kernel_alone_ms", {})[dt] = {
+                name: cuda_ms(torch, lambda: fvk.bench_kernel(
+                    S, ops, ws, name, K, 200, folded=False), 1) / 200
+                for name in fvk.KERNELS}
         for B in ((1, 3, 8) if dt == "float32" else (1,)):
             pl = [params(dt, LANES[b % 3]) for b in range(B)]
             ol = [fvm.build_fv_ops(q)[0] for q in pl]

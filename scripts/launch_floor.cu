@@ -14,9 +14,10 @@
 // sync. Two variants do between syncs the in-block work that starts each
 // FV BiCGSTAB phase: "tree" the 2-4 fixed-order reductions of a partial
 // table column over 256 shared-memory slots (9 __syncthreads each) and the
-// 2-4 per-block partials the phase writes (csrc/fv_common.cuh: reduce_col,
-// block_sum), "fused" the same sums with every column in one pass (a warp
-// a column, the last five tree levels as __shfl_down_sync).
+// 2-4 per-block partials the phase writes (the FV kernels' separate
+// reductions before the one-pass form), "fused" the same sums with every
+// column in one pass (a warp a column, the last five tree levels as
+// __shfl_down_sync; csrc/fv_phases.cuh: warp_col_sum, col_tree).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 \
 //       -o build/launch_floor scripts/launch_floor.cu && build/launch_floor
@@ -52,7 +53,7 @@ __global__ void k_cluster_sync(float* out) {
 constexpr int NT = 256;  // threads of a cooperative block
 
 // One column of a (nb, ncol) table summed by the 256-slot tree, and a
-// block's value summed by it (the FV kernels' reduce_col, block_sum).
+// block's value summed by it (the FV kernels' separate reductions).
 __device__ float tree_sum(float v, float* sh) {
   const int tid = threadIdx.x;
   sh[tid] = v;

@@ -278,9 +278,8 @@ class TestWrappers:
     def test_sources_and_hash_of_the_fv_family(self):
         srcs = _build.sources("fv")
         assert [s.name for s in srcs] == [
-            "fv_bicgstab.cu", "fv_control.cu", "fv_host.cu",
-            "fv_pressure.cu", "fv_stencil.cu", "fv_common.cuh",
-            "fv_phases.cuh"]
+            "fv_bicgstab.cu", "fv_host.cu", "fv_pressure.cu",
+            "fv_common.cuh", "fv_phases.cuh"]
         assert _build._library_path("fv").name == "libfvkernels.so"
         assert _build._library_path("fv").parent.name == \
             _build._source_hash(srcs)
@@ -449,8 +448,10 @@ class TestOnCard:
         again = run(st0, 0, np.inf)  # fixed-order reductions: same bits
         assert all(torch.equal(a, b) for a, b in zip(out_k[0], again[0]))
         assert torch.equal(out_k[4], again[4])
-        # one step and two chunks of 32 ran on the kernels
-        assert fvk.LAUNCHES["fv_control"] == 1 + 2 * 32
+        # one step and two chunks of 32 ran on the kernels, 2 launches an
+        # iteration
+        assert fvk.LAUNCHES == {"fv_bicgstab": 1 + 2 * 32,
+                                "fv_pressure": 1 + 2 * 32}
 
     @pytest.mark.parametrize("ny,nx", [(20, 20), (12, 16)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -556,20 +557,36 @@ class TestOnCard:
             assert rel_t(x[b, 1], vs) <= tol_of(dtype)
             assert torch.equal(x[b], fvk.bench_workspace(S, ops, st, K)["x"])
 
-    def test_launch_counters(self, cuda):
-        p, ops = cuda_setup(12, 16, torch.float32)
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("lanes", [1, 3, 8])
+    def test_launch_counters(self, cuda, dtype, lanes):
+        """float32 (one refinement step of the pressure solve) and float64
+        alike, for any number of lanes: 2 launches an iteration (the
+        momentum launch with the assembly, the pressure launch with
+        control), and none more a step or a chunk."""
+        from anap3_tpu_torch.ops import fv_lane_kernels as fvl
+        from anap3_tpu_torch.parallel.sweep import stack_states
+
+        per_iter = {"fv_bicgstab": 1, "fv_pressure": 1}
+        setups = [cuda_setup(12, 16, dtype, Re=(100.0, 400.0, 1000.0)[b % 3])
+                  for b in range(lanes)]
+        p, ops = setups[0]
         st = TF.initial_state(ops)
-        fvk.reset_counts()
-        fvk.make_fv_step(p, ops, K)(st)
-        # float32 (one refinement step of the pressure solve) and float64
-        # alike: the assembly, the solve, the pressure stage, control
-        per_iter = {"fv_stencil": 1, "fv_bicgstab": 1, "fv_pressure": 1,
-                    "fv_control": 1}
-        assert fvk.LAUNCHES == per_iter
-        fvk.reset_counts()
-        fvk.make_fv_chunk_runner(p, ops, 10, 1e-30, 10, K)(st, 0, np.inf)
-        assert fvk.LAUNCHES == {k: 10 * n for k, n in per_iter.items()}
-        assert not any(fvk.PLAIN_CALLS.values())
+        if lanes == 1:
+            fvk.reset_counts()
+            fvk.make_fv_step(p, ops, K)(st)
+            assert fvk.LAUNCHES == per_iter
+            fvk.reset_counts()
+            fvk.make_fv_chunk_runner(p, ops, 10, 1e-30, 10, K)(st, 0, np.inf)
+            assert fvk.LAUNCHES == {k: 10 * n for k, n in per_iter.items()}
+            assert not any(fvk.PLAIN_CALLS.values())
+            return
+        fvl.reset_counts()
+        fvl.make_fv_lane_runner([q for q, _ in setups], [o for _, o in setups],
+                                10, 1e-30, 10, K)(
+            stack_states([TF.initial_state(o) for _, o in setups]), 0)
+        assert fvl.LAUNCHES["fv_lanes"] == 10 * sum(per_iter.values())
+        assert not any(fvl.PLAIN_CALLS.values())
 
     def test_state_on_another_device_raises(self, cuda):
         p, ops = cuda_setup(12, 16, torch.float32)

@@ -1,13 +1,24 @@
-"""The FV pressure stage of anap3_tpu_torch: ``csrc/fv_pressure.cu`` (one
+"""The FV pressure launch of anap3_tpu_torch: ``csrc/fv_pressure.cu`` (one
 cooperative launch for Rhie-Chow, the separable pressure solve with its
-refinement, the gauge, the corrections and the metrics' partials) and its
-plain version ``ops/fv_kernels.plain_pressure_stage``.
+refinement, the gauge, the corrections, the metrics and control) and its
+plain versions ``ops/fv_kernels.plain_pressure_stage`` and
+``plain_pressure_launch`` (the stage, then ``plain_control``).
 
 On the CPU (every run):
 
 - ``plain_pressure_stage`` after ``plain_assemble`` and ``plain_bicgstab``
   is ``fv_iterate_plain`` bit for bit in float64, at 3x3, 12x16, 17x23 and
   33x20 (ny x nx), with n_refine 0 and 1;
+- ``plain_pressure_launch`` after ``plain_momentum``, iterated, is
+  ``chunk_body`` bit for bit (state, rows, flags and ref_norm) under both
+  criteria, running through, converging mid-chunk and frozen by a done
+  flag carried in from an earlier chunk; and, iterated from seeded float64
+  states at 12x16 and 17x23, the JAX package's Pallas chunk runner
+  (``make_pallas_fv_chunk_runner``) and lane runner
+  (``anap3_tpu/ops/pallas_fv_lanes.py:make_fv_lane_runner``, two lanes) in
+  interpret mode, rebound to float64 as below: states and rows within
+  1e-10 relative (the FV bound; measured ~1e-14), NaN rows and flags
+  equal, with a tolerance met mid-chunk;
 - the same stage against the JAX package's Pallas FV step
   (``anap3_tpu/ops/pallas_fv.py:make_pallas_fv_step``) in interpret mode,
   as ``tests/test_torch_fv_kernels.py::TestAgainstPallas`` runs it, but in
@@ -26,10 +37,12 @@ On the CPU (every run):
 On a CUDA card (marker ``gpu``; without a card these skip, saying so): the
 kernel against ``plain_pressure_stage`` on the kernel's own momentum
 solution, in float32 (<= 1e-4 relative) and float64 (<= 1e-10), with
-n_refine 0 and 1, at the shapes above plus 128x128 and 257x130; each lane of
-a B = 3 and B = 8 launch bit-equal to a one-lane launch; the co-resident
-blocks of 4 (float32) and 3 (float64) blocks an SM; and a launch the card
-cannot take refused with an error.
+n_refine 0 and 1, at the shapes above plus 128x128 and 257x130; the
+launch's control against ``plain_control`` on the kernel's own stage
+(rows, flags, conv_iter and ref_norm under both criteria, a NaN state
+included); each lane of a B = 3 and B = 8 launch bit-equal to a one-lane
+launch; the co-resident blocks of 4 (float32) and 3 (float64) blocks an
+SM; and a launch the card cannot take refused with an error.
 Run them there with
 ``python -m pytest tests/test_torch_fv_pressure.py -m gpu --noconftest``.
 """
@@ -207,6 +220,207 @@ class TestAgainstPallas:
             assert rel(metrics[i].numpy(), jm[k]) <= PALLAS_RTOL, k
 
 
+def launches(S, state, start_iter, ref_norm, chunk, tol, warmup,
+             use_residual=False, carry=None):
+    """``chunk`` iterations as the two launches run them: ``plain_momentum``,
+    then ``plain_pressure_launch`` with control. Returns what
+    ``chunk_body`` returns."""
+    cur = fvk.pad_state(state)
+    if carry is None:
+        carry = (torch.tensor(False), torch.tensor(-1, dtype=torch.int32),
+                 torch.tensor(False))
+    ref_norm = torch.as_tensor(ref_norm, dtype=state.u.dtype)
+    rows = []
+    for i in range(chunk):
+        c, us, vs = fvk.plain_momentum(S, *cur, K)
+        cur, row, carry, ref_norm = fvk.plain_pressure_launch(
+            S, c, us, vs, cur, (start_iter + i, carry, ref_norm, tol, warmup,
+                                use_residual))
+        rows.append(row)
+    return (fvk.unpad_state(*cur),) + tuple(carry) + (torch.stack(rows),
+                                                       ref_norm)
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0, a), torch.where(nan, 0, b))
+
+
+def crossing(rel, warmup):
+    """A tolerance that rel_iter (one per row) meets first at row i, with a
+    gap of 1% or more from every earlier row after the warmup (so that
+    rounding cannot move the crossing), and that i."""
+    rel = np.asarray(rel, np.float64)
+    for i in range(warmup + 1, len(rel)):
+        above = float(np.min(rel[warmup:i]))
+        if above > 1.01 * rel[i]:
+            return float(np.sqrt(above * rel[i])), i
+    raise AssertionError(f"no crossing in {rel}")
+
+
+class TestPlainLaunch:
+    """The pressure launch's plain version with control, iterated after the
+    momentum launch's, is the plain chunk."""
+
+    def setup(self, ny=12, nx=16):
+        p = FVParameters(device="cpu", **base(nx=nx, ny=ny))
+        ops = TF.build_fv_ops(p)[0]
+        S = fvk.statics(p, ops)
+        st = TF.fv_state_from_numpy(seeded(ny, nx, 3), "cpu", torch.float64)
+        return S, st
+
+    @pytest.mark.parametrize("use_residual", [False, True])
+    @pytest.mark.parametrize("case", ["through", "mid-chunk", "done"])
+    def test_iterated_launch_is_the_chunk(self, use_residual, case):
+        S, st = self.setup()
+        chunk, warmup, start = 10, 2, 0
+        carry, tol = None, 1e-30
+        probe = launches(S, st, start, np.inf, chunk, tol, warmup,
+                         use_residual)
+        col = 3 if use_residual else 0  # the continuity norm, rel_iter
+        crit = probe[4][:, col].numpy()
+        if use_residual:
+            crit = crit / crit[warmup]
+        if case == "mid-chunk":
+            tol, at = crossing(crit, warmup)
+        elif case == "done":  # converged at iteration 5 of an earlier chunk
+            start = 30
+            carry = (torch.tensor(True), torch.tensor(5, dtype=torch.int32),
+                     torch.tensor(True))
+        ref = 0.25
+        a = launches(S, st, start, ref, chunk, tol, warmup, use_residual,
+                     carry)
+        b = fvk.chunk_body(S, st, start, ref, chunk, tol, warmup, K,
+                           use_residual, carry)
+        assert all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+        assert same_bits(a[4], b[4]) and tuple(a[4].shape) == (chunk, 7)
+        assert [int(a[i]) for i in (1, 2, 3)] == [int(b[i]) for i in (1, 2, 3)]
+        assert same_bits(a[5], b[5])
+        rows = a[4].numpy()
+        if case == "through":
+            assert [int(a[i]) for i in (1, 2, 3)] == [0, -1, 0]
+            assert np.isfinite(rows).all()
+        elif case == "mid-chunk":
+            assert [int(a[i]) for i in (1, 2, 3)] == [1, at + 1, 1]
+            assert np.isfinite(rows[:at + 1]).all()
+            assert np.isnan(rows[at + 1:]).all()
+        else:  # frozen: the start state, NaN rows, the flags kept
+            assert [int(a[i]) for i in (1, 2, 3)] == [1, 5, 1]
+            assert all(torch.equal(x, y) for x, y in zip(a[0], st))
+            assert np.isnan(rows).all()
+        if use_residual and case != "done":
+            # pinned at the warmup iteration's continuity norm
+            assert float(a[5]) == rows[warmup, 3]
+        else:
+            assert float(a[5]) == ref
+
+
+@pytest.fixture
+def pallas64_runners(monkeypatch):
+    """The JAX package's Pallas FV chunk runner and lane runner in
+    interpret mode, in float64 (both modules' float32 names rebound for the
+    test, as ``pallas64`` does for the step)."""
+    import jax.numpy as jnp
+    from anap3_tpu.ops import pallas_fv as PF
+    from anap3_tpu.ops import pallas_fv_lanes as PFL
+
+    class Float64Names:
+        def __init__(self, module):
+            self._module = module
+
+        def __getattr__(self, name):
+            return getattr(self._module,
+                           "float64" if name == "float32" else name)
+
+    for mod in (PF, PFL):
+        monkeypatch.setattr(mod, "np", Float64Names(np))
+        monkeypatch.setattr(mod, "jnp", Float64Names(jnp))
+    monkeypatch.setattr(PF._pad_state, "__defaults__", (jnp.float64,))
+    return SimpleNamespace(jnp=jnp, chunk=PF.make_pallas_fv_chunk_runner,
+                           lanes=PFL.make_fv_lane_runner)
+
+
+# (Re, alpha_uv, alpha_p) of the lanes held against the JAX lane runner
+JAX_LANES = [(100.0, 0.4, 0.2), (400.0, 0.6, 0.3)]
+
+
+class TestLaunchAgainstPallas:
+    CHUNK, WARMUP = 8, 2
+
+    def lane(self, ny, nx, Re, alpha_uv, alpha_p, seed):
+        """(JAX params, JAX ops, port statics, numpy state)."""
+        from anap3_tpu.models import fv as JF
+        from anap3_tpu.models.params import FVParameters as JaxParameters
+
+        jp = JaxParameters(**base(nx=nx, ny=ny, Re=Re, alpha_uv=alpha_uv,
+                                  alpha_p=alpha_p))
+        jops = JF.build_fv_ops(jp)[0]
+        tops = TF.fv_ops_from_jax(jops, "cpu", torch.float64)
+        return jp, jops, fvk.statics(jp, tops), seeded(ny, nx, seed)
+
+    def plain(self, S, arrs, tol):
+        return launches(S, TF.fv_state_from_numpy(arrs, "cpu",
+                                                  torch.float64),
+                        0, np.inf, self.CHUNK, tol, self.WARMUP)
+
+    def check_lane(self, out, state, done, conv_iter, converged, rows):
+        assert (int(out[1]), int(out[2]), int(out[3])) == (
+            int(done), int(conv_iter), int(converged))
+        for a, b, name in zip(out[0], state, TF.FVState._fields):
+            assert tuple(a.shape) == tuple(np.shape(b)), name
+            assert rel(a.numpy(), b) <= F64_TOL, name
+        r, jr = out[4].numpy(), np.asarray(rows)
+        np.testing.assert_array_equal(np.isnan(r), np.isnan(jr))
+        for c in range(7):
+            ok = ~np.isnan(jr[:, c])
+            assert rel(r[ok, c], jr[ok, c]) <= F64_TOL, c
+
+    @pytest.mark.parametrize("ny,nx", [(12, 16), (17, 23)])
+    def test_launch_matches_pallas_chunk_in_float64(self, pallas64_runners,
+                                                    ny, nx):
+        from anap3_tpu.models import fv as JF
+
+        jnp = pallas64_runners.jnp
+        jp, jops, S, arrs = self.lane(ny, nx, *JAX_LANES[0], seed=ny * nx)
+        probe = self.plain(S, arrs, 1e-30)
+        tol, at = crossing(probe[4][:, 0].numpy(), self.WARMUP)
+        out = self.plain(S, arrs, tol)
+        assert (int(out[1]), int(out[2])) == (1, at + 1)
+        run = pallas64_runners.chunk(jp, jops, self.CHUNK, tol, self.WARMUP,
+                                     bicgstab_iters=K, interpret=True)
+        js, jd, jci, jcv, jrows, _ = run(
+            JF.FVState(*(jnp.asarray(a) for a in arrs)), jnp.int32(0),
+            jnp.asarray(np.inf))
+        assert js.u.dtype == jnp.float64 and jrows.dtype == jnp.float64
+        self.check_lane(out, js, jd, jci, jcv, jrows)
+
+    @pytest.mark.parametrize("ny,nx", [(12, 16), (17, 23)])
+    def test_launch_matches_pallas_lanes_in_float64(self, pallas64_runners,
+                                                    ny, nx):
+        from anap3_tpu.models import fv as JF
+
+        jnp = pallas64_runners.jnp
+        lanes = [self.lane(ny, nx, *lane, seed=ny * nx + b)
+                 for b, lane in enumerate(JAX_LANES)]
+        probe = self.plain(lanes[0][2], lanes[0][3], 1e-30)
+        tol, at = crossing(probe[4][:, 0].numpy(), self.WARMUP)
+        outs = [self.plain(S, arrs, tol) for _, _, S, arrs in lanes]
+        assert (int(outs[0][1]), int(outs[0][2])) == (1, at + 1)
+        run = pallas64_runners.lanes([q[0] for q in lanes],
+                                     [q[1] for q in lanes], self.CHUNK, tol,
+                                     self.WARMUP, bicgstab_iters=K,
+                                     interpret=True)
+        js, jd, jci, jcv, jrows = run(JF.FVState(*(
+            jnp.asarray(np.stack([q[3][i] for q in lanes]))
+            for i in range(5))), 0)
+        assert jrows.dtype == jnp.float64
+        for b, out in enumerate(outs):
+            self.check_lane(out, [np.asarray(t)[b] for t in js], jd[b],
+                            jci[b], jcv[b], np.asarray(jrows)[:, b])
+
+
 # co-resident blocks: 132 SMs x 2, 3, 4 blocks, and a small card that makes
 # the larger grids refuse
 CORESIDENT = (264, 396, 528, 16)
@@ -273,11 +487,17 @@ class TestSource:
         common = (CSRC / "fv_common.cuh").read_text()
         enum = re.search(r"enum Count \{([^}]*)\}", common).group(1)
         names = [e.strip() for e in enum.split(",")]
-        assert names == ["C_STENCIL", "C_BICG", "C_PRESSURE", "C_CONTROL",
-                         "C_COUNT"]
-        assert fvk.KERNELS == ("fv_stencil", "fv_bicgstab", "fv_pressure",
-                               "fv_control")
-        assert not (CSRC / "fv_dense.cu").exists()
+        assert names == ["C_BICG", "C_PRESSURE", "C_COUNT"]
+        assert fvk.KERNELS == ("fv_bicgstab", "fv_pressure")
+        for gone in ("fv_dense.cu", "fv_stencil.cu", "fv_control.cu"):
+            assert not (CSRC / gone).exists(), gone
+        # the iteration's launches, each counted once, and nothing else
+        # launched by the host loop
+        host = (CSRC / "fv_host.cu").read_text()
+        body = host[host.index("int iterate("):host.index("int step_run(")]
+        assert re.findall(r"launch_(\w+)<T>", body) == ["bicg", "pressure"]
+        assert re.findall(r"counts\[(\w+)\]", host) == ["C_BICG",
+                                                          "C_PRESSURE"]
 
 
 # ------------------------------------------------------------ on the card
@@ -336,15 +556,85 @@ class TestOnCard:
         for i, k in enumerate(fvk.METRIC_NAMES):
             assert rel_t(ws["metrics"][i], metrics[i]) <= tol, k
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+    @pytest.mark.parametrize("use_residual", [False, True])
+    @pytest.mark.parametrize("tol", [1e30, 1e-30])
+    def test_control_matches_plain_control(self, cuda, dtype, use_residual,
+                                           tol):
+        """One iteration of three lanes at the warmup iteration (the
+        residual criterion pins its normalization there): lane 0 fresh,
+        lane 1 done in an earlier chunk, lane 2 from a state with a NaN.
+        The launch's rows, flags, conv_iter, ref_norm and state against
+        ``plain_pressure_launch`` on the kernel's own momentum solution:
+        with tol 1e30 lane 0 converges, with 1e-30 it runs on; lane 1
+        keeps its flags, NaN rows and state; lane 2 diverges."""
+        from anap3_tpu_torch.ops import fv_lane_kernels as fvl
+        from anap3_tpu_torch.parallel.sweep import stack_states
+
+        ny, nx, warmup = 12, 16, 10
+        setups = [cuda_setup(ny, nx, dtype, Re=re)
+                  for re in (100.0, 400.0, 1000.0)]
+        states = [TF.fv_state_from_numpy(seeded(ny, nx, b), "cuda", dtype)
+                  for b in range(3)]
+        u = states[2].u.clone()
+        u[4, 6] = float("nan")
+        states[2] = TF.FVState(u, *states[2][1:])
+        S_list = [fvk.statics(p, o) for p, o in setups]
+        ops = setups[0][1]
+        carry = TR.fresh_carry(3, dtype, ops.device)
+        carry.flags[1] = torch.tensor([1, 5, 1], dtype=torch.int32)
+        carry.ref_norm[:] = 0.25
+        ws = fvl.run_lanes(S_list, ops, fvl.lane_statics(S_list),
+                           stack_states(states), warmup, carry, 1, tol,
+                           warmup, K, use_residual)
+        torch.cuda.synchronize()
+        tol_err = tol_of(dtype)
+        for b, (S, st) in enumerate(zip(S_list, states)):
+            f = carry.flags[b]
+            cur = fvk.pad_state(st)
+            c = fvk.plain_assemble(S, *cur)
+            state, row, flags, ref = fvk.plain_pressure_launch(
+                S, c, ws["x"][b, 0], ws["x"][b, 1], cur,
+                (warmup, (f[0] > 0, f[1], f[2] > 0), carry.ref_norm[b], tol,
+                 warmup, use_residual))
+            got = [int(x) for x in ws["flags"][b]]
+            assert got == [int(x) for x in flags], (b, got)
+            lane0 = [1, warmup + 1, 1] if tol > 1 else [0, -1, 0]
+            assert got == (lane0, [1, 5, 1], [1, warmup + 1, 0])[b], b
+            r = ws["rows"][0, b]
+            assert torch.equal(torch.isnan(r), torch.isnan(row)), b
+            assert torch.isnan(row).all() == (b > 0), b
+            if b == 0:
+                assert rel_t(r, row) <= tol_err
+            # pinned to the row's continuity norm (NaN on lanes 1 and 2)
+            # under the residual criterion, kept under rel_iter
+            rn = ws["ref_norm"][b]
+            if use_residual:
+                assert bool(torch.isnan(rn)) == bool(torch.isnan(ref)) == (
+                    b > 0), b
+                if b == 0:
+                    assert rel_t(rn, ref) <= tol_err
+            else:
+                assert float(rn) == float(ref) == 0.25
+            for a, x, name in zip((ws[k][b] for k in TF.FVState._fields),
+                                  fvk.unpad_state(*state), TF.FVState._fields):
+                if b == 1:  # frozen
+                    assert torch.equal(a, x), name
+                elif b == 0:
+                    assert rel_t(a, x) <= tol_err, name
+                else:
+                    assert torch.isnan(a).any(), name
+
     @pytest.mark.parametrize("ny,nx", [(128, 128), (257, 130)])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
     @pytest.mark.parametrize("lanes", [3, 8])
     def test_each_lane_is_its_one_lane_launch(self, cuda, ny, nx, dtype,
                                               lanes):
         """One lane-chunk iteration of B lanes (Re 100, 400, 1000, ...)
-        against one step of each lane alone: rhs_p, p' and the new state
-        bit for bit (a block takes several items where B x tiles exceeds
-        the co-resident blocks)."""
+        against each lane alone: rhs_p, p' and the new state bit for bit
+        against one step, and the row, flags and state against a
+        one-iteration chunk (a block takes several items where B x tiles
+        exceeds the co-resident blocks)."""
         from anap3_tpu_torch.ops import fv_lane_kernels as fvl
         from anap3_tpu_torch.parallel.sweep import stack_states
 
@@ -362,6 +652,13 @@ class TestOnCard:
             one = fvk.bench_workspace(S_list[b], o, st, K)
             for name in ("rhsp", "pp") + TF.FVState._fields:
                 assert torch.equal(ws[name][b], one[name]), (b, name)
+            out = fvk.make_fv_chunk_runner(p, o, 1, 1e-30, 10, K)(
+                st, 0, np.inf)
+            assert same_bits(ws["rows"][:, b], out[4]), b
+            assert [int(x) for x in ws["flags"][b]] == [
+                int(out[i]) for i in (1, 2, 3)]
+            for name, t in zip(TF.FVState._fields, out[0]):
+                assert torch.equal(ws[name][b], t), (b, name)
 
     def test_coresident_blocks(self, cuda):
         sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -382,6 +679,9 @@ class TestOnCard:
         # that many lanes on this small workspace raises, and runs nothing
         fvk.reset_counts()
         big = SimpleNamespace(dtype=ops.dtype, ny=512, nx=512)
-        with pytest.raises(RuntimeError, match="fv_bench_run"):
-            fvk.bench_kernel(S, big, ws, "fv_pressure", K, 1, lanes=lanes)
+        for name in fvk.KERNELS:
+            for folded in (True, False):
+                with pytest.raises(RuntimeError, match="fv_bench_run"):
+                    fvk.bench_kernel(S, big, ws, name, K, 1, lanes=lanes,
+                                     folded=folded)
         assert not any(fvk.LAUNCHES.values())
