@@ -1,5 +1,5 @@
-"""Solver models of the port: spectral SG, FSG, VMG and FMG, FV-SIMPLE, plus
-the solve harness."""
+"""Solver models of the port: spectral SG, FSG, VMG and FMG, FV-SIMPLE, the
+Newton-Krylov steady solver, plus the solve harness."""
 
 from .params import (FVParameters, SpectralParameters, Metrics,  # noqa: F401
                      TimeSeries, Fields)
@@ -10,6 +10,7 @@ _LAZY = {
     "FVSolver": ("anap3_tpu_torch.models.fv", "FVSolver"),
     "VMGSolver": ("anap3_tpu_torch.models.spectral_vmg", "VMGSolver"),
     "FMGSolver": ("anap3_tpu_torch.models.spectral_vmg", "FMGSolver"),
+    "NewtonSolver": ("anap3_tpu_torch.models.steady", "NewtonSolver"),
 }
 
 

@@ -5,7 +5,8 @@ The counterpart of ``anap3_tpu/models/base.py``: ``solve()``, ``params`` /
 errors and tables, and VTS export (bilinear evaluation and spline vorticity
 by default, as in the JAX base class). Everything after the solve is numpy host
 code, as in the JAX package. There is no compile cache (PyTorch runs
-eagerly; the kernels cache their own build) and no checkpointing yet.
+eagerly; the kernels cache their own build); ``checkpoint_dir`` is taken by
+the SG and FV solves (``utils/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -47,10 +48,6 @@ class CavitySolver:
             params = self.Parameters(**kwargs)
         self.device = resolve_device(params.device)
         params.dtype = resolve_dtype(params.dtype, self.device)
-        if params.checkpoint_dir:
-            raise NotImplementedError(
-                "checkpoint_dir: checkpoint/resume is not ported to "
-                "anap3_tpu_torch yet")
         self.params = params
         self.metrics = Metrics()
         self.fields: Optional[Fields] = None
@@ -59,6 +56,22 @@ class CavitySolver:
 
     def solve(self, tolerance: float = None, max_iter: int = None) -> None:
         raise NotImplementedError
+
+    def _restore_checkpoint(self):
+        """``(manager, start_iteration)`` for ``checkpoint_dir``, with
+        ``self.state`` restored from its latest checkpoint; ``(None, 0)``
+        without a directory."""
+        if not self.params.checkpoint_dir:
+            return None, 0
+        from ..utils.checkpoint import CheckpointManager
+
+        mgr = CheckpointManager(
+            self.params.checkpoint_dir, self.params,
+            every_chunks=self.params.checkpoint_every_chunks)
+        self.state, start_iter = mgr.restore_or(self.state)
+        if start_iter:
+            log.info("Resumed from checkpoint at iteration %d", start_iter)
+        return mgr, start_iter
 
     def _use_pallas_flag(self) -> Optional[bool]:
         """``params.use_pallas`` as True, False or None (auto)."""
@@ -146,6 +159,10 @@ class CavitySolver:
             final_palinstrophy=last("palinstrophy"),
             **{k: vortex.get(k, 0.0) for k in _VORTEX_KEYS},
         )
+        polish = getattr(self, "_polish_info", None)
+        if polish:
+            self.metrics.polish_steps = int(polish["steps"])
+            self.metrics.steady_residual_rms = float(polish["rms"])
 
     def compute_vortex_metrics(self) -> Dict[str, float]:
         psi, X, Y = self._streamfunction()

@@ -405,6 +405,7 @@ class FVSolver(CavitySolver):
         metric = resolve_convergence_metric(self.params,
                                             auto_large="rel_iter")
         step, chunk_runner = self._fused_paths(metric)
+        ckpt_mgr, start_iter = self._restore_checkpoint()
         stall = int(self.params.stall_chunks)
         if stall < 0:  # auto: the f32 criterion can floor above tolerance
             stall = 25 if self.params.dtype == "float32" else 0
@@ -413,6 +414,7 @@ class FVSolver(CavitySolver):
             tolerance=tol, max_iterations=max_iter,
             chunk=self.params.chunk_size,
             log_callback=self._log_callback,
+            checkpoint_mgr=ckpt_mgr, start_iteration=start_iter,
             convergence_metric=metric, chunk_runner=chunk_runner,
             stall_chunks=stall)
         if result.stalled:

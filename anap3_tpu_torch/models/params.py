@@ -38,7 +38,7 @@ class Parameters:
     method: str = ""
     # working precision of the device hot path ("auto": resolve_dtype)
     dtype: str = "float64"
-    # mid-solve checkpoint/resume; empty = disabled (not ported: raises)
+    # mid-solve checkpoint/resume (utils/checkpoint.py); empty = disabled
     checkpoint_dir: str = ""
     checkpoint_every_chunks: int = 10
     # iterations per device chunk between host reads
@@ -100,7 +100,8 @@ class SpectralParameters(Parameters):
     coarse_tolerance_factor: float = 10.0
     prolongation_method: str = "fft"
     restriction_method: str = "fft"
-    # Newton-Krylov / PTC knobs (the Newton solver is not ported yet)
+    # Newton-Krylov / PTC knobs (models/steady.py, solver=gpu/newton) and
+    # the float64 Newton polish of the marched solvers (newton_polish)
     newton_max_steps: int = 50
     gmres_vectors: int = 60
     newton_dt0: float = 0.05
@@ -151,7 +152,8 @@ class Metrics:
     psi_TL_x: float = 0.0
     psi_TL_y: float = 0.0
 
-    # Newton polish extras (0 while the polish is not ported)
+    # newton_polish=true extras (0 when the polish is off): PTC steps taken
+    # and the float64 RMS steady residual of the final state
     polish_steps: int = 0
     steady_residual_rms: float = 0.0
 

@@ -186,6 +186,8 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
                     warmup: int = WARMUP_ITERS,
                     log_callback: Optional[Callable] = None,
                     log_every: int = 50,
+                    checkpoint_mgr=None,
+                    start_iteration: int = 0,
                     convergence_metric: str = "rel_iter",
                     chunk_runner=None, stall_chunks: int = 0,
                     max_history_points: int = 4000,
@@ -196,14 +198,26 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
     The same contract as ``anap3_tpu.models.runner.run_fixed_point`` (see
     its docstring for the criteria, the energy plateau with its
     sqrt(n)*eps noise floor and net-drift gate, stall detection and the
-    history decimation), without the checkpoint hooks. ``chunk_runner`` is
-    a factory ``(chunk, tol, metric) -> chunk_fn``; it receives the MAPPED
-    criterion (energy arrives as rel_iter with tolerance 0).
+    history decimation). ``chunk_runner`` is a factory ``(chunk, tol,
+    metric) -> chunk_fn``; it receives the MAPPED criterion (energy arrives
+    as rel_iter with tolerance 0).
+
+    ``checkpoint_mgr`` (``utils/checkpoint.CheckpointManager``) is offered
+    the state after every chunk that did not finish the solve, with the
+    residual criterion's normalization ``ref_norm`` as its carry, and saves
+    them every K chunks; ``start_iteration`` resumes the global iteration
+    counter after a restore (pre-resume history is not replayed), and the
+    manager's restored carry resumes ``ref_norm``. (The JAX package
+    restarts it at inf, so a resumed residual-criterion run past warmup
+    converges at its first step.) The energy plateau's host counters start
+    afresh on a resume, as in the JAX package: it takes the plateau's
+    chunks again.
 
     Chunk k+1 is dispatched before chunk k's flags are read. That is exact:
     a done state is frozen, so a speculated chunk past convergence changes
     nothing, and every chunk writes fresh output tensors, so chunk k's
-    state is never overwritten by chunk k+1.
+    state is never overwritten by chunk k+1: a checkpoint of chunk k
+    saves chunk k's state even while chunk k+1 runs.
     """
     chunk = int(min(chunk, max(1, max_iterations)))
     if convergence_metric not in ("rel_iter", "residual", "energy"):
@@ -226,7 +240,7 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
     stride = 1
     last_row: Optional[np.ndarray] = None
     last_idx = -1
-    iterations = 0
+    iterations = start_iteration
     converged = False
     diverged = False
     stalled = False
@@ -241,10 +255,12 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
     log_time = 0.0
     t0 = time.time()
 
-    it = 0
+    it = start_iteration
     first_chunk_time = 0.0
     u0, _ = get_uv(state)
-    ref_norm = torch.full((), float("inf"), dtype=u0.dtype, device=u0.device)
+    carry = getattr(checkpoint_mgr, "carry", None) or {}
+    ref_norm = torch.full((), carry.get("ref_norm", float("inf")),
+                          dtype=u0.dtype, device=u0.device)
     t_chunk = time.time()
     cur = None
     if it < max_iterations:
@@ -294,6 +310,10 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
             log_time += time.time() - t_log
 
         it += n_ran
+        if checkpoint_mgr is not None and not done_host:
+            t_ck = time.time()
+            checkpoint_mgr.maybe_save(state, it, {"ref_norm": ref_k})
+            log_time += time.time() - t_ck
         if done_host:
             break  # a speculated chunk is dropped; state is chunk k's
         if use_energy and it > warmup:

@@ -12,10 +12,16 @@ falls back to the plain step. The FSG solve is the nested coarse-to-fine
 iteration of the JAX package: a Pe-floored coarsest level, per-level
 tolerance, spectral prolongation with BC re-enforcement, the NaN exit and
 the synthesized one-row history.
+
+``newton_polish=true`` ends every SG, FSG (and VMG/FMG) solve with the
+float64 Newton polish of ``models/steady.py``; ``checkpoint_dir`` saves
+and resumes an SG solve through ``utils/checkpoint.py`` (the JAX package
+checkpoints no FSG, VMG or FMG level, and neither does the port).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Optional
@@ -26,8 +32,8 @@ import torch
 from . import spectral_sg as core
 from .base import CavitySolver
 from .params import Fields, SpectralParameters
-from .runner import (ENERGY_PLATEAU_CHUNKS, WARMUP_ITERS, IterationResult,
-                     run_fixed_point)
+from .runner import (ENERGY_PLATEAU_CHUNKS, METRIC_KEYS, WARMUP_ITERS,
+                     IterationResult, run_fixed_point)
 from ..ops import basis as basis_ops
 from ..ops.poisson import spectral_dirichlet_poisson
 from ..ops.sg_kernels import (ALIGNED_METRICS_EVERY, MAX_KERNEL_N,
@@ -199,6 +205,7 @@ class SGSolver(CavitySolver):
                                                       device=self.device)
         self.state = core.initial_state(self.ops)
         self._psi_poisson = None
+        self._polish_info = None
 
     def _is_singular(self) -> bool:
         return self.grid.get("singular") is not None
@@ -216,13 +223,6 @@ class SGSolver(CavitySolver):
         return (lambda s: core.sg_step(ops, s)), None
 
     def _check_options(self) -> None:
-        flag = self.params.newton_polish
-        polish = flag if isinstance(flag, bool) else \
-            str(flag).lower() in ("true", "1", "yes")
-        if polish:
-            raise NotImplementedError(
-                "newton_polish needs the Newton solver, which is not ported "
-                "to anap3_tpu_torch yet")
         if self._kernels_enabled():
             _matmul_policy(self.params)
 
@@ -244,11 +244,13 @@ class SGSolver(CavitySolver):
                     self.params.nx, floor, self.params.Re)
         metric = resolve_convergence_metric(self.params)
         step, chunk_runner = self._paths(self.ops)
+        ckpt_mgr, start_iter = self._restore_checkpoint()
         chunk_eff = effective_chunk(chunk_runner, self.params.chunk_size)
         result = run_fixed_point(
             step, lambda s: (s.u, s.v), self.state,
             tolerance=tol, max_iterations=max_iter, chunk=chunk_eff,
             log_callback=self._log_callback,
+            checkpoint_mgr=ckpt_mgr, start_iteration=start_iter,
             convergence_metric=metric, chunk_runner=chunk_runner,
             stall_chunks=self._stall_chunks(),
             energy_plateau_chunks=scaled_plateau_chunks(
@@ -259,7 +261,66 @@ class SGSolver(CavitySolver):
                 "iterations (float32 criterion floor); stopping with the "
                 "best attainable state.", tol, result.iterations)
         self.state = result.state
+        result = self._maybe_newton_polish(result)
         self._store_results(result)
+
+    def _maybe_newton_polish(self, result: IterationResult) -> IterationResult:
+        """Optional float64 Newton polish of the marched state.
+
+        ``newton_polish=true``: after the march stops, a few PTC Newton
+        steps (models/steady.py) drive the state to the EXACT discrete
+        steady state (RMS steady residual <= newton_polish_tol), on the
+        solver's device. The polish rows are appended to the history and
+        the Metrics carry polish_steps / steady_residual_rms. The polished
+        state is float64 whatever the march's dtype."""
+        flag = self.params.newton_polish
+        on = flag if isinstance(flag, bool) else \
+            str(flag).lower() in ("true", "1", "yes")
+        if not on or result.diverged:
+            return result
+        from .steady import polish_state
+
+        t0 = time.time()
+        hist = {k: [] for k in METRIC_KEYS}
+        state64, conv, div, steps, rms = polish_state(
+            self.params, self.state,
+            tol_rms=float(self.params.newton_polish_tol),
+            max_steps=int(self.params.newton_polish_steps),
+            gmres_vectors=int(self.params.gmres_vectors), history=hist)
+        wall = time.time() - t0
+        log.info("Newton polish: %d PTC steps, ||F||_rms=%.2e, "
+                 "converged=%s (%.1fs)", steps, rms, conv, wall)
+        self.state = state64
+        self._polish_info = {"steps": steps, "rms": rms, "wall": wall,
+                             "converged": bool(conv)}
+        for key, rows in hist.items():
+            if rows and key in result.history and \
+                    result.history[key] is not None:
+                result.history[key].extend(rows)
+        history_iters = getattr(result, "history_iters", None)
+        if history_iters is not None and steps > 0:
+            # keep the row <-> global-iteration alignment: polish rows
+            # follow the march
+            result = dataclasses.replace(
+                result, history_iters=np.concatenate([
+                    np.asarray(history_iters),
+                    result.iterations + 1 + np.arange(steps)]))
+        return dataclasses.replace(
+            result, state=state64,
+            converged=bool(result.converged or conv),
+            diverged=bool(div),
+            # a float32 criterion stall is moot once the polish converged
+            stalled=bool(result.stalled and not conv),
+            wall_time=result.wall_time + wall)
+
+    def _analysis_ops(self) -> core.SpectralOps:
+        """The operators in the state's dtype: a float64 polish of a
+        float32 march leaves a float64 state beside float32 operators, and
+        the analysis then takes float64 operators of the same grid."""
+        if self.state.u.dtype == self.ops.dtype:
+            return self.ops
+        return core.build_spectral_ops(self.params, dtype=self.state.u.dtype,
+                                       device=self.device)[0]
 
     # -- field plumbing --------------------------------------------------
 
@@ -281,12 +342,13 @@ class SGSolver(CavitySolver):
                       x=X.ravel(), y=Y.ravel())
 
     def _vorticity_full(self) -> np.ndarray:
-        return _np(core.vorticity(self.ops, self.state.u, self.state.v))
+        return _np(core.vorticity(self._analysis_ops(), self.state.u,
+                                  self.state.v))
 
     def _streamfunction(self):
         if self._psi_poisson is None:
             self._psi_poisson = spectral_dirichlet_poisson(
-                self.grid["Dxx"], self.grid["Dyy"], dtype=self.ops.dtype,
+                self.grid["Dxx"], self.grid["Dyy"], dtype=self.state.u.dtype,
                 device=self.device)
         X, Y = np.meshgrid(self.grid["x_nodes"], self.grid["y_nodes"],
                            indexing="ij")
@@ -298,8 +360,8 @@ class SGSolver(CavitySolver):
         # singular mode: psi = psi_tilde + psi_s with lap(psi_tilde) =
         # -omega_tilde and psi_tilde = -psi_s on the walls, lifted through
         # the Laplacian's boundary columns
-        omega_t = _np(core.vorticity(self.ops, self.state.u, self.state.v,
-                                     total=False))
+        omega_t = _np(core.vorticity(self._analysis_ops(), self.state.u,
+                                     self.state.v, total=False))
         psi_b = np.zeros_like(omega_t)
         bdy = np.ones_like(omega_t, dtype=bool)
         bdy[1:-1, 1:-1] = False
@@ -348,10 +410,10 @@ class SGSolver(CavitySolver):
         remainder plus the sampled singular vorticity."""
         if self._is_singular():
             return self._vorticity_full().T
+        ops = self._analysis_ops()
         as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a.T),
-                                         dtype=self.ops.dtype,
-                                         device=self.device)
-        return _np(core.vorticity(self.ops, as_t(U), as_t(V))).T
+                                         dtype=ops.dtype, device=self.device)
+        return _np(core.vorticity(ops, as_t(U), as_t(V))).T
 
 
 class FSGSolver(SGSolver):
@@ -450,6 +512,7 @@ class FSGSolver(SGSolver):
             converged=bool(converged and not diverged),
             diverged=bool(diverged), wall_time=wall, history=history,
             first_chunk_time=compile_time)
+        result = self._maybe_newton_polish(result)  # sets self.state if on
         self._store_results(result)
         log.info("FSG completed in %.2fs: %d iterations, converged=%s",
                  wall, total_iters, converged)

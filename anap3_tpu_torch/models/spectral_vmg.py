@@ -493,6 +493,7 @@ class VMGSolver(SGSolver):
                 int(self.params.nx), cyc_chunk, anchor_n=192,
                 anchor_window=150))
         self.state = result.state
+        result = self._maybe_newton_polish(result)
         self._store_results(result)
 
 
@@ -614,6 +615,7 @@ class FMGSolver(SGSolver):
             converged=bool(converged and not diverged),
             diverged=bool(diverged), wall_time=wall, history=history,
             first_chunk_time=first_chunk_time)
+        result = self._maybe_newton_polish(result)  # sets self.state if on
         self._store_results(result)
 
     def _prolongate_fmg(self, coarse_level, fine_level, state):

@@ -111,9 +111,33 @@ when it fails:
    bit-equal to a one-lane SGSolver run;
 12. fv sweep N=128: 3 lanes, Re 100, 400, 1000, tol 1e-6 float32: the
    Re=100 and Re=1000 lanes take the iterations phases 5 and 6 took; L2
-   against the stored truths within 0.003, 0.004 and 0.004.
+   against the stored truths within 0.003, 0.004 and 0.004;
+4b. fsg N=96 polished (after phase 4): the flagship again with
+   newton_polish=true: the march must take phase 4's iterations, then the
+   float64 Newton polish on the card must converge in <= 12 PTC steps to
+   steady_residual_rms <= 1e-9; the polish wall and the Ghia u error
+   before and after;
+13. newton N=128 cold: NewtonSolver.solve() on the sharp lid
+   (corner_treatment=singular) at Re=1000 from rest with the Newton knobs
+   of conf/solver/spectral/newton.yaml on the Legendre grid of the stored
+   exact states, tolerance 1e-6: converged, PTC steps
+   within 2 of the JAX package's (JAX_NEWTON_COLD, from
+   scripts/jax_newton_reference.py); steps, wall, seconds a step, GMRES
+   vectors a step, ||F||_rms, psi_min and the distance from
+   data/steady/sharp_Re1000_N128.npz; then a torch.profiler idle share
+   and the leading device operations of one PTC step;
+14. newton N=128 warm: from sharp_Re1000_N128.npz at tolerance 1e-8: at
+   most 1 step, psi_min within 2e-4 of Botella & Peyret's -0.1189366 and
+   |omega_center| within 2e-3 of 2.067753;
+15. newton prelude N=128: 200 prelude steps in float64 on the sharp lid
+   through the SG step kernel against the plain prelude, relative error
+   <= 1e-11;
+16. sg resume N=128 float32 (chunk kernel, chunks of 1,000) and 17. fv
+   resume N=128 float32 (FV chunk kernels, chunks of 100): three chunks in
+   one solve against two chunks with checkpoints and a new solver resumed
+   for the third; iterations and every field bit-equal.
 
-Phases 3 to 12 are the main paths: before each, the launch counters of
+Phases 3 to 17 are the main paths: before each, the launch counters of
 every kernel family are zeroed, and after it every kernel the path runs
 must have launched and no plain version run. The line before the last is the
 kernels' JSON summary (launches summed over the main paths; bound_ms the
@@ -134,6 +158,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -150,6 +175,7 @@ from anap3_tpu_torch.models.params import (FVParameters,  # noqa: E402
 from anap3_tpu_torch.models.runner import control_step  # noqa: E402
 from anap3_tpu_torch.models import runner as TR  # noqa: E402
 from anap3_tpu_torch.models import spectral_vmg as vmg  # noqa: E402
+from anap3_tpu_torch.models import steady  # noqa: E402
 from anap3_tpu_torch.models.spectral import (FSGSolver, SGSolver,  # noqa: E402
                                              make_fused_paths)
 from anap3_tpu_torch.ops import fv_kernels as fvk  # noqa: E402
@@ -168,6 +194,23 @@ GHIA_MAX_ERR = 0.027
 # Re=100 u-centerline max error
 JAX_VMG48 = (1678, 0.03288045898079872, 0.0023671919441865426)
 JAX_FMG96 = (5891, 0.032877251505851746, 0.0023731883057019794)
+# anap3_tpu on the CPU (scripts/jax_newton_reference.py): the Newton
+# N=128 Re=1000 sharp-lid solves on the Legendre grid, cold from rest at
+# tol 1e-6 and warm from data/steady/sharp_Re1000_N128.npz at tol 1e-8:
+# PTC steps, final ||F||_rms, psi_min, omega_center, final energy
+JAX_NEWTON_COLD = (34, 4.2142219471090654e-07, -0.11890890593900696,
+                   -2.067688188077706, 0.04451810886955563)
+JAX_NEWTON_WARM = (0, 1.985123821584891e-11, -0.11890905476651023,
+                   -2.067697427482559, 0.04451815348715139)
+NEWTON_STEP_SLACK = 2  # the cold solve's PTC steps within +-2 of JAX's
+# Botella & Peyret N=160 Re=1000, psi_min and omega_center with the bounds
+# of test_re1000_fixture_matches_botella in the JAX package's
+# tests/test_steady.py
+BOTELLA_RE1000 = (-0.1189366, 2e-4, 2.067753, 2e-3)
+STEADY_RE1000 = ROOT / "data/steady/sharp_Re1000_N128.npz"
+# the flagship FSG march of phase 4 (iterations, Ghia u error), which the
+# polished flagship repeats
+FSG_MARCH = {}
 # the JAX record of the converged VMG [192, 96] Re=1000 tol 1e-6 f32 solve
 # (STATUS.md, solver study r3): cycles, L2 u and v
 JAX_VMG192 = (47_685, 0.0995, 0.0758)
@@ -1468,6 +1511,8 @@ def phase_fsg():
     check(0.8 <= ratio <= 1.2, f"FSG iterations {m.iterations} outside 20% "
           f"of the JAX record {JAX_FSG_ITERATIONS}")
     check(ghia <= GHIA_MAX_ERR, f"Ghia error {ghia:.4f} > {GHIA_MAX_ERR}")
+    FSG_MARCH.update(iterations=m.iterations, ghia=ghia,
+                     wall=m.wall_time_seconds)
 
 
 def vmg_params(n, re, **kw):
@@ -1686,6 +1731,216 @@ def phase_fv_sweep():
           f"lane-iterations/s", flush=True)
 
 
+def newton_params(**kw):
+    """The Newton knobs of conf/solver/spectral/newton.yaml (float64, 50
+    PTC steps, GMRES(60), dt0 0.05, dt_max 3e3, 40 Schur iterations, no
+    prelude), tolerance 1e-6 (RMS steady residual), on the sharp lid
+    (corner_treatment=singular) at N=128 Re=1000 on the Legendre-Gauss-
+    Lobatto grid: the grid of the stored exact states in data/steady/
+    (the parameters' default basis; sg.yaml's Chebyshev grid is another
+    discretization, on which those states are not steady)."""
+    base = dict(newton_max_steps=50, gmres_vectors=60, newton_dt0=0.05,
+                newton_dt_max=3e3, newton_schur_iters=40, newton_prelude=0,
+                tolerance=1e-6, basis_type="legendre")
+    base.update(kw)
+    return params(128, "float64", "singular", **base)
+
+
+def steady_rms(solver) -> float:
+    """The RMS steady residual ||F||_rms of the solver's state."""
+    prob = steady._SteadyProblem(solver.ops)
+    F = prob.F(prob.state_to_x(solver.state))
+    return float(torch.linalg.norm(F)) / prob.n_tot ** 0.5
+
+
+def newton_line(what, solver, call) -> float:
+    """Print a Newton solve's numbers; return its final ||F||_rms."""
+    m = solver.metrics
+    vec = solver.newton_stats.get("gmres_vectors", [])
+    rms = steady_rms(solver)
+    d = np.load(STEADY_RE1000)
+    got = {k: t.detach().cpu().numpy() for k, t in zip("uvp", solver.state)}
+    # the inner pressure's constant is free (null space of F): compare
+    # the pressure less its mean
+    got["p"], ref_p = got["p"] - got["p"].mean(), d["p"] - d["p"].mean()
+    diff = ", ".join(f"{k} {np.max(np.abs(got[k] - r)):.3e}" for k, r in
+                     (("u", d["u"]), ("v", d["v"]), ("p", ref_p)))
+    print(f"[{what}] N=128 Re=1000 singular {solver.params.basis_type} "
+          f"tol={solver.params.tolerance:g} float64: {m.iterations} PTC "
+          f"steps, converged={m.converged}, "
+          f"wall {m.wall_time_seconds:.3f}s (call {call:.3f}s), "
+          f"{m.wall_time_seconds / max(m.iterations, 1):.3f} s per PTC "
+          f"step, GMRES vectors per attempted step {vec} (mean "
+          f"{np.mean(vec) if vec else 0.0:.1f}), F evaluations "
+          f"{solver.newton_stats.get('F_evals')}, final ||F||_rms "
+          f"{rms:.3e}, psi_min {m.psi_min:.7f}, omega_center "
+          f"{m.omega_center:.6f}, energy {m.final_energy:.9f}; max |state - "
+          f"sharp_Re1000_N128.npz| (p less its mean) {diff}", flush=True)
+    return rms
+
+
+def phase_newton_cold():
+    """The Newton N=128 Re=1000 sharp-lid solve from rest, tol 1e-6."""
+    solver = steady.NewtonSolver(params=newton_params())
+    t0 = time.time()
+    solver.solve()
+    torch.cuda.synchronize()
+    rms = newton_line("newton cold", solver, time.time() - t0)
+    steps, rms_j, psi_j = JAX_NEWTON_COLD[:3]
+    print(f"[newton cold] JAX (CPU): {steps} PTC steps, ||F||_rms "
+          f"{rms_j:.3e}, psi_min {psi_j:.7f}", flush=True)
+    check(solver.metrics.converged and rms <= 1e-6,
+          f"the cold Newton solve did not converge (||F||_rms {rms:.3e})")
+    check(abs(solver.metrics.iterations - steps) <= NEWTON_STEP_SLACK,
+          f"the cold Newton solve took {solver.metrics.iterations} PTC "
+          f"steps, JAX {steps}")
+    return solver
+
+
+def phase_newton_warm():
+    """The Newton N=128 Re=1000 solve warm from the stored exact state,
+    tol 1e-8, against Botella & Peyret."""
+    solver = steady.NewtonSolver(params=newton_params(
+        tolerance=1e-8, initial_state_path=str(STEADY_RE1000)))
+    t0 = time.time()
+    solver.solve()
+    torch.cuda.synchronize()
+    newton_line("newton warm", solver, time.time() - t0)
+    m = solver.metrics
+    psi_ref, psi_tol, om_ref, om_tol = BOTELLA_RE1000
+    print(f"[newton warm] JAX (CPU): {JAX_NEWTON_WARM[0]} PTC steps, psi_min "
+          f"{JAX_NEWTON_WARM[2]:.7f}, omega_center {JAX_NEWTON_WARM[3]:.6f}; "
+          f"Botella psi_min {psi_ref} omega {om_ref}", flush=True)
+    check(m.converged and m.iterations <= 1,
+          f"the warm Newton solve: {m.iterations} steps, converged "
+          f"{m.converged}")
+    check(abs(m.psi_min - psi_ref) < psi_tol,
+          f"psi_min {m.psi_min} against Botella {psi_ref}")
+    check(abs(abs(m.omega_center) - om_ref) < om_tol,
+          f"omega_center {m.omega_center} against Botella {om_ref}")
+
+
+def profile_ptc_step(solver):
+    """torch.profiler over one PTC step of the cold solve (its first: from
+    rest at dt0), after one warm-up step: the idle share and the leading
+    device operations."""
+    prob = steady._SteadyProblem(solver.ops)
+    pre = steady._StokesPreconditioner(
+        prob, solver.grid, schur_iters=solver.params.newton_schur_iters)
+    x0 = steady._host(prob.state_to_x(core.initial_state(solver.ops)))
+    stats = {}
+
+    def run():
+        stats.clear()
+        steady.ptc_solve(prob, pre, x0, tol_rms=0.0, max_steps=1,
+                         gmres_vectors=60, dt0=0.05, dt_max=3e3, stats=stats)
+
+    run()
+    torch.cuda.synchronize()
+    traced = trace_device(run, "newton profile")
+    if traced is not None:
+        dev, host = traced
+        print(f"[newton profile] one PTC step from rest (dt0 0.05; "
+              f"{stats['gmres_vectors'][0]} GMRES vectors, "
+              f"{stats['F_evals']} F evaluations): host {host:.3f}s, "
+              f"{device_breakdown(dev)}", flush=True)
+
+
+def phase_newton_prelude():
+    """The Newton prelude, 200 marched RK4 steps at N=128 float64 on the
+    sharp lid from rest, through the solver's route on CUDA (the SG step
+    kernel) against the plain prelude (use_pallas=false)."""
+    n = 200
+    solver = steady.NewtonSolver(params=newton_params(newton_prelude=n))
+    t0 = time.time()
+    out_k = solver._march_prelude(solver.state, n)
+    torch.cuda.synchronize()
+    t_k = time.time() - t0
+    plain = steady.NewtonSolver(params=newton_params(newton_prelude=n,
+                                                     use_pallas="false"))
+    t0 = time.time()
+    out_p = plain._march_prelude(plain.state, n)
+    torch.cuda.synchronize()
+    t_p = time.time() - t0
+    err = max(rel_err(a, b) for a, b in zip(out_k, out_p))
+    print(f"[newton prelude] {n} steps N=128 float64 singular: kernel route "
+          f"{t_k:.3f}s, plain {t_p:.3f}s, max relative error {err:.3e} "
+          f"(bound 1e-11)", flush=True)
+    check(err <= 1e-11, f"the prelude differs from the plain one: {err}")
+
+
+def phase_fsg_polished():
+    """The FSG flagship of phase 4 with newton_polish=true: the same march,
+    then the float64 polish on the card."""
+    solver = FSGSolver(params=params(96, "float32", tolerance=1e-6,
+                                     max_iterations=400_000, multigrid="fsg",
+                                     n_levels=2, coarse_tolerance_factor=1.0,
+                                     newton_polish=True))
+    solver.solve()
+    torch.cuda.synchronize()
+    m = solver.metrics
+    info = solver._polish_info
+    ghia = ghia_u_error(solver)
+    print(f"[fsg polished] N=96 Re=1000 tol=1e-6 float32 march: "
+          f"{m.iterations} iterations (phase 4: {FSG_MARCH.get('iterations')}"
+          f", {FSG_MARCH.get('wall', 0.0):.3f}s); float64 polish: "
+          f"{m.polish_steps} PTC steps in {info['wall']:.3f}s, "
+          f"converged={info['converged']}, steady_residual_rms "
+          f"{m.steady_residual_rms:.3e}; total wall {m.wall_time_seconds:.3f}s"
+          f"; Ghia u-centerline max err {FSG_MARCH.get('ghia', np.nan):.5f} "
+          f"marched, {ghia:.5f} polished; psi_min {m.psi_min:.7f}",
+          flush=True)
+    check(m.iterations == FSG_MARCH.get("iterations"),
+          f"the polished flagship marched {m.iterations} iterations, phase 4 "
+          f"{FSG_MARCH.get('iterations')}")
+    check(info["converged"] and m.polish_steps <= 12
+          and m.steady_residual_rms <= 1e-9,
+          f"the polish: {m.polish_steps} steps, rms "
+          f"{m.steady_residual_rms:.3e}, converged {info['converged']}")
+    check(solver.state.u.dtype == torch.float64, "the polish is not float64")
+
+
+def resume_check(what, make, chunk):
+    """Three chunks in one solve against two chunks with checkpoints and a
+    new solver resumed for the third: states and iterations bit-equal."""
+    with tempfile.TemporaryDirectory() as ck:
+        t0 = time.time()
+        ref = make(max_iterations=3 * chunk)
+        ref.solve()
+        first = make(max_iterations=2 * chunk, checkpoint_dir=ck,
+                     checkpoint_every_chunks=1)
+        first.solve()
+        resumed = make(max_iterations=3 * chunk, checkpoint_dir=ck,
+                       checkpoint_every_chunks=1)
+        resumed.solve()
+        torch.cuda.synchronize()
+        saved = sorted(p.name for p in Path(ck).glob("ckpt_*.npz"))
+    same = [same_bits(a, b) for a, b in zip(resumed.state, ref.state)]
+    print(f"[{what}] {ref.metrics.iterations} iterations in one solve; "
+          f"{first.metrics.iterations} + resumed to "
+          f"{resumed.metrics.iterations} (checkpoints {saved}); bit-equal "
+          f"fields {same} ({time.time() - t0:.1f}s)", flush=True)
+    check(resumed.metrics.iterations == ref.metrics.iterations == 3 * chunk,
+          f"{what}: iterations {resumed.metrics.iterations} against "
+          f"{ref.metrics.iterations}")
+    check(all(same), f"{what}: the resumed state differs from the "
+          "uninterrupted one")
+
+
+def phase_sg_resume():
+    """SG N=128 float32 through the chunk kernel, chunks of 1,000."""
+    resume_check("sg resume N=128 float32", lambda **kw: SGSolver(
+        params=params(128, "float32", tolerance=0.0, chunk_size=1000,
+                      convergence_metric="rel_iter", **kw)), 1000)
+
+
+def phase_fv_resume():
+    """FV N=128 float32 through the FV chunk kernels, chunks of 100."""
+    resume_check("fv resume N=128 float32", lambda **kw: fvm.FVSolver(
+        params=fv_params(128, 128, "float32", tolerance=0.0,
+                         chunk_size=100, **kw)), 100)
+
+
 def flagship_vmg() -> int:
     """The converged VMG [192, 96] Re=1000 tol 1e-6 float32 solve."""
     card = phase_device()
@@ -1716,6 +1971,16 @@ SG_NO_CONTROL = ("sg_stage", "sg_diag")
 MAIN_PATHS = (
     ("sg N=128", phase_sg, sgk.KERNELS),
     ("fsg N=96", phase_fsg, sgk.KERNELS),
+    # the flagship again with the float64 Newton polish (after phase 4,
+    # whose march it repeats)
+    ("fsg N=96 polished", phase_fsg_polished, sgk.KERNELS),
+    # the Newton iteration is plain PyTorch on the card (no pallas_call in
+    # the JAX module): no kernel at newton_prelude 0
+    ("newton N=128 cold", phase_newton_cold, ()),
+    ("newton N=128 warm", phase_newton_warm, ()),
+    ("newton prelude N=128", phase_newton_prelude, SG_NO_CONTROL),
+    ("sg resume N=128", phase_sg_resume, sgk.KERNELS),
+    ("fv resume N=128", phase_fv_resume, fvk.KERNELS),
     ("fv Re=100", lambda: phase_fv_solve(100.0), fvk.KERNELS),
     ("fv Re=1000", lambda: phase_fv_solve(1000.0), fvk.KERNELS),
     # the V-cycles step through the smoother and the step, whose tail is
@@ -1771,6 +2036,8 @@ def main() -> int:
             summary[k]["launches"] += launches[k]
         if phase is phase_vmg_wide:
             profile_vmg_chunk(out)
+        if phase is phase_newton_cold:
+            profile_ptc_step(out)
     kernels = [{key: summary[k][key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -345,9 +345,18 @@ class TestSolver:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 TF.FVSolver(**base())
 
-    def test_checkpointing_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            TF.FVSolver(device="cpu", checkpoint_dir="/nonexistent", **base())
+    def test_checkpointing_is_not_ported(self, tmp_path):
+        """checkpoint_dir is ported now: the solver takes it and a solve
+        writes its checkpoints (resume: tests/test_torch_checkpoint.py).
+        The name is kept from when this test checked the refusal."""
+        ck = tmp_path / "ck"
+        s = TF.FVSolver(device="cpu", checkpoint_dir=str(ck),
+                        checkpoint_every_chunks=1,
+                        **base(max_iterations=400, tolerance=1e-30))
+        s.solve()
+        assert s.metrics.iterations == 400
+        assert sorted(p.name for p in ck.glob("ckpt_*.npz")) == [
+            "ckpt_000000200.npz", "ckpt_000000400.npz"]
 
 
 def test_main_cli_drives_the_port(repo_root, tmp_path):

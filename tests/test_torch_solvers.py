@@ -79,13 +79,12 @@ class TestSG:
             assert out[4].shape == (3, 7) and out[4].dtype == torch.float64
 
     def test_unported_options_raise(self):
+        """x1 has no CUDA kernel and raises. checkpoint_dir and
+        newton_polish are ported (tests/test_torch_checkpoint.py,
+        tests/test_torch_polish.py)."""
         kw = dict(BASE, nx=12, ny=12, device="cpu")
-        with pytest.raises(NotImplementedError, match="checkpoint"):
-            SGSolver(checkpoint_dir="/nonexistent", **kw)
         with pytest.raises(NotImplementedError, match="x1"):
             SGSolver(matmul_algorithm="x1", use_pallas="true", **kw).solve()
-        with pytest.raises(NotImplementedError, match="Newton"):
-            SGSolver(newton_polish=True, **kw).solve()
 
 
 class TestFSG:

@@ -1,7 +1,8 @@
 """anap3_tpu_torch stands alone: it imports nothing of JAX or anap3_tpu.
 
 - A fresh interpreter imports every module of the port (the batched-sweep
-  modules of ``parallel/`` and the lane-kernel wrappers among them) and
+  modules of ``parallel/``, the lane-kernel wrappers, the Newton solver
+  ``models/steady.py`` and ``utils/checkpoint.py`` among them) and
   chip_smoke.py's import block while a ``sys.meta_path`` finder refuses
   ``jax``, ``jaxlib`` and ``anap3_tpu`` (and their submodules); none of
   them may end up in ``sys.modules``.
@@ -55,6 +56,9 @@ SWEEP = {"anap3_tpu_torch.parallel.sweep", "anap3_tpu_torch.parallel.fsg_sweep",
          "anap3_tpu_torch.ops.sg_lane_kernels",
          "anap3_tpu_torch.ops.fv_lane_kernels"}
 assert SWEEP <= set(names), SWEEP - set(names)
+# and the Newton solver and checkpoint modules
+STEADY = {"anap3_tpu_torch.models.steady", "anap3_tpu_torch.utils.checkpoint"}
+assert STEADY <= set(names), STEADY - set(names)
 import chip_smoke  # its import block; main() runs only as a script
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
