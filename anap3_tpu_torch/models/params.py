@@ -19,7 +19,7 @@ import torch
 
 __all__ = ["Parameters", "SpectralParameters", "FVParameters", "Metrics",
            "TimeSeries", "Fields", "resolve_device", "resolve_dtype",
-           "use_pallas_flag"]
+           "use_pallas_flag", "lane_kernels_on"]
 
 
 @dataclass
@@ -251,3 +251,11 @@ def use_pallas_flag(flag) -> Optional[bool]:
     if s in ("false", "0", "no"):
         return False
     return None
+
+
+def lane_kernels_on(params, device) -> bool:
+    """Whether a batch of lanes with ``params`` on ``device`` takes the
+    lane kernels: ``use_pallas`` true, or auto on CUDA."""
+    flag = use_pallas_flag(getattr(params, "use_pallas", "auto"))
+    return flag is True or (flag is None and
+                            torch.device(device).type == "cuda")

@@ -194,10 +194,18 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 
 class SGSolver(CavitySolver):
-    """Single-grid PN-PN-2 artificial-compressibility solver."""
+    """Single-grid PN-PN-2 artificial-compressibility solver.
+
+    Setting ``spatial_mesh`` to a mesh with an ``"x"`` dimension (a
+    ``DeviceMesh``, see ``parallel/spatial.py``) before ``solve()`` runs
+    the x-sharded solve over its ranks, as the JAX package's
+    ``_solve_sharded`` does; FSG, VMG and FMG stay unsharded, as there."""
 
     Parameters = SpectralParameters
-    SUPPORTS_SPATIAL_MESH = False  # one device
+    # False although the SG solve takes a mesh: main.py:244-254 hands a
+    # solver that claims it a JAX Mesh from anap3_tpu.parallel.spatial,
+    # which this solver cannot use; the port's mesh is set directly.
+    SUPPORTS_SPATIAL_MESH = False
 
     def __init__(self, params=None, **kwargs):
         super().__init__(params=params, **kwargs)
@@ -206,6 +214,8 @@ class SGSolver(CavitySolver):
         self.state = core.initial_state(self.ops)
         self._psi_poisson = None
         self._polish_info = None
+        # the mesh of ONE x-sharded solve (parallel/spatial.py)
+        self.spatial_mesh = None
 
     def _is_singular(self) -> bool:
         return self.grid.get("singular") is not None
@@ -234,6 +244,13 @@ class SGSolver(CavitySolver):
         tol = self.params.tolerance if tolerance is None else tolerance
         max_iter = self.params.max_iterations if max_iter is None else max_iter
         self._check_options()
+        if self.spatial_mesh is not None:
+            if self._is_singular():
+                raise ValueError(
+                    "tensor-parallel sharding (spatial_mesh) does not "
+                    "support corner_treatment=singular yet; run unsharded "
+                    "or use a regularized lid")
+            return self._solve_sharded(tol, max_iter)
         if self._is_singular():
             floor = singular_min_n(self.params.Re)
             if int(self.params.nx) < floor:
@@ -261,6 +278,62 @@ class SGSolver(CavitySolver):
                 "iterations (float32 criterion floor); stopping with the "
                 "best attainable state.", tol, result.iterations)
         self.state = result.state
+        result = self._maybe_newton_polish(result)
+        self._store_results(result)
+
+    def _solve_sharded(self, tol: float, max_iter: int) -> None:
+        """The solve with rows split over ``spatial_mesh["x"]``.
+
+        The chunk loop runs ``parallel.spatial.make_sharded_chunk_runner``
+        (global reductions, the runner's criterion) on every rank with the
+        same host decisions. A checkpoint is restored whole before the
+        split, as in the JAX package; on save the fields are gathered and
+        the group's rank 0 writes them. The final state is gathered on
+        every rank."""
+        from ..parallel import spatial
+
+        mesh = self.spatial_mesh
+        _, rank, world = spatial.mesh_axis(mesh, "x")
+        nf = int(self.params.nx) + 1
+        if nf % world:
+            raise ValueError(
+                f"grid rows ({nf}) must divide the x mesh axis ({world})")
+        log.info("Sharded solve: N=%d over %d ranks (x axis)",
+                 self.params.nx, world)
+        whole_ops, _ = spatial.build_sharded_ops(
+            self.params, dtype=self.ops.dtype, device=self.device)
+        ops_sh = spatial.shard_ops(whole_ops, rank, world)
+        whole = (self.state.u, self.state.v,
+                 spatial.pad_pressure(self.state.p))
+        ckpt_mgr, start_iter = None, 0
+        if self.params.checkpoint_dir:
+            ckpt_mgr = spatial.ShardedCheckpointManager(
+                mesh, self.params.checkpoint_dir, self.params,
+                every_chunks=self.params.checkpoint_every_chunks)
+            whole, start_iter = ckpt_mgr.restore_or(whole)
+            if start_iter:
+                log.info("Resumed sharded solve from checkpoint at "
+                         "iteration %d", start_iter)
+        chunk = int(self.params.chunk_size)
+
+        def runner_factory(chunk_, tol_, metric_):
+            return spatial.make_sharded_chunk_runner(
+                mesh, ops_sh, chunk_, tol_, WARMUP_ITERS,
+                convergence_metric=metric_)
+
+        result = run_fixed_point(
+            None, lambda s: (s[0], s[1]), spatial.shard_state(mesh, whole),
+            tolerance=tol, max_iterations=max_iter, chunk=chunk,
+            log_callback=self._log_callback, checkpoint_mgr=ckpt_mgr,
+            start_iteration=start_iter,
+            convergence_metric=resolve_convergence_metric(self.params),
+            chunk_runner=runner_factory, stall_chunks=self._stall_chunks(),
+            energy_plateau_chunks=scaled_plateau_chunks(
+                int(self.params.nx), chunk))
+        u, v, p_pad = spatial.gather_state(mesh, result.state)
+        self.state = core.SpectralState(
+            u, v, spatial.unpad_pressure(p_pad).contiguous())
+        result = dataclasses.replace(result, state=self.state)
         result = self._maybe_newton_polish(result)
         self._store_results(result)
 

@@ -35,7 +35,7 @@ import logging
 import torch
 
 from ..models.fv import FVState
-from ..models.params import use_pallas_flag
+from ..models.params import lane_kernels_on
 from ..models.runner import WARMUP_ITERS, LaneCarry, fresh_carry
 from . import fv_kernels as fvk
 
@@ -191,8 +191,7 @@ def maybe_fv_lane_runner(params_list, ops_list):
     the kernels, and a batch they cannot take (a differing discretization,
     a configuration the fused FV kernels refuse) raises ValueError."""
     p0 = params_list[0]
-    flag = use_pallas_flag(getattr(p0, "use_pallas", "auto"))
-    if flag is False or (flag is None and ops_list[0].device.type != "cuda"):
+    if not lane_kernels_on(p0, ops_list[0].device):
         return None
     validate_lanes(params_list, ops_list)
     K = int(p0.fv_inner_iters)

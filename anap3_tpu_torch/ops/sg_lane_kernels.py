@@ -53,13 +53,14 @@ import torch
 
 from ..models.runner import WARMUP_ITERS, LaneCarry, fresh_carry
 from ..models.spectral_sg import SpectralState
-from ..models.params import use_pallas_flag
+from ..models.params import lane_kernels_on
 from . import sg_kernels as sgk
 
 log = logging.getLogger(__name__)
 
 __all__ = ["make_lane_chunk_runner", "maybe_lane_runner",
-           "plain_lane_runner", "lanes_plain", "validate_lanes",
+           "plain_lane_runner", "sg_lane_runner", "lanes_plain",
+           "validate_lanes",
            "aligned_supported", "aligned_lanes_supported",
            "lane_metrics_every", "LAUNCHES", "PLAIN_CALLS", "KERNELS",
            "reset_counts", "MAX_ALIGNED_N"]
@@ -303,9 +304,8 @@ def maybe_lane_runner(ops_list, params):
     CPU tensors). A batch that mixes corner modes runs one lane group per
     mode; a batch the kernels cannot take (differing operators, dtypes or
     devices) raises ValueError, never the plain path."""
-    flag = use_pallas_flag(getattr(params, "use_pallas", "auto"))
     ops0 = ops_list[0]
-    if flag is False or (flag is None and ops0.device.type != "cuda"):
+    if not lane_kernels_on(params, ops0.device):
         return None
     groups = {}
     for b, o in enumerate(ops_list):
@@ -323,3 +323,16 @@ def maybe_lane_runner(ops_list, params):
         groups, [make_lane_chunk_runner([ops_list[b] for b in g], chunk, tol,
                                         warmup, metric) for g in groups],
         len(ops_list))
+
+
+def sg_lane_runner(ops_list, params):
+    """``lanes -> factory``: the chunk-runner factory of the lanes
+    ``ops_list[lanes]`` (a slice) of this batch, the lane kernels where
+    ``maybe_lane_runner`` takes them, else ``plain_lane_runner``. A sweep
+    over a mesh calls it with each rank's own lanes
+    (``parallel/sweep.run_batched_sweep``'s ``lane_runner``)."""
+    def for_lanes(lanes: slice):
+        part = list(ops_list[lanes])
+        return maybe_lane_runner(part, params) or plain_lane_runner(part)
+
+    return for_lanes

@@ -9,6 +9,11 @@ each lane's result into its solver. MLflow logging and plots stay in
 ``main.py``. ``main.py`` names only the JAX package's solvers as batchable,
 so until it names these, ``main.py -m`` runs the port's solvers one by one.
 
+With a ``mesh`` (a ``DeviceMesh`` with a ``"sweep"`` dimension, the one
+``main.py:467-475`` builds for the JAX package), every rank passes the
+whole group and runs its share of the lanes (``sweep.run_batched_sweep``);
+every rank then stores every lane's result.
+
 Unlike ``main.py``, lanes honour ``convergence_metric=residual`` (each
 lane with its own normalization); ``main.py:485-492`` downgrades it to
 rel_iter for SG and FSG and runs FV batches on rel_iter whatever they ask.
@@ -20,6 +25,7 @@ import dataclasses
 import logging
 from typing import List, Sequence
 
+from ..models.params import lane_kernels_on
 from ..models.runner import IterationResult
 from .sweep import lane_state, run_batched_sweep, stack_ops, stack_states
 
@@ -84,11 +90,12 @@ def solver_job(solver) -> dict:
                        **dataclasses.asdict(solver.params)}}
 
 
-def run_batched(solvers: Sequence) -> List[IterationResult]:
+def run_batched(solvers: Sequence, mesh=None) -> List[IterationResult]:
     """Solve every solver of a batchable group as one batched sweep, store
     each lane's result into its solver (state, fields, metrics, time
     series) and return the per-lane results. ``wall_time`` is the shared
-    batch wall. A group that ``batchable`` refuses raises ValueError."""
+    batch wall. A group that ``batchable`` refuses raises ValueError;
+    ``mesh`` splits the lanes over its ``"sweep"`` dimension."""
     from ..models.fv import FVSolver, fv_step
     from ..models.spectral import (FSGSolver, SGSolver,
                                    resolve_convergence_metric,
@@ -107,17 +114,16 @@ def run_batched(solvers: Sequence) -> List[IterationResult]:
     if isinstance(first, FSGSolver):
         from .fsg_sweep import run_batched_fsg
 
-        results = run_batched_fsg([s.params for s in solvers])
+        results = run_batched_fsg([s.params for s in solvers], mesh=mesh)
     else:
+        ops_list = [s.ops for s in solvers]
+        kernels = lane_kernels_on(p0, ops_list[0].device)
         if isinstance(first, SGSolver):
-            from ..ops.sg_lane_kernels import (maybe_lane_runner,
-                                               plain_lane_runner)
+            from ..ops.sg_lane_kernels import sg_lane_runner
 
             step_fn = None  # both paths take a chunk runner
-            ops_list = [s.ops for s in solvers]
-            runner = maybe_lane_runner(ops_list, p0)
-            chunk = int(p0.chunk_size) if runner else PLAIN_CHUNK
-            runner = runner or plain_lane_runner(ops_list)
+            chunk = int(p0.chunk_size) if kernels else PLAIN_CHUNK
+            lane_runner = sg_lane_runner(ops_list, p0)
             metric = resolve_convergence_metric(p0)
             plateau = scaled_plateau_chunks(int(p0.nx), chunk)
         elif isinstance(first, FVSolver):
@@ -125,19 +131,20 @@ def run_batched(solvers: Sequence) -> List[IterationResult]:
 
             step_fn = fv_step
             metric = resolve_convergence_metric(p0, auto_large="rel_iter")
-            runner = maybe_fv_lane_runner([s.params for s in solvers],
-                                          [s.ops for s in solvers])
-            chunk = (min(int(p0.chunk_size), FV_LANE_CHUNK) if runner
+            params_list = [s.params for s in solvers]
+            chunk = (min(int(p0.chunk_size), FV_LANE_CHUNK) if kernels
                      else PLAIN_CHUNK)
+            lane_runner = lambda lanes: maybe_fv_lane_runner(  # noqa: E731
+                params_list[lanes], ops_list[lanes])
             plateau = None
         else:
             raise TypeError(f"{type(first).__name__} cannot run batched")
         res = run_batched_sweep(
-            step_fn, lambda s: (s.u, s.v), stack_ops([s.ops for s in solvers]),
+            step_fn, lambda s: (s.u, s.v), stack_ops(ops_list),
             stack_states([s.state for s in solvers]),
             tolerance=float(p0.tolerance),
-            max_iterations=int(p0.max_iterations), chunk=chunk,
-            chunk_runner=runner, convergence_metric=metric,
+            max_iterations=int(p0.max_iterations), chunk=chunk, mesh=mesh,
+            lane_runner=lane_runner, convergence_metric=metric,
             energy_plateau_chunks=plateau)
         results = []
         for k in range(len(solvers)):

@@ -35,7 +35,7 @@ from ..models.spectral import (fsg_level_orders, prolongate,
                                resolve_convergence_metric,
                                scaled_plateau_chunks)
 from ..models.spectral_vmg import check_fp32_matmul
-from ..ops.sg_lane_kernels import maybe_lane_runner, plain_lane_runner
+from ..ops.sg_lane_kernels import sg_lane_runner
 from .sweep import lane_state, run_batched_sweep, stack_ops, stack_states
 
 log = logging.getLogger(__name__)
@@ -48,7 +48,7 @@ def lane_ladders(param_list: Sequence[SpectralParameters]) -> List[list]:
     return [fsg_level_orders(p) for p in param_list]
 
 
-def _run_group(param_list, orders, chunk):
+def _run_group(param_list, orders, chunk, mesh=None):
     """One cascade over ``orders`` for lanes that share it; returns the
     final states, per-lane iterations, converged and diverged flags, the
     per-level records and the summed first-chunk seconds."""
@@ -84,9 +84,8 @@ def _run_group(param_list, orders, chunk):
         res = run_batched_sweep(
             core.sg_step, lambda s: (s.u, s.v), stack_ops(ops_list), states,
             tolerance=level_tol, max_iterations=max_iter, chunk=chunk,
-            convergence_metric=metric,
-            chunk_runner=(maybe_lane_runner(ops_list, p0)
-                          or plain_lane_runner(ops_list)),
+            convergence_metric=metric, mesh=mesh,
+            lane_runner=sg_lane_runner(ops_list, p0),
             energy_plateau_chunks=scaled_plateau_chunks(n, chunk))
         states = res.states
         iters += np.asarray(res.iterations, dtype=int)
@@ -103,8 +102,8 @@ def _run_group(param_list, orders, chunk):
     return states, ops_list, iters, converged, diverged, levels, first_chunk
 
 
-def run_batched_fsg(param_list: Sequence[SpectralParameters]
-                    ) -> List[IterationResult]:
+def run_batched_fsg(param_list: Sequence[SpectralParameters],
+                    mesh=None) -> List[IterationResult]:
     """FSG-solve a batch of parameter lanes; one result per lane, in order.
 
     Lanes must share nx/ny, n_levels, basis, dtype, device, tolerance,
@@ -114,7 +113,9 @@ def run_batched_fsg(param_list: Sequence[SpectralParameters]
     carries its lane's per-level records in ``levels``, the one-row history
     of the FSG solver (final residual norms and quadratures, rel_iter at
     tol, or 10 tol when unconverged) and the SHARED batch wall in
-    ``wall_time``, as the JAX package records it."""
+    ``wall_time``, as the JAX package records it. ``mesh`` splits every
+    level's lanes over its ``"sweep"`` dimension (each ladder group's lane
+    count must divide it); every rank returns every lane's result."""
     p0 = param_list[0]
     if str(p0.dtype) == "float32":
         check_fp32_matmul(torch.device(p0.device))  # the prolongations
@@ -130,7 +131,7 @@ def run_batched_fsg(param_list: Sequence[SpectralParameters]
         log.info("Batched FSG: %d lanes, hierarchy N = %s", len(members),
                  list(orders))
         out[orders] = (members, _run_group([param_list[b] for b in members],
-                                           list(orders), chunk))
+                                           list(orders), chunk, mesh))
     wall = time.time() - t0
 
     results: List[IterationResult] = [None] * len(param_list)

@@ -19,6 +19,18 @@ Two things differ from the JAX package, both on purpose:
   its own normalization, as the B=1 runner does; the JAX sweep supports
   rel_iter and energy only, and ``main.py`` downgrades residual to rel_iter.
 
+With a ``mesh`` (a ``DeviceMesh`` with a ``"sweep"`` dimension, one rank a
+card or CPU worker), every rank passes the whole batch, as every process
+does in the JAX package's multi-process path, and runs lanes
+``[r B/W, (r+1) B/W)`` as one local batch, through the lane kernels on
+CUDA (the JAX sweep drops its Pallas lane runner under a mesh; the
+arithmetic of a lane is the same, and lane b of a launch gives the bits of
+a one-lane launch). All ranks take the same chunks: the chunk-end "all my
+lanes are done" flag is combined by ``all_reduce(MIN)`` on the host, over
+gloo, so the speculative dispatch of chunk k+1 stays in place and no rank
+leaves a collective behind. At the end states, iterations, flags and the
+history are gathered, so every rank returns the whole ``SweepResult``.
+
 A batched chunk function has the contract of ``ops/sg_lane_kernels.py``:
 ``chunk_fn(states, start_iter, carry) -> (states, carry, rows[chunk, B, 7])``.
 """
@@ -32,6 +44,7 @@ from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.runner import (ENERGY_PLATEAU_CHUNKS, METRIC_KEYS, WARMUP_ITERS,
                              LaneCarry, control_step, fresh_carry, freeze,
@@ -187,6 +200,58 @@ def make_batched_chunk_runner(step_fn: Callable, get_uv: Callable, ops,
     return chunk_fn
 
 
+class _MeshLanes:
+    """This rank's share of a batch of ``lanes`` over the mesh's ``axis``
+    dimension, and the collectives a sweep over it needs."""
+
+    def __init__(self, mesh, lanes: int, axis: str = "sweep"):
+        names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+        if axis not in names:
+            raise ValueError(f"a sweep mesh needs a {axis!r} dimension, not "
+                             f"{names}")
+        dim = names.index(axis)
+        self.group = mesh.get_group(dim)
+        self.world = mesh.size(dim)
+        rank = mesh.get_local_rank(dim)
+        if lanes % self.world:
+            raise ValueError(f"{lanes} lanes do not divide over the "
+                             f"{self.world} ranks of the mesh's {axis!r} "
+                             f"dimension")
+        per = lanes // self.world
+        self.lanes = slice(rank * per, (rank + 1) * per)
+        # host decisions ride gloo: a device collective would wait for the
+        # speculated chunk behind it
+        self.host = None if dist.get_backend() == "gloo" else \
+            dist.new_group(backend="gloo")
+
+    def all(self, flag: bool) -> bool:
+        """``flag`` on every rank (the MIN of 0/1 over all ranks)."""
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=self.host)
+        return bool(t.item())
+
+    def gather(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim``, in rank order."""
+        t = t.contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.world)]
+        dist.all_gather(parts, t, group=self.group)
+        return torch.cat(parts, dim)
+
+    def gather_host(self, a: np.ndarray, axis: int = 0,
+                    device=None) -> np.ndarray:
+        """``gather`` of a host array, through the lanes' device."""
+        a = np.ascontiguousarray(a)
+        as_bool = a.dtype == bool
+        t = torch.as_tensor(a.astype(np.uint8) if as_bool else a,
+                            device=device)
+        out = self.gather(t, axis).cpu().numpy()
+        return out.astype(bool) if as_bool else out
+
+    def close(self) -> None:
+        if self.host is not None:
+            dist.destroy_process_group(self.host)
+
+
 class _Pending:
     """A dispatched batched chunk whose flags and rows are on their way to
     the host: one bundled copy each, waited for by one event."""
@@ -210,16 +275,18 @@ class _Pending:
 def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
                       max_iterations: int, chunk: int = 200,
                       warmup: int = WARMUP_ITERS, mesh=None,
-                      max_history_points: int = 4000, chunk_runner=None,
+                      max_history_points: int = 4000, lane_runner=None,
                       convergence_metric: str = "rel_iter",
                       energy_plateau_chunks: int = None) -> SweepResult:
     """Drive a batch of solves to convergence (``sweep.py:107-297``).
 
     ``ops`` is a ``StackedOps`` and ``states`` a state of (B, ...) fields.
-    ``chunk_runner`` is a factory ``(chunk, tol, warmup, metric) ->
-    chunk_fn`` of lane kernels (``ops/sg_lane_kernels.maybe_lane_runner``,
-    ``ops/fv_lane_kernels.maybe_fv_lane_runner``); without one the plain
-    batched chunk runs ``step_fn``.
+    ``lane_runner`` is a function ``lanes -> factory or None`` that builds,
+    for a slice of the lanes, a factory ``(chunk, tol, warmup, metric) ->
+    chunk_fn`` of lane kernels (``ops/sg_lane_kernels.sg_lane_runner``;
+    ``ops/fv_lane_kernels.maybe_fv_lane_runner`` on the slice's lanes);
+    without one, or where it gives None, the plain batched chunk runs
+    ``step_fn``.
 
     Chunk k+1 is dispatched before chunk k's flags are read, with fresh
     output buffers per chunk. The host history is stride-decimated once it
@@ -228,12 +295,11 @@ def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
     device chunk at tolerance 0 (divergence freezing only) and the per-lane
     kinetic-energy plateau with its net-drift gate on the host: a
     plateaued lane is recorded converged at that chunk's end and keeps
-    integrating until the batch finishes. ``mesh`` (multi-GPU sweeps) is
-    not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding a sweep over several cards is not ported to "
-            "anap3_tpu_torch yet (ROADMAP Queue 1 item 11)")
+    integrating until the batch finishes.
+
+    ``mesh``: the lanes are split over its ``"sweep"`` dimension (see the
+    module docstring); a batch that the rank count does not divide raises
+    ValueError. Every rank returns the whole result."""
     if convergence_metric not in ("rel_iter", "residual", "energy"):
         raise ValueError(
             f"unknown convergence_metric {convergence_metric!r}: expected "
@@ -243,13 +309,47 @@ def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
     use_energy = convergence_metric == "energy"
     inner_metric = "rel_iter" if use_energy else convergence_metric
     inner_tol = 0.0 if use_energy else tolerance
+    split = None
+    lanes = slice(0, len(ops))
+    if mesh is not None:
+        split = _MeshLanes(mesh, len(ops))
+        lanes = split.lanes
+        ops = stack_ops(ops.lanes[lanes])
+        states = type(states)(*(t[lanes] for t in states))
+    chunk_runner = lane_runner(lanes) if lane_runner is not None else None
     if chunk_runner is not None:
         runner = chunk_runner(chunk, inner_tol, warmup, inner_metric)
     else:
         runner = make_batched_chunk_runner(step_fn, get_uv, ops, chunk,
                                            inner_tol, warmup, inner_metric)
+    try:
+        res = _sweep_loop(runner, states, len(ops), tolerance,
+                          max_iterations, chunk, warmup, max_history_points,
+                          use_energy, plateau_target, split)
+    finally:
+        if split is not None:
+            split.close()
+    if split is not None:
+        res = _gathered(res, split)
+    return res
 
-    B = len(ops)
+
+def _gathered(res: SweepResult, split: _MeshLanes) -> SweepResult:
+    """Every rank's lanes of a sweep's result, in lane order."""
+    dev = res.states[0].device
+    lanes = lambda a, axis=0: split.gather_host(np.asarray(a), axis, dev)
+    rows = {k: lanes(v) for k, v in res.history.items()}
+    return dataclasses.replace(
+        res, states=type(res.states)(*(split.gather(t) for t in res.states)),
+        iterations=lanes(res.iterations),
+        converged=lanes(res.converged), diverged=lanes(res.diverged),
+        history=rows)
+
+
+def _sweep_loop(runner, states, B, tolerance, max_iterations, chunk, warmup,
+                max_history_points, use_energy, plateau_target,
+                split) -> SweepResult:
+    """The host loop of ``run_batched_sweep`` over this rank's lanes."""
     rows_buf: List[np.ndarray] = []
     idx_buf: List[np.ndarray] = []
     n_kept = 0
@@ -321,7 +421,10 @@ def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
         lane_done = flags_h[:, 0] > 0
         if use_energy and conv_it_energy is not None:
             lane_done = lane_done | (conv_it_energy >= 0)
-        if lane_done.all():
+        all_done = bool(lane_done.all())
+        if split is not None:
+            all_done = split.all(all_done)
+        if all_done:
             break  # a speculated chunk is dropped
         cur = nxt
     wall = time.time() - t0

@@ -228,10 +228,16 @@ class CheckpointManager:
         self._chunk_count += 1
         if self._chunk_count % self.every != 0:
             return False
+        self.save(state, iteration, carry)
+        return True
+
+    def save(self, state, iteration: int,
+             carry: Optional[dict] = None) -> None:
+        """Write the checkpoint of ``iteration`` and drop all but the
+        newest ``keep``."""
         path = self.dir / f"ckpt_{iteration:09d}.npz"
         save_checkpoint(path, state, iteration, self.fingerprint, carry)
         self._gc()
-        return True
 
     def _gc(self) -> None:
         for old in self._checkpoints()[: -self.keep]:

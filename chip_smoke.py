@@ -137,9 +137,32 @@ when it fails:
    one solve against two chunks with checkpoints and a new solver resumed
    for the third; iterations and every field bit-equal.
 
-Phases 3 to 17 are the main paths: before each, the launch counters of
+Phases 18-20 are the distributed paths at world size 1, each in its own
+one-rank NCCL process group (NCCL refuses two ranks on one card):
+
+18. sg N=128 x-sharded (parallel/spatial.py, Re=1000, sg.yaml numerics; no
+   kernel of the port): 200 float64 steps of the sharded chunk runner from
+   rest against the plain sg_step chunk on the same CUDA tensors, relative
+   max error <= 1e-11 and flags equal; a float32 64-step chunk from the
+   flow after 500 steps against the kernel chunk, <= 1e-4 in u, v, p with
+   done and conv_iter equal; 2,000 float32 steps from rest: ms a step
+   beside the kernel chunk's, finite, kinetic energy from the final fields
+   within 1e-4 relative of the kernel path's after the same steps, and a
+   torch.profiler idle share and device activities a step of a 20-step
+   chunk beside its unprofiled wall;
+19. sg sweep N=128 over a mesh: phase 11's 8 lanes through
+   run_batched(mesh=...), every lane bit-equal to phase 11's, with its
+   iterations, through sg_lanes_aligned;
+20. scaling probe: measure_scaling at one rank and N=127, its keys.
+
+Then dryrun_multigpu over every card prints its line (one card: a one-rank
+NCCL world; its 2-process sweep is not measured).
+
+Phases 3 to 20 are the main paths: before each, the launch counters of
 every kernel family are zeroed, and after it every kernel the path runs
-must have launched and no plain version run. The line before the last is the
+must have launched and no plain version run. Every torch.profiler idle
+share is printed beside the unprofiled wall of the same work
+(utils/profiling.py). The line before the last is the
 kernels' JSON summary (launches summed over the main paths; bound_ms the
 least time the card could take for the timed work, from the shapes and the
 card's published peaks); the last line is the result object.
@@ -153,6 +176,7 @@ stored FV truth and Ghia u-centerline error.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -164,6 +188,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
@@ -184,8 +209,13 @@ from anap3_tpu_torch.ops import sg_kernels as sgk  # noqa: E402
 from anap3_tpu_torch.ops import sg_lane_kernels as sgl  # noqa: E402
 from anap3_tpu_torch.ops._build import build_all, build_info  # noqa: E402
 from anap3_tpu_torch.parallel import batched as TB  # noqa: E402
+from anap3_tpu_torch.parallel import spatial as SP  # noqa: E402
 from anap3_tpu_torch.parallel import sweep as TS  # noqa: E402
+from anap3_tpu_torch.parallel.dryrun import dryrun_multigpu  # noqa: E402
+from anap3_tpu_torch.parallel.scaling import measure_scaling  # noqa: E402
 from anap3_tpu_torch.parallel.sweep import stack_states  # noqa: E402
+from anap3_tpu_torch.utils.profiling import (  # noqa: E402
+    NoDeviceActivity, device_breakdown, profile_chunk, trace_device)
 
 JAX_FSG_ITERATIONS = 176_389  # JAX record for the flagship FSG config
 GHIA_MAX_ERR = 0.027
@@ -1342,65 +1372,6 @@ def dense_library_ms(ops):
     return cuda_ms(products, 50)
 
 
-def trace_device(fn, what):
-    """The device activities of ``fn()`` under torch.profiler, and the host
-    seconds it took; None, with a line saying so, when the profiler cannot
-    start tracing the card. A trace without device activity fails the run."""
-    from torch.profiler import ProfilerActivity, profile
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    try:
-        prof.start()
-    except RuntimeError as exc:
-        print(f"[{what}] not measured: the profiler did not start: {exc}",
-              flush=True)
-        return None
-    try:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        host = time.time() - t0
-    finally:
-        prof.stop()
-    dev = [e for e in prof.events()
-           if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    check(dev, f"{what}: no device activity in the trace")
-    return dev, host
-
-
-def device_breakdown(dev, top=10) -> str:
-    """The window, device time, idle share and the ``top`` kernels by
-    device time of a trace's device activities, as one line's text."""
-    start = min(e.time_range.start for e in dev)
-    end = max(e.time_range.end for e in dev)
-    busy = sum(e.time_range.elapsed_us() for e in dev)
-    by_name = {}
-    for e in dev:
-        # the function's name: the identifier before its template
-        # arguments and parameter list
-        named = re.search(r"(\w+)(?:<[^()]*>)?\(", e.name)
-        key = named.group(1) if named else e.name[:32]
-        by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-    parts = ", ".join(f"{k} {v / 1e3:.3f} ms ({v / busy:.0%})" for k, v in
-                      sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
-    return (f"window {(end - start) / 1e3:.3f} ms, device time "
-            f"{busy / 1e3:.3f} ms, idle share {1 - busy / (end - start):.3f}, "
-            f"{len(dev)} device activities; top: {parts}")
-
-
-def profile_chunk(run, what):
-    """torch.profiler over ``run()`` after one warm-up run: the device
-    breakdown of its window (every device activity: the kernels, and the
-    state clone and flag upload of the chunk's workspace)."""
-    run()
-    torch.cuda.synchronize()
-    traced = trace_device(run, what)
-    if traced is not None:
-        dev, host = traced
-        print(f"[{what}] host {host:.3f}s, {device_breakdown(dev)}",
-              flush=True)
-
-
 def profile_fv_chunk(p, ops, state):
     """Device busy time by kernel and the idle share of one 100-iteration
     N=128 float32 chunk."""
@@ -1660,21 +1631,32 @@ def phase_fsg_sweep():
               f"fsg sweep lane {k} differs from its FSGSolver solve")
 
 
+SG_SWEEP_LANES = [(re, cs) for cs in (0.15, 0.10)
+                  for re in (100.0, 400.0, 1000.0, 3200.0)]
+# phase 11's sweep without a mesh: (wall, iterations, states), which the
+# sweep over a mesh repeats
+SG_SWEEP = {}
+
+
+def sg_sweep_params(re, cs):
+    """Phase 11's lanes: N=128 float32, 5,000 steps at tolerance 0."""
+    return params(128, "float32", Re=re, corner_smoothing=cs, tolerance=0.0,
+                  max_iterations=5000, chunk_size=1000,
+                  convergence_metric="rel_iter")
+
+
 def phase_sg_sweep():
     """Phase 11: 8 SG N=128 lanes, 5,000 steps from rest."""
-    lanes = [(re, cs) for cs in (0.15, 0.10)
-             for re in (100.0, 400.0, 1000.0, 3200.0)]
-
-    def mk(re, cs):
-        return params(128, "float32", Re=re, corner_smoothing=cs,
-                      tolerance=0.0, max_iterations=5000, chunk_size=1000,
-                      convergence_metric="rel_iter")
-
+    lanes = SG_SWEEP_LANES
+    mk = sg_sweep_params
     solvers = [SGSolver(params=mk(*lane)) for lane in lanes]
     t0 = time.time()
     results = TB.run_batched(solvers)
     torch.cuda.synchronize()
     call = time.time() - t0
+    SG_SWEEP.update(wall=results[0].wall_time,
+                    iterations=[r.iterations for r in results],
+                    states=[s.state for s in solvers])
     r0 = results[0]
     net = 8 * (5000 - 1000) / max(r0.wall_time - r0.first_chunk_time, 1e-9)
     print(f"[sg sweep] N=128 float32, 8 lanes x 5000 steps: shared wall "
@@ -1837,12 +1819,17 @@ def profile_ptc_step(solver):
 
     run()
     torch.cuda.synchronize()
+    t0 = time.time()
+    run()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
     traced = trace_device(run, "newton profile")
     if traced is not None:
         dev, host = traced
         print(f"[newton profile] one PTC step from rest (dt0 0.05; "
               f"{stats['gmres_vectors'][0]} GMRES vectors, "
-              f"{stats['F_evals']} F evaluations): host {host:.3f}s, "
+              f"{stats['F_evals']} F evaluations): unprofiled wall "
+              f"{wall:.3f}s; profiled host {host:.3f}s, "
               f"{device_breakdown(dev)}", flush=True)
 
 
@@ -1941,6 +1928,186 @@ def phase_fv_resume():
                          chunk_size=100, **kw)), 100)
 
 
+@contextlib.contextmanager
+def nccl_world():
+    """A one-rank NCCL process group on card 0 (an in-process store),
+    destroyed on the way out: NCCL refuses two ranks on one card, so the
+    distributed paths run here at world size 1 through the real backend
+    and collectives."""
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def in_nccl_world(phase):
+    def run():
+        with nccl_world():
+            return phase()
+
+    return run
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches and plain calls made to hold a path against a
+    yardstick count for no main path: the counters are restored."""
+    saved = [(dict(getattr(c, "LAUNCHES", {})), dict(c.PLAIN_CALLS))
+             for c in COUNTERS]
+    try:
+        yield
+    finally:
+        for c, (launches, plain) in zip(COUNTERS, saved):
+            getattr(c, "LAUNCHES", {}).update(launches)
+            c.PLAIN_CALLS.update(plain)
+
+
+def kinetic_energy(ops, u, v) -> float:
+    """0.5 sum W2d (u^2 + v^2), in float64 from the final fields."""
+    u, v, w = (t.double() for t in (u, v, ops.W2d))
+    return float(0.5 * torch.sum(w * (u * u + v * v)))
+
+
+def phase_sharded():
+    """Phase 18: the x-sharded SG N=128 Re=1000 solve at world size 1 over
+    NCCL (sg.yaml numerics); no kernel of the port, as in the JAX
+    module."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    inf = float("inf")
+    # float64: 200 steps against the plain sg_step chunk
+    p64 = params(128, "float64")
+    ops64 = core.build_spectral_ops(p64)[0]
+    dev = ops64.device
+    mesh = init_device_mesh(dev.type, (1,), mesh_dim_names=("x",))
+    sh64 = SP.shard_ops(SP.build_sharded_ops(p64)[0], 0, 1)
+    s0 = core.initial_state(ops64)
+    run = SP.make_sharded_chunk_runner(mesh, sh64, 200, 0.0)
+    (u, v, pp), done, ci, conv, rows, _ = run(
+        (s0.u, s0.v, SP.pad_pressure(s0.p)), 0, inf)
+    plain = TR.make_chunk_runner(lambda s: core.sg_step(ops64, s),
+                                 lambda s: (s.u, s.v), 200, 0.0)
+    ps, pdone, pci, pconv, prows, _ = plain(
+        s0, 0, torch.tensor(inf, dtype=torch.float64, device=dev))
+    err = max(rel_err(u, ps.u), rel_err(v, ps.v),
+              rel_err(SP.unpad_pressure(pp), ps.p))
+    flags = [(bool(a), int(b), bool(c)) for a, b, c in
+             ((done, ci, conv), (pdone, pci, pconv))]
+    print(f"[sharded] N=128 float64, 200 steps from rest: relative max "
+          f"error against the plain sg_step chunk {err:.3e} (bound 1e-11), "
+          f"rows {rel_err(rows, prows):.3e}; flags {flags[0]} / {flags[1]}",
+          flush=True)
+    check(err <= 1e-11 and flags[0] == flags[1],
+          f"sharded float64 chunk: error {err:.3e}, flags {flags}")
+
+    # float32: a 64-step chunk from a developing flow against the kernel
+    # chunk on the same tensors
+    p32 = params(128, "float32")
+    ops32 = core.build_spectral_ops(p32)[0]
+    sh32 = SP.shard_ops(SP.build_sharded_ops(p32)[0], 0, 1)
+    inf32 = torch.tensor(inf, device=dev)
+    with uncounted():
+        dev_state = sgk.make_sg_chunk_runner(ops32, 500, 0.0)(
+            core.initial_state(ops32), 0, inf32)[0]
+        ks, kdone, kci, _, _, _ = sgk.make_sg_chunk_runner(ops32, 64, 1e-8)(
+            dev_state, 500, inf32)
+    (u, v, pp), done, ci, _, _, _ = SP.make_sharded_chunk_runner(
+        mesh, sh32, 64, 1e-8)((dev_state.u, dev_state.v,
+                               SP.pad_pressure(dev_state.p)), 500, inf)
+    err = max(rel_err(u, ks.u), rel_err(v, ks.v),
+              rel_err(SP.unpad_pressure(pp), ks.p))
+    same = (bool(done), int(ci)) == (bool(kdone), int(kci))
+    print(f"[sharded] N=128 float32, a 64-step chunk from the flow after 500 "
+          f"steps: relative max error against the kernel chunk {err:.3e} "
+          f"(bound 1e-4); done/conv_iter equal {same}", flush=True)
+    check(err <= 1e-4 and same,
+          f"sharded float32 chunk: error {err:.3e}, flags equal {same}")
+
+    # float32 timing: 2,000 steps from rest against the kernel chunk
+    s0 = core.initial_state(ops32)
+    whole = (s0.u, s0.v, SP.pad_pressure(s0.p))
+    run = SP.make_sharded_chunk_runner(mesh, sh32, 2000, 0.0)
+    torch.cuda.synchronize()  # the runs above warmed cuBLAS and NCCL
+    t0 = time.time()
+    (u, v, pp), *_ = run(SP.shard_state(mesh, whole), 0, inf)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) / 2000 * 1e3
+    with uncounted():
+        krun = sgk.make_sg_chunk_runner(ops32, 2000, 0.0)
+        krun(s0, 0, inf32)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        kstate = krun(s0, 0, inf32)[0]
+        torch.cuda.synchronize()
+        kms = (time.time() - t0) / 2000 * 1e3
+    finite = all(bool(torch.isfinite(t).all()) for t in (u, v, pp))
+    ke, kke = kinetic_energy(ops32, u, v), kinetic_energy(ops32, kstate.u,
+                                                          kstate.v)
+    ke_err = abs(ke - kke) / abs(kke)
+    run20 = SP.make_sharded_chunk_runner(mesh, sh32, 20, 0.0)
+    prof = profile_chunk(lambda: run20(SP.shard_state(mesh, whole), 0, inf),
+                         "sharded profile N=128 float32 20-step chunk")
+    per_step = (f"{len(prof[0]) / 20:.1f} device activities a step"
+                if prof else "launches a step not measured")
+    print(f"[sharded] N=128 float32, 2,000 steps from rest: {ms:.4f} ms a "
+          f"step ({1e3 / ms:.1f} steps/s), {per_step}; the kernel chunk "
+          f"{kms:.4f} ms a step; finite {finite}; kinetic energy {ke:.9e} "
+          f"against the kernel path's {kke:.9e} (relative {ke_err:.3e}, "
+          f"bound 1e-4)", flush=True)
+    check(finite, "the sharded float32 state is not finite")
+    check(ke_err <= 1e-4, f"sharded kinetic energy off by {ke_err:.3e}")
+
+
+def phase_sg_sweep_mesh():
+    """Phase 19: phase 11's sweep through run_batched(mesh=...) at world
+    size 1: every lane bit-equal to the sweep without a mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    check(SG_SWEEP, "phase 11 left no sweep to repeat")
+    solvers = [SGSolver(params=sg_sweep_params(*lane))
+               for lane in SG_SWEEP_LANES]
+    mesh = init_device_mesh(solvers[0].device.type, (1,),
+                            mesh_dim_names=("sweep",))
+    t0 = time.time()
+    results = TB.run_batched(solvers, mesh=mesh)
+    torch.cuda.synchronize()
+    call = time.time() - t0
+    iters = [r.iterations for r in results]
+    bits = [all(same_bits(a, b) for a, b in zip(s.state, ref))
+            for s, ref in zip(solvers, SG_SWEEP["states"])]
+    print(f"[sg sweep mesh] N=128 float32, 8 lanes x 5000 steps over a "
+          f"('sweep',) mesh of 1 rank (NCCL): shared wall "
+          f"{results[0].wall_time:.3f}s (call {call:.3f}s) against "
+          f"{SG_SWEEP['wall']:.3f}s without a mesh; iterations {iters}; "
+          f"every lane bit-equal {all(bits)}", flush=True)
+    check(iters == SG_SWEEP["iterations"], f"mesh sweep iterations {iters}")
+    check(all(bits), f"mesh sweep lanes differ: {bits}")
+
+
+def phase_scaling():
+    """Phase 20: the scaling probe at one rank, N=127 (a reading of the
+    mechanism on one card, not a scaling claim)."""
+    out = measure_scaling(n=127, device="cuda")
+    print("[scaling] one rank, N=127: " + json.dumps(out), flush=True)
+    check(all(np.isfinite(v) for k, v in out.items()
+              if isinstance(v, float)), f"scaling keys not finite: {out}")
+
+
+def phase_dryrun():
+    """dryrun_multigpu over every card: in a one-rank NCCL world when the
+    machine shows one card (its 2-process sweep is then not measured)."""
+    n = torch.cuda.device_count()
+    t0 = time.time()
+    if n == 1:
+        with nccl_world():
+            dryrun_multigpu(1, "cuda")
+    else:
+        dryrun_multigpu(n, "cuda")
+    print(f"[dryrun] {n} card(s): {time.time() - t0:.1f}s", flush=True)
+
+
 def flagship_vmg() -> int:
     """The converged VMG [192, 96] Re=1000 tol 1e-6 float32 solve."""
     card = phase_device()
@@ -1992,6 +2159,13 @@ MAIN_PATHS = (
     ("fsg sweep N=40", phase_fsg_sweep, sgl.KERNELS),
     ("sg sweep N=128", phase_sg_sweep, ("sg_lanes_aligned",)),
     ("fv sweep N=128", phase_fv_sweep, fvl.KERNELS),
+    # the distributed paths at world size 1 over NCCL: the x-sharded solve
+    # runs torch.matmul and collectives (no pallas_call in the JAX
+    # module), the mesh sweep the lane kernels, the scaling probe both
+    ("sg N=128 x-sharded", in_nccl_world(phase_sharded), ()),
+    ("sg sweep N=128 over a mesh", in_nccl_world(phase_sg_sweep_mesh),
+     ("sg_lanes_aligned",)),
+    ("scaling probe", in_nccl_world(phase_scaling), ("sg_lanes_tiled",)),
 )
 # every module that counts kernel launches or plain calls
 COUNTERS = (sgk, fvk, sgl, fvl, TS)
@@ -2038,6 +2212,7 @@ def main() -> int:
             profile_vmg_chunk(out)
         if phase is phase_newton_cold:
             profile_ptc_step(out)
+    phase_dryrun()
     kernels = [{key: summary[k][key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
@@ -2055,6 +2230,6 @@ def main() -> int:
 if __name__ == "__main__":
     try:
         sys.exit(main())
-    except SmokeFailure as exc:
+    except (SmokeFailure, NoDeviceActivity) as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         sys.exit(1)

@@ -345,10 +345,9 @@ class TestSolver:
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 TF.FVSolver(**base())
 
-    def test_checkpointing_is_not_ported(self, tmp_path):
-        """checkpoint_dir is ported now: the solver takes it and a solve
-        writes its checkpoints (resume: tests/test_torch_checkpoint.py).
-        The name is kept from when this test checked the refusal."""
+    def test_fv_solve_writes_its_checkpoints(self, tmp_path):
+        """The solver takes checkpoint_dir and a solve writes its
+        checkpoints (resume: tests/test_torch_checkpoint.py)."""
         ck = tmp_path / "ck"
         s = TF.FVSolver(device="cpu", checkpoint_dir=str(ck),
                         checkpoint_every_chunks=1,

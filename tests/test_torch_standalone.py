@@ -2,7 +2,9 @@
 
 - A fresh interpreter imports every module of the port (the batched-sweep
   modules of ``parallel/``, the lane-kernel wrappers, the Newton solver
-  ``models/steady.py`` and ``utils/checkpoint.py`` among them) and
+  ``models/steady.py``, ``utils/checkpoint.py``, the multi-process modules
+  ``parallel/{spatial,distributed,scaling,dryrun}.py`` and the tracer
+  ``utils/profiling.py`` among them) and
   chip_smoke.py's import block while a ``sys.meta_path`` finder refuses
   ``jax``, ``jaxlib`` and ``anap3_tpu`` (and their submodules); none of
   them may end up in ``sys.modules``.
@@ -59,6 +61,12 @@ assert SWEEP <= set(names), SWEEP - set(names)
 # and the Newton solver and checkpoint modules
 STEADY = {"anap3_tpu_torch.models.steady", "anap3_tpu_torch.utils.checkpoint"}
 assert STEADY <= set(names), STEADY - set(names)
+# and the multi-process modules and the tracer
+MULTI = {"anap3_tpu_torch.parallel.spatial",
+         "anap3_tpu_torch.parallel.distributed",
+         "anap3_tpu_torch.parallel.scaling", "anap3_tpu_torch.parallel.dryrun",
+         "anap3_tpu_torch.utils.profiling"}
+assert MULTI <= set(names), MULTI - set(names)
 import chip_smoke  # its import block; main() runs only as a script
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked

@@ -208,11 +208,6 @@ class TestPlainSweepAgainstJax:
         np.testing.assert_array_equal(tr.history_iters, jr.history_iters)
         assert_rows(tr.history, jr.history)
 
-    def test_mesh_is_not_ported(self):
-        _, tops = lanes([spec(100.0, n=8)])
-        with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-            port_sweep(tops, tolerance=1e-3, max_iterations=10, mesh=object())
-
 
 class TestResidualCriterion:
     """``convergence_metric=residual`` per lane, each with its own
@@ -233,7 +228,7 @@ class TestResidualCriterion:
             runner = lambda c, t, w, m: sgl.make_lane_chunk_runner(
                 tops, c, t, w, m)
         sgl.reset_counts()
-        tr = port_sweep(tops, chunk_runner=runner, **kw)
+        tr = port_sweep(tops, lane_runner=lambda lanes: runner, **kw)
         assert (sgl.PLAIN_CALLS["sg_lanes"] > 0) == (path == "lane_runner")
         assert tr.converged.all()
         for k, ops in enumerate(tops):
