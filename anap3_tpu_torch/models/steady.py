@@ -18,14 +18,19 @@ Stokes block
         [ beta^2 * Div      I/dt ]   tensor-product eigendecomposition;
                                      pressure: Schur-complement BiCGSTAB.
 
-Everything on the device is float64. The Schur BiCGSTAB carries its stop
-and breakdown state as 0-d device tensors and runs its whole iteration
-budget with masked updates, so one preconditioned matvec (the GMRES
-vector's only device work) reads nothing back to the host: the host waits
-once per Krylov vector, for the matvec's result.
-
-On CUDA the Newton iteration is plain PyTorch on the card, as it is plain
-jitted JAX on the TPU (no ``pallas_call`` in the JAX module); the
+Everything on the device is float64. As the JAX package compiles its
+matvec once (``@jax.jit matvec_fused``, ``inv_dt`` and ``inv_hlam`` traced
+arguments), a PTC solve on CUDA captures the preconditioned matvec once
+into a CUDA graph over static buffers (``_Matvec``: x, y, the output,
+``inv_dt`` as a 0-d device tensor and ``inv_hlam``); a PTC step copies its
+x, ``inv_dt`` and ``inv_hlam`` in, and each GMRES vector copies y in,
+replays the graph and reads the result back once. The Schur BiCGSTAB inside
+it is the hand-written kernel ``ops/nk_kernels`` (one cooperative launch
+that stops on the device, as JAX's ``while_loop`` stops); the rest of the
+graph is the PyTorch the JAX package leaves to XLA (the outer H-solves and
+``torch.func.jvp`` through the residual core). On the CPU the same buffers
+run eagerly through the plain Schur loop (``nk_kernels.schur_plain``: the
+whole budget with masked updates), by the caller's choice of device. The
 ``newton_prelude`` march runs the SG kernels (``ops/sg_kernels``).
 """
 
@@ -40,6 +45,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from ..ops import nk_kernels as nk
 from . import spectral_sg as core
 from .params import SpectralParameters
 from .runner import METRIC_KEYS, IterationResult
@@ -115,52 +121,6 @@ class _SteadyProblem:
         return self.flatten(R_u[1:-1, 1:-1], R_v[1:-1, 1:-1], R_p)
 
 
-def schur_bicgstab(A, b, tol: float, maxiter: int):
-    """BiCGSTAB from x0 = 0 with the semantics of
-    ``jax.scipy.sparse.linalg.bicgstab(A, b, tol=tol, maxiter=maxiter)``
-    (no preconditioner), without a host sync.
-
-    The stop test (||r||^2 <= tol^2 ||b||^2), the early exit on ||s||^2 and
-    the breakdown codes (-11 for omega = 0 or alpha = 0, -10 for rho = 0)
-    are 0-d device tensors. All ``maxiter`` iterations run; once the loop
-    would have stopped, every update is masked off, so x is the stopping
-    loop's x. Returns (x, k): k the iterations taken or the breakdown code,
-    as a device tensor. r0 = b - A(0) = b: A is linear."""
-    vdot = lambda a, c: torch.sum(a * c)
-    atol2 = tol * tol * vdot(b, b)
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-    x, r, rhat, p, q = torch.zeros_like(b), b, b, b, b
-    rho = alpha = omega = one
-    k = torch.zeros((), dtype=torch.int32, device=b.device)
-    # the iteration index bounds k, so k < maxiter holds in every pass
-    for _ in range(int(maxiter)):
-        active = (vdot(r, r) > atol2) & (k >= 0)
-        rho_ = vdot(rhat, r)
-        beta = rho_ / rho * alpha / omega
-        p_ = r + beta * (p - omega * q)
-        q_ = A(p_)
-        alpha_ = rho_ / vdot(rhat, q_)
-        s = r - alpha_ * q_
-        exit_early = vdot(s, s) < atol2
-        t = A(s)
-        omega_ = vdot(t, s) / vdot(t, t)
-        x_ = torch.where(exit_early, x + alpha_ * p_,
-                         x + (alpha_ * p_ + omega_ * s))
-        r_ = torch.where(exit_early, s, s - omega_ * t)
-        k_ = torch.where((omega_ == 0) | (alpha_ == 0),
-                         torch.full_like(k, -11), k + 1)
-        k_ = torch.where(rho_ == 0, torch.full_like(k, -10), k_)
-        x = torch.where(active, x_, x)
-        r = torch.where(active, r_, r)
-        p = torch.where(active, p_, p)
-        q = torch.where(active, q_, q)
-        rho = torch.where(active, rho_, rho)
-        alpha = torch.where(active, alpha_, alpha)
-        omega = torch.where(active, omega_, omega)
-        k = torch.where(active, k_, k)
-    return x, k
-
-
 class _StokesPreconditioner:
     """Shifted-Stokes block preconditioner for the PTC systems.
 
@@ -169,8 +129,9 @@ class _StokesPreconditioner:
     matrices (numpy, as in the JAX package, then moved to the device once)
     turns every H-solve into four (ni x ni) products. The pressure block is
     the AC Schur complement S = I/dt - beta^2 * Div H^{-1} Grad, solved by
-    the sync-free ``schur_bicgstab`` to a loose tolerance: it only
-    preconditions.
+    BiCGSTAB to a loose tolerance (``nk_kernels.schur_solve``: the kernel on
+    CUDA): it only preconditions. ``inv_dt`` may be a float or a 0-d tensor
+    (the graphed matvec's buffer): both give the same bits.
     """
 
     def __init__(self, problem: _SteadyProblem, grid: dict,
@@ -187,57 +148,111 @@ class _StokesPreconditioner:
         dev = lambda a: torch.as_tensor(np.ascontiguousarray(a),
                                         dtype=ops.dtype, device=ops.device)
         self.LAM = dev(np.real(lx)[:, None] + np.real(ly)[None, :])
-        self.Vx = dev(np.real(Vx))
-        self.Vy = dev(np.real(Vy))
-        self.Vxi = dev(np.linalg.inv(np.real(Vx)))
-        self.Vyi = dev(np.linalg.inv(np.real(Vy)))
-        # interior-restricted gradient / divergence operators
-        self.Gxr = ops.Gx[1:-1, :].contiguous()
-        self.IyTr = ops.IyT[:, 1:-1].contiguous()
-        self.Ixr = ops.Ix[1:-1, :].contiguous()
-        self.GyTr = ops.GyT[:, 1:-1].contiguous()
-        self.Dxi = ops.Dx[1:-1, 1:-1].contiguous()
-        self.DyTi = ops.DyT[1:-1, 1:-1].contiguous()
         self.beta_sq = ops.beta_sq
+        # interior-restricted gradient / divergence operators and the
+        # eigen-factors of H
+        self.schur = nk.SchurOps(
+            Gxr=ops.Gx[1:-1, :].contiguous(),
+            IyTr=ops.IyT[:, 1:-1].contiguous(),
+            Ixr=ops.Ix[1:-1, :].contiguous(),
+            GyTr=ops.GyT[:, 1:-1].contiguous(),
+            Vxi=dev(np.linalg.inv(np.real(Vx))),
+            Vyi=dev(np.linalg.inv(np.real(Vy))),
+            Vx=dev(np.real(Vx)), Vy=dev(np.real(Vy)),
+            Dxi=ops.Dx[1:-1, 1:-1].contiguous(),
+            DyTi=ops.DyT[1:-1, 1:-1].contiguous(), beta_sq=self.beta_sq)
 
-    def inv_hlam(self, inv_dt: float) -> torch.Tensor:
+    def inv_hlam(self, inv_dt) -> torch.Tensor:
         """Eigenvalues of H^{-1} for the current shift (recomputed per dt)."""
         return 1.0 / (inv_dt - self.problem.ops.nu * self.LAM)
 
-    def _hsolve(self, f, inv_hlam):
-        z = (self.Vxi @ f) @ self.Vyi.T * inv_hlam
-        return self.Vx @ (z @ self.Vy.T)
-
-    def _grad(self, pp):
-        return (self.Gxr @ pp) @ self.IyTr, (self.Ixr @ pp) @ self.GyTr
-
-    def _div(self, ui, vi):
-        return self.Dxi @ ui + vi @ self.DyTi
-
-    def apply(self, r, inv_dt: float, inv_hlam) -> torch.Tensor:
+    def apply(self, r, inv_dt, inv_hlam) -> torch.Tensor:
+        S = self.schur
         r_u, r_v, r_p = self.problem.unflatten(r)
-        rhs = r_p - self.beta_sq * self._div(
-            self._hsolve(r_u, inv_hlam), self._hsolve(r_v, inv_hlam))
-
-        def s_apply(pp):
-            gx, gy = self._grad(pp)
-            return inv_dt * pp - self.beta_sq * self._div(
-                self._hsolve(gx, inv_hlam), self._hsolve(gy, inv_hlam))
-
-        dp, _ = schur_bicgstab(s_apply, rhs, tol=1e-8,
-                               maxiter=self.schur_iters)
-        gx, gy = self._grad(dp)
-        du = self._hsolve(r_u - gx, inv_hlam)
-        dv = self._hsolve(r_v - gy, inv_hlam)
+        rhs = r_p - self.beta_sq * nk.div(
+            S, nk.hsolve(S, r_u, inv_hlam), nk.hsolve(S, r_v, inv_hlam))
+        dp, _ = nk.schur_solve(S, rhs.contiguous(), inv_dt, inv_hlam,
+                               tol=1e-8, maxiter=self.schur_iters)
+        gx, gy = nk.grad(S, dp)
+        du = nk.hsolve(S, r_u - gx, inv_hlam)
+        dv = nk.hsolve(S, r_v - gy, inv_hlam)
         return self.problem.flatten(du, dv, dp)
 
 
 def matvec_fused(problem: _SteadyProblem, precond: _StokesPreconditioner,
-                 x_dev, y, inv_dt: float, inv_hlam) -> torch.Tensor:
+                 x_dev, y, inv_dt, inv_hlam) -> torch.Tensor:
     """(I/dt - J(x)) P^{-1} y on the device: the preconditioner, then the
-    shifted Jacobian product. No host read."""
+    shifted Jacobian product. No host read. ``inv_dt`` a float or a 0-d
+    tensor."""
     z = precond.apply(y, inv_dt, inv_hlam)
     return z * inv_dt - problem.jvp(x_dev, z)
+
+
+class _Matvec:
+    """The preconditioned matvec of one PTC solve over static buffers: the
+    counterpart of the JAX package's ``@jax.jit matvec_fused``.
+
+    ``set_step(x, inv_dt)`` copies a PTC step's x, ``inv_dt`` (a 0-d
+    float64 device tensor, never a literal of the graph) and ``inv_hlam``
+    into the buffers. ``__call__(y)`` takes and returns host float64
+    vectors: y is copied in, the matvec runs and its result is read back
+    once (a copy, so the next run cannot overwrite it). On CUDA the matvec
+    is captured into one CUDA graph at its first call, after a warm-up on a
+    side stream, and every later call replays it; the Schur kernel's
+    launches in the graph count in ``nk_kernels.LAUNCHES`` at each replay.
+    On the CPU the same buffers run the matvec eagerly.
+    ``precond_apply(y)`` is P^{-1} y, eager (once a step).
+    """
+
+    def __init__(self, problem: _SteadyProblem,
+                 precond: _StokesPreconditioner):
+        self.problem, self.precond = problem, precond
+        kw = dict(dtype=torch.float64, device=problem.ops.device)
+        ni = problem.ni
+        self.x = torch.zeros(problem.n_tot, **kw)
+        self.y = torch.zeros(problem.n_tot, **kw)
+        self.inv_dt = torch.ones((), **kw)
+        self.inv_hlam = torch.ones((ni, ni), **kw)
+        self.graphed = problem.ops.device.type == "cuda"
+        self.graph = None
+        self.out = None
+        self.launches = {}  # the kernel launches of one replay
+
+    def set_step(self, x: np.ndarray, inv_dt: float) -> None:
+        self.x.copy_(torch.from_numpy(np.asarray(x, np.float64)))
+        self.inv_dt.fill_(inv_dt)
+        self.inv_hlam.copy_(self.precond.inv_hlam(self.inv_dt))
+
+    def _fused(self):
+        return matvec_fused(self.problem, self.precond, self.x, self.y,
+                            self.inv_dt, self.inv_hlam)
+
+    def _capture(self) -> None:
+        side = torch.cuda.Stream(self.x.device)
+        side.wait_stream(torch.cuda.current_stream(self.x.device))
+        with torch.cuda.stream(side):
+            self._fused()  # warm-up: library, co-resident count, caches
+        torch.cuda.current_stream(self.x.device).wait_stream(side)
+        before = dict(nk.CAPTURED)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self._fused()
+        self.launches = {k: nk.CAPTURED[k] - before[k] for k in before}
+        self.graph = graph
+
+    def __call__(self, y: np.ndarray) -> np.ndarray:
+        self.y.copy_(torch.from_numpy(np.asarray(y, np.float64)))
+        if not self.graphed:
+            return _host(self._fused())
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        nk.count_replay(self.launches)
+        return _host(self.out)
+
+    def precond_apply(self, y: np.ndarray) -> np.ndarray:
+        return _host(self.precond.apply(self.problem.to_device(y),
+                                        self.inv_dt, self.inv_hlam))
 
 
 def _gmres(matvec, precond, rhs, k, tol):
@@ -309,6 +324,7 @@ def ptc_solve(problem: _SteadyProblem, precond: _StokesPreconditioner,
     """
     x = np.array(x0, np.float64)
     rms = 1.0 / np.sqrt(problem.n_tot)
+    matvec = _Matvec(problem, precond)
     nF_window = deque(maxlen=5)  # nonmonotone reference values
     if stats is not None:
         stats.setdefault("gmres_vectors", [])
@@ -333,16 +349,9 @@ def ptc_solve(problem: _SteadyProblem, precond: _StokesPreconditioner,
         if nF * rms <= tol_rms:
             converged = True
             break
-        inv_dt = 1.0 / dt
-        inv_hlam = precond.inv_hlam(inv_dt)
-        x_dev = problem.to_device(x)
-        delta, rel, used = _gmres(
-            lambda y: _host(matvec_fused(problem, precond, x_dev,
-                                         problem.to_device(y), inv_dt,
-                                         inv_hlam)),
-            lambda y: _host(precond.apply(problem.to_device(y), inv_dt,
-                                          inv_hlam)),
-            Fk, gmres_vectors, tol=1e-4)
+        matvec.set_step(x, 1.0 / dt)
+        delta, rel, used = _gmres(matvec, matvec.precond_apply, Fk,
+                                  gmres_vectors, tol=1e-4)
         if stats is not None:
             stats["gmres_vectors"].append(used)
         nF_ref = max(nF_window)

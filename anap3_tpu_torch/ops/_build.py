@@ -2,7 +2,8 @@
 
 ``nvcc`` compiles the sources of one kernel family in
 ``anap3_tpu_torch/csrc/`` (``<family>_*.cu`` and ``<family>_*.cuh``: "sg"
-for the spectral kernels, "fv" for the FV-SIMPLE kernels) for Hopper
+for the spectral kernels, "fv" for the FV-SIMPLE kernels, "nk" for the
+Newton-Krylov Schur solve) for Hopper
 (``sm_90a``) into one shared library per family with a plain C interface,
 loaded with ``ctypes`` (no PyTorch headers, so a cold build takes seconds,
 not minutes). A library lands in ``build/anap3_tpu_torch/<hash>/`` at the
@@ -33,7 +34,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "anap3_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-FAMILIES = ("sg", "fv")
+FAMILIES = ("sg", "fv", "nk")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _info: Dict[str, dict] = {}
@@ -125,7 +126,16 @@ def _bind_fv(lib: ctypes.CDLL) -> None:
     lib.fv_error_string.restype = ctypes.c_char_p
 
 
-_BIND = {"sg": _bind_sg, "fv": _bind_fv}
+def _bind_nk(lib: ctypes.CDLL) -> None:
+    vp, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    # ni, ptrs, tol^2, beta^2, maxiter, the stream
+    lib.nk_schur_run.argtypes = [i, ctypes.POINTER(vp), d, d, i, vp]
+    lib.nk_schur_run.restype = i
+    lib.nk_error_string.argtypes = [i]
+    lib.nk_error_string.restype = ctypes.c_char_p
+
+
+_BIND = {"sg": _bind_sg, "fv": _bind_fv, "nk": _bind_nk}
 
 
 def _library_path(family: str) -> Path:

@@ -21,8 +21,10 @@ of the stored exact states in data/steady/ (their steady residual is
 
 Prints one line a solve: PTC steps, ``converged``, the final RMS steady
 residual ||F||_rms, psi_min, omega_center, the final kinetic energy, the
-GMRES vectors of every accepted step (from the solver's log lines) and
-the wall seconds.
+GMRES vectors of every accepted step (from the solver's log lines), the
+wall seconds, and ||F||_rms after each accepted step (from the solver's
+residual history). ``--steps n`` caps the solve at n PTC steps (the
+trajectory's first steps, which chip_smoke.py holds the port's to).
 """
 
 import argparse
@@ -73,6 +75,8 @@ def main() -> None:
     ap.add_argument("--only", choices=sorted(CASES))
     ap.add_argument("--basis", choices=("legendre", "chebyshev"),
                     default="legendre")
+    ap.add_argument("--steps", type=int, default=BASE["newton_max_steps"],
+                    help="cap the PTC steps (default: newton.yaml's 50)")
     args = ap.parse_args()
     steady_log = logging.getLogger("anap3_tpu.models.steady")
     steady_log.setLevel(logging.INFO)
@@ -81,7 +85,8 @@ def main() -> None:
             continue
         vec = _Vectors()
         steady_log.addHandler(vec)
-        solver = NewtonSolver(**dict(BASE, basis_type=args.basis, **over))
+        solver = NewtonSolver(**dict(BASE, basis_type=args.basis,
+                                     newton_max_steps=args.steps, **over))
         t0 = time.time()
         solver.solve()
         wall = time.time() - t0
@@ -97,6 +102,11 @@ def main() -> None:
               f"{m.psi_min!r}, omega_center {m.omega_center!r}, final "
               f"energy {m.final_energy!r}, GMRES vectors {vec.vectors}, "
               f"wall {wall:.1f}s", flush=True)
+        ts = solver.time_series
+        steps_rms = [float(np.sqrt(u * u + v * v + c * c) / np.sqrt(prob.n_tot))
+                     for u, v, c in zip(ts.u_residual, ts.v_residual,
+                                        ts.continuity_residual)]
+        print(f"{name} ||F||_rms after each step: {steps_rms!r}", flush=True)
 
 
 if __name__ == "__main__":

@@ -14,7 +14,8 @@ residual): the same inputs through both packages.
   sync-free Schur BiCGSTAB within 1e-12 of ``models/fv.bicgstab`` (same
   operator: converged, early stop, budget, both breakdown codes) and of
   ``jax.scipy.sparse.linalg.bicgstab`` (budget and early stop in the first
-  iterations); one fused matvec calls no host read (no
+  iterations; the loop is ``ops/nk_kernels.schur_bicgstab``, the Schur
+  kernel's plain version); one fused matvec calls no host read (no
   ``Tensor.__bool__``, ``item``, ``tolist``, ...).
 - ``_gmres`` on one matvec: equal vectors used, relative residual within
   1e-8, update within 1e-9; ``ptc_solve``: equal steps and flags, x
@@ -26,8 +27,9 @@ residual): the same inputs through both packages.
   ``main.py solver=gpu/newton``. (The polish: tests/test_torch_polish.py.)
 
 On a CUDA card (marker ``gpu``; run there with ``python -m pytest
-tests/test_torch_steady.py -m gpu --noconftest``): a fused matvec under
-``torch.cuda.set_sync_debug_mode("error")``, the N=20 solve against the
+tests/test_torch_steady.py -m gpu --noconftest``): a fused matvec and a
+replay of its CUDA graph under ``torch.cuda.set_sync_debug_mode("error")``,
+both bit-equal to the first eager matvec, the N=20 solve against the
 CPU's, and the Re=3200 N=128 warm start from ``sharp_Re1000_N128.npz``
 against ``sharp_Re3200_N128.npz``.
 """
@@ -44,6 +46,7 @@ from anap3_tpu_torch.models import fv as TF
 from anap3_tpu_torch.models import spectral_sg as T
 from anap3_tpu_torch.models import steady as TS
 from anap3_tpu_torch.models.params import SpectralParameters
+from anap3_tpu_torch.ops import nk_kernels as NK
 
 torch.set_num_threads(1)
 
@@ -157,9 +160,11 @@ class TestProblem:
 
 class TestPreconditioner:
     def test_eigen_factors_are_jax_bits(self, pair):
+        tpre = pair["tpre"]
         for name in ("LAM", "Vx", "Vy", "Vxi", "Vyi"):
+            # the eigen-factors of H are Schur operators of the port
             np.testing.assert_array_equal(
-                host(getattr(pair["tpre"], name)),
+                host(getattr(tpre if name == "LAM" else tpre.schur, name)),
                 np.asarray(getattr(pair["jpre"], name)), err_msg=name)
 
     # the Schur solve cut by its budget before it converges (8) agrees with
@@ -195,9 +200,10 @@ class TestPreconditioner:
         j_inv = jpre.inv_hlam(jx.jnp.float64(1.0 / dt))
 
         def s_t(pp):
-            gx, gy = tpre._grad(pp)
-            return pp / dt - tpre.beta_sq * tpre._div(
-                tpre._hsolve(gx, t_inv), tpre._hsolve(gy, t_inv))
+            S = tpre.schur
+            gx, gy = NK.grad(S, pp)
+            return pp / dt - tpre.beta_sq * NK.div(
+                S, NK.hsolve(S, gx, t_inv), NK.hsolve(S, gy, t_inv))
 
         def s_j(pp):
             gx, gy = jpre._grad(pp)
@@ -216,7 +222,7 @@ class TestPreconditioner:
         stopping loop of models/fv.bicgstab on the same operator."""
         s_t, _, rhs = self.schur_system(pair, jx)
         b = torch.as_tensor(rhs)
-        x_t, k_t = TS.schur_bicgstab(s_t, b, tol=tol, maxiter=maxiter)
+        x_t, k_t = NK.schur_bicgstab(s_t, b, tol=tol, maxiter=maxiter)
         x_f, k_f = TF.bicgstab(s_t, b, torch.zeros_like(b), tol=tol,
                                maxiter=maxiter)
         assert int(k_t) == k_f
@@ -241,11 +247,11 @@ class TestPreconditioner:
         else:
             res = [1.0]  # relative residual after 0, 1, ... iterations
             while len(res) < 4 or min(res[:-1]) / res[-1] < 1.5:
-                x_m = TS.schur_bicgstab(s_t, b, 0.0, len(res))[0]
+                x_m = NK.schur_bicgstab(s_t, b, 0.0, len(res))[0]
                 res.append(rel(host(s_t(x_m)), rhs))
             want = len(res) - 1
             tol, maxiter = float(np.sqrt(min(res[:want]) * res[want])), 40
-        x_t, k_t = TS.schur_bicgstab(s_t, b, tol=tol, maxiter=maxiter)
+        x_t, k_t = NK.schur_bicgstab(s_t, b, tol=tol, maxiter=maxiter)
         x_j, _ = jx.jax.scipy.sparse.linalg.bicgstab(
             s_j, jx.jnp.asarray(rhs), tol=tol, maxiter=maxiter)
         assert int(k_t) == (maxiter if want is None else want)
@@ -259,7 +265,7 @@ class TestPreconditioner:
     def test_breakdown_codes_match_fv(self, code, A, b):
         A = torch.tensor(A, dtype=torch.float64)
         b = torch.tensor(b, dtype=torch.float64)
-        x_t, k_t = TS.schur_bicgstab(lambda v: A @ v, b, 1e-8, 10)
+        x_t, k_t = NK.schur_bicgstab(lambda v: A @ v, b, 1e-8, 10)
         x_f, k_f = TF.bicgstab(lambda v: A @ v, b, torch.zeros_like(b),
                                tol=1e-8, maxiter=10)
         assert int(k_t) == k_f == code
@@ -530,13 +536,19 @@ class TestOnCard:
         y = prob.to_device(rng.standard_normal(prob.n_tot))
         inv_hlam = pre.inv_hlam(20.0)
         ref = TS.matvec_fused(prob, pre, x, y, 20.0, inv_hlam)  # warm-up
+        # the graph of a PTC solve over the same point (captured here)
+        mv = TS._Matvec(prob, pre)
+        mv.set_step(host(x), 20.0)
+        np.testing.assert_array_equal(mv(host(y)), host(ref))
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             out = TS.matvec_fused(prob, pre, x, y, 20.0, inv_hlam)
+            mv.graph.replay()
         finally:
             torch.cuda.set_sync_debug_mode(0)
         assert torch.equal(out, ref)
+        assert torch.equal(mv.out, ref)
 
     def test_solve_on_the_card_matches_the_cpu(self, cuda):
         kw = dict(Re=100.0, nx=20, ny=20, corner_treatment="singular",
