@@ -131,6 +131,8 @@ def _bind_nk(lib: ctypes.CDLL) -> None:
     # ni, ptrs, tol^2, beta^2, maxiter, the stream
     lib.nk_schur_run.argtypes = [i, ctypes.POINTER(vp), d, d, i, vp]
     lib.nk_schur_run.restype = i
+    lib.nk_schur_geometry.argtypes = [i, ctypes.POINTER(i)]
+    lib.nk_schur_geometry.restype = i
     lib.nk_error_string.argtypes = [i]
     lib.nk_error_string.restype = ctypes.c_char_p
 

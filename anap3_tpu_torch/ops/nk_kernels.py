@@ -20,7 +20,9 @@ the plain version ``schur_plain`` (``schur_bicgstab`` on ``schur_apply``, the
 loop run to its whole budget with masked updates, which reads nothing back
 to the host); a CUDA tensor launches ``csrc/nk_schur.cu:schur_kernel`` (one
 cooperative launch a solve, which stops on the device where the JAX loop
-stops) or raises.
+stops) or raises. The kernel applies S through operators folded ahead of
+time (``SchurOps``: 4 products a branch instead of 7); the plain version
+keeps the unfolded chain, the JAX package's.
 
 Launch counts: ``LAUNCHES["nk_schur"]`` counts the kernel's launches on the
 device. A launch enqueued while the stream is being captured into a CUDA
@@ -35,13 +37,15 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
 from .sg_kernels import _check
 
 __all__ = ["SchurOps", "schur_solve", "schur_kernel", "schur_plain",
            "schur_apply", "schur_bicgstab", "hsolve", "grad", "div",
-           "schur_flops", "schur_bytes", "KERNELS", "LAUNCHES", "CAPTURED",
+           "schur_geometry", "schur_flops", "schur_folded_flops",
+           "schur_bytes", "KERNELS", "LAUNCHES", "CAPTURED",
            "PLAIN_CALLS", "reset_counts", "count_replay"]
 
 KERNELS = ("nk_schur",)
@@ -49,11 +53,12 @@ LAUNCHES = {k: 0 for k in KERNELS}
 CAPTURED = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {k: 0 for k in KERNELS}
 
+# the folded operators in the order of the kernel's table
+# (csrc/nk_common.cuh:Op)
+_FOLDED = ("Lx", "Ly", "Rx", "Ry", "Cx", "Vx", "VyT", "Ey")
 # pointer-table order of csrc/nk_common.cuh:Ptr
-_OPERATORS = ("Gxr", "IyTr", "Ixr", "GyTr", "Vxi", "VyiT", "VyT", "Vx",
-              "Dxi", "DyTi")
-_PTR_NAMES = _OPERATORS + ("inv_hlam", "inv_dt", "b", "x", "k", "r", "p0",
-                           "p1", "q", "s", "t", "w", "part")
+_PTR_NAMES = ("ops", "inv_hlam", "inv_dt", "b", "x", "k", "r", "p0", "p1",
+              "q", "s", "t", "w", "part")
 _TILE = 16
 _N_PART = 6  # partial-sum columns (csrc/nk_common.cuh:Part)
 
@@ -70,12 +75,30 @@ def count_replay(launches: dict) -> None:
         LAUNCHES[k] += int(n)
 
 
+def _padded(ni: int) -> int:
+    """The kernel's padded order: whole 16 x 16 tiles."""
+    return -(-ni // _TILE) * _TILE
+
+
 @dataclass
 class SchurOps:
-    """The operators of the Schur complement, (ni x ni) each, and beta^2.
-    ``VyiT`` and ``VyT`` are contiguous copies of the transposes, for the
-    kernel; the plain version multiplies by the transposed views, as the
-    JAX package does."""
+    """The operators of the Schur complement, (ni x ni) each, and beta^2,
+    with their folded forms.
+
+    The plain version multiplies by the unfolded operators (``Vyi.T`` and
+    ``Vy.T`` as transposed views), as the JAX package does. The kernel's
+    S-apply is 4 product levels on operators folded once, on the host in
+    numpy float64 (they do not depend on dt):
+
+        Lx = Vxi Gxr, Ly = Vxi Ixr, Rx = IyTr Vyi^T, Ry = GyTr Vyi^T,
+        Cx = Dxi Vx, Ey = Vy^T DyTi,
+        S(v) = inv_dt v - beta^2 (Cx ((Lx v Rx) * inv_hlam) Vy^T
+                                  + Vx ((Ly v Ry) * inv_hlam) Ey).
+
+    ``folded`` holds ``_FOLDED`` (those six, Vx and VyT = Vy^T) as one
+    (8, np, np) table on the operators' device, zero beyond ni, np the
+    order padded to whole 16 x 16 tiles; each name is its (ni x ni) view.
+    """
 
     Gxr: torch.Tensor
     IyTr: torch.Tensor
@@ -88,12 +111,32 @@ class SchurOps:
     Dxi: torch.Tensor
     DyTi: torch.Tensor
     beta_sq: float
-    VyiT: torch.Tensor = field(init=False)
-    VyT: torch.Tensor = field(init=False)
+    folded: torch.Tensor = field(init=False, repr=False)
+    Lx: torch.Tensor = field(init=False, repr=False)
+    Ly: torch.Tensor = field(init=False, repr=False)
+    Rx: torch.Tensor = field(init=False, repr=False)
+    Ry: torch.Tensor = field(init=False, repr=False)
+    Cx: torch.Tensor = field(init=False, repr=False)
+    VyT: torch.Tensor = field(init=False, repr=False)
+    Ey: torch.Tensor = field(init=False, repr=False)
 
     def __post_init__(self):
-        self.VyiT = self.Vyi.T.contiguous()
-        self.VyT = self.Vy.T.contiguous()
+        h = {name: getattr(self, name).detach().cpu().numpy().astype(
+            np.float64) for name in ("Gxr", "IyTr", "Ixr", "GyTr", "Vxi",
+                                     "Vyi", "Vx", "Vy", "Dxi", "DyTi")}
+        mats = {"Lx": h["Vxi"] @ h["Gxr"], "Ly": h["Vxi"] @ h["Ixr"],
+                "Rx": h["IyTr"] @ h["Vyi"].T, "Ry": h["GyTr"] @ h["Vyi"].T,
+                "Cx": h["Dxi"] @ h["Vx"], "Vx": h["Vx"], "VyT": h["Vy"].T,
+                "Ey": h["Vy"].T @ h["DyTi"]}
+        ni = h["Gxr"].shape[0]
+        table = np.zeros((len(_FOLDED), _padded(ni), _padded(ni)))
+        for i, name in enumerate(_FOLDED):
+            table[i, :ni, :ni] = mats[name]
+        self.folded = torch.as_tensor(table, dtype=self.Gxr.dtype,
+                                      device=self.Gxr.device)
+        for i, name in enumerate(_FOLDED):
+            if name != "Vx":
+                setattr(self, name, self.folded[i, :ni, :ni])
 
 
 # ------------------------------------------------------------- plain
@@ -190,12 +233,23 @@ def _raise_on(lib, rc: int, what: str):
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
+def schur_geometry(ni: int) -> tuple:
+    """(resident, grid) of the kernel's launch at order ni on the current
+    card: resident where every block owns one item and holds its operator
+    bands in shared memory (ni <= 128 where 2 x tiles blocks fit), else the
+    bands are streamed."""
+    lib = _lib()
+    out = (ctypes.c_int * 2)()
+    _raise_on(lib, lib.nk_schur_geometry(int(ni), out), "nk_schur_geometry")
+    return bool(out[0]), int(out[1])
+
+
 def schur_kernel(S: SchurOps, rhs, inv_dt, inv_hlam, tol: float,
                  maxiter: int):
     """The kernel on CUDA tensors: every operand float64, contiguous and
-    (ni x ni); ``inv_dt`` a 0-d device tensor (a float is filled into one).
-    Reads nothing back to the host, so it can be captured in a CUDA
-    graph."""
+    (ni x ni), the folded table (8, np, np); ``inv_dt`` a 0-d device tensor
+    (a float is filled into one). Reads nothing back to the host, so it
+    can be captured in a CUDA graph."""
     dev = rhs.device
     ni = int(rhs.shape[0])
     if dev.type != "cuda":
@@ -204,24 +258,22 @@ def schur_kernel(S: SchurOps, rhs, inv_dt, inv_hlam, tol: float,
         inv_dt = torch.full((), float(inv_dt), dtype=torch.float64,
                             device=dev)
     f64 = torch.float64
+    n_p = _padded(ni)
     _check("inv_dt", inv_dt, (), f64, dev)
-    for name in _OPERATORS:
-        _check(name, getattr(S, name), (ni, ni), f64, dev)
+    _check("folded", S.folded, (len(_FOLDED), n_p, n_p), f64, dev)
     _check("inv_hlam", inv_hlam, (ni, ni), f64, dev)
     _check("rhs", rhs, (ni, ni), f64, dev)
     if int(maxiter) < 0:
         raise ValueError(f"maxiter {maxiter} < 0")
     lib = _lib()
-    tiles = (-(-ni // _TILE)) ** 2
     kw = dict(dtype=f64, device=dev)
-    ws = {name: getattr(S, name) for name in _OPERATORS}
-    ws.update(inv_hlam=inv_hlam, inv_dt=inv_dt, b=rhs,
+    ws = dict(ops=S.folded, inv_hlam=inv_hlam, inv_dt=inv_dt, b=rhs,
               x=torch.empty((ni, ni), **kw),
               k=torch.empty((), dtype=torch.int32, device=dev),
-              w=torch.empty((4, ni, ni), **kw),
-              part=torch.empty((tiles, _N_PART), **kw))
+              w=torch.empty((6, n_p, n_p), **kw),
+              part=torch.empty(((n_p // _TILE) ** 2, _N_PART), **kw))
     for name in ("r", "p0", "p1", "q", "s", "t"):
-        ws[name] = torch.empty((ni, ni), **kw)
+        ws[name] = torch.empty((n_p, n_p), **kw)
     ptrs = (ctypes.c_void_p * len(_PTR_NAMES))(
         *[ws[n].data_ptr() for n in _PTR_NAMES])
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
@@ -253,6 +305,13 @@ def schur_flops(ni: int, iterations: int) -> float:
     vector work (the S-applies' epilogues, five dot products, the
     updates)."""
     return iterations * (28 * 2.0 * ni ** 3 + 40.0 * ni * ni)
+
+
+def schur_folded_flops(ni: int, iterations: int) -> float:
+    """Operations the kernel itself does: two S-applies of 8 products each
+    on the folded operators (``schur_flops`` stays the yardstick of the
+    bound: the unfolded work)."""
+    return iterations * (16 * 2.0 * ni ** 3 + 40.0 * ni * ni)
 
 
 def schur_bytes(ni: int) -> float:

@@ -8,8 +8,9 @@ when it fails:
 1. device: the card (nvidia-smi name and power limit), torch and CUDA
    versions, and the cold build of the SG, FV and Newton-Krylov (nk)
    kernels from ``csrc/`` (one ``nvcc`` per family, started together);
-   ptxas must report no spill and no stack frame in the nk family's
-   ``schur_kernel``, and no
+   ptxas must report no spill and no stack frame in either instantiation
+   of the nk family's ``schur_kernel`` (operator bands resident in shared
+   memory, and streamed), and no
    spill and no stack frame in any instantiation of the SG stage kernel
    and of the FV BiCGSTAB and pressure kernels, and their registers must
    leave 3 blocks an SM to the BiCGSTAB kernel in float32 and 4 (float32)
@@ -118,17 +119,20 @@ when it fails:
    BiCGSTAB of the Stokes preconditioner, one cooperative launch that stops
    on the device) against its plain version (the masked loop) on the card,
    with the plain loop on the CPU as the yardstick of rounding, on the
-   Schur systems of the Newton matvec at N = 12, 20, 96, 128 (ni = N - 1),
-   dt 0.05, 1 and 3e3, the sharp lid at Re=1000 and the smoothed one at
-   Re=250: at budgets 8 and 16 (no solve stops early) k equal and dp
+   Schur systems of the Newton matvec at N = 12, 20, 96, 128 (ni = N - 1;
+   the kernel's operator bands resident in shared memory) and 256 (streamed;
+   budgets 8 and 16 only), dt 0.05, 1 and 3e3, the sharp lid at Re=1000 and
+   the smoothed one at Re=250: at budgets 8 and 16 (no solve stops early)
+   k equal and dp
    within NK_B8_TOL relative or NK_SPREAD x the CPU loop's distance; at
    the default 40, k within 2, a converged solve's true residual within
    NK_RES_TOL (the kernel's and the plain loop's), and for the unconverged
    ones, over each system and NK_PERTURB perturbations of its right-hand
    side, the kernel's residuals against the plain loop's (NK_UNCONV_GM,
    NK_UNCONV_MED); the breakdown codes -10 and -11 and the exit on ||s||
-   on operators of the kernel's form; at N = 96 and 128 the kernel's and
-   the plain loop's ms a solve, iterations and bound;
+   on operators of the kernel's form; at N = 96, 128 and 256 the kernel's
+   and the plain loop's ms a solve at budget 40, iterations, us an
+   iteration and bound;
 4b. fsg N=96 polished (after phase 4): the flagship again with
    newton_polish=true: the march must take phase 4's iterations, then the
    float64 Newton polish on the card must converge in <= 12 PTC steps to
@@ -158,6 +162,11 @@ when it fails:
    (0 steps, as in JAX), so the phase then takes one PTC step from it
    (tolerance 0, newton_max_steps=1), which must keep ||F||_rms below
    1e-8;
+14b. newton N=256 warm: from sharp_Re5000_N256.npz (Re=5000) with phase
+   14's knobs at tolerance 1e-6: 0 PTC steps; then one PTC step from it
+   (tolerance 0, newton_max_steps=1), which must keep ||F||_rms below 1e-8
+   (the Schur kernel streams its operator bands at N=256); its wall and the
+   kernel's launches;
 15. newton prelude N=128: 200 prelude steps in float64 on the sharp lid
    through the SG step kernel against the plain prelude, relative error
    <= 1e-11;
@@ -190,7 +199,7 @@ NCCL world; its 2-process sweep is not measured).
 Phases 3 to 20 are the main paths: before each, the launch counters of
 every kernel family are zeroed, and after it every kernel the path runs
 must have launched and no plain version run. On the Newton paths (4b, 13,
-14) every GMRES vector replays one CUDA graph of the matvec, and the nk
+14, 14b) every GMRES vector replays one CUDA graph of the matvec, and the nk
 counter counts the Schur kernel's launches in each replay. Every torch.profiler idle
 share is printed beside the unprofiled wall of the same work
 (utils/profiling.py). The line before the last is the
@@ -199,7 +208,8 @@ least time the card could take for the timed work, from the shapes and the
 card's published peaks); the last line is the result object.
 
 ``python3 chip_smoke.py --newton`` runs phases 1, 2f, 4 (whose march the
-polished flagship repeats), 4b and 13-15 alone, with the same checks.
+polished flagship repeats), 4b, 13, 14, 14b and 15 alone, with the same
+checks.
 
 ``python3 chip_smoke.py --flagship-vmg`` instead runs the converged VMG
 [192, 96] Re=1000 tol=1e-6 float32 solve (the JAX record: 47,685 cycles,
@@ -293,6 +303,9 @@ NEWTON_COLD_STATE_TOL = 1e-4
 # tests/test_steady.py
 BOTELLA_RE1000 = (-0.1189366, 2e-4, 2.067753, 2e-3)
 STEADY_RE1000 = ROOT / "data/steady/sharp_Re1000_N128.npz"
+# the stored N=256 Re=5000 sharp-lid state (||F||_rms <= 1e-9), warm start
+# of the Newton phase whose Schur kernel streams its operator bands
+STEADY_RE5000_N256 = ROOT / "data/steady/sharp_Re5000_N256.npz"
 # the flagship FSG march of phase 4 (iterations, Ghia u error), which the
 # polished flagship repeats
 FSG_MARCH = {}
@@ -352,6 +365,10 @@ FV_GHIA_MAX_ERR = 0.008
 # the card's (the iterations amplify the products' rounding), within
 # NK_SPREAD times that distance.
 NK_EARLY = (8, 16)
+# the orders of phase 2f: through N=128 the kernel keeps its operator bands
+# in shared memory, at N=256 it streams them (budgets 8 and 16 only)
+NK_N = (12, 20, 96, 128, 256)
+NK_STREAMED = (256,)
 NK_B8_TOL = 1e-12
 NK_SPREAD = 10.0
 # budget 40: a solve that converges meets the 1e-8 test on its recursive
@@ -562,16 +579,19 @@ def phase_device():
         if family == "sg":
             kernel_build_check(report, "stage_kernel")
         elif family == "nk":
+            # every instantiation: the resident (Lb1) and streamed (Lb0)
             frames = re.findall(
-                r"Function properties for \S*schur_kernel\S*\n\s*(\d+) bytes"
-                r" stack frame, (\d+) bytes spill stores[^\n]*\n[^\n]*Used "
-                r"(\d+) registers", report)
-            check(frames, "ptxas reported no schur_kernel")
-            print(f"[device] schur_kernel: registers {frames[0][2]}, stack "
-                  f"frame {frames[0][0]} bytes, spill stores {frames[0][1]} "
-                  f"bytes", flush=True)
-            check(frames[0][:2] == ("0", "0"),
-                  "schur_kernel spills or has a stack frame")
+                r"Function properties for \S*schur_kernelIL(b[01])\S*\n\s*"
+                r"(\d+) bytes stack frame, (\d+) bytes spill stores[^\n]*\n"
+                r"[^\n]*Used (\d+) registers", report)
+            check(len(frames) == 2, f"ptxas reported {len(frames)} "
+                  f"instantiations of schur_kernel, not 2")
+            for inst, frame, spill, regs in frames:
+                print(f"[device] schur_kernel<{'resident' if inst == 'b1' else 'streamed'}>:"
+                      f" registers {regs}, stack frame {frame} bytes, spill "
+                      f"stores {spill} bytes", flush=True)
+                check((frame, spill) == ("0", "0"),
+                      f"schur_kernel<{inst}> spills or has a stack frame")
         else:
             kernel_build_check(report, "bicg_kernel", {"f": 3})
             kernel_build_check(report, "pressure_kernel", {"f": 4, "d": 3})
@@ -1863,8 +1883,14 @@ def phase_nk_kernel(summary):
             failures.append(msg)
 
     with uncounted():
+        for n in NK_N:
+            resident, grid = nkk.schur_geometry(n - 1)
+            print(f"[nk] N={n}: {'resident' if resident else 'streamed'} "
+                  f"operator bands, {grid} blocks", flush=True)
+            want(resident == (n not in NK_STREAMED),
+                 f"N={n}: resident {resident}")
         for lid in ("singular", "smoothing"):
-            for n in (12, 20, 96, 128):
+            for n in NK_N:
                 for dt in (0.05, 1.0, 3e3):
                     pre, rhs, inv_dt, inv_hlam = nk_system(n, lid, dt)
                     S, Sc = pre.schur, schur_on_cpu(pre.schur)
@@ -1883,7 +1909,11 @@ def phase_nk_kernel(summary):
                         return x_k, int(k_k), x_p, int(k_p)
 
                     line = []
-                    for budget in NK_EARLY + (40,):
+                    budgets = NK_EARLY + (() if n in NK_STREAMED else (40,))
+                    if n >= 96:
+                        timed.append((n, lid, dt, pre, rhs, inv_dt,
+                                      inv_hlam))
+                    for budget in budgets:
                         x_k, k_k, x_p, k_p = card_pair(rhs, budget)
                         x_c, k_c = nkk.schur_plain(
                             Sc, rhs.cpu(), inv_dt.cpu(), inv_hlam.cpu(),
@@ -1931,9 +1961,6 @@ def phase_nk_kernel(summary):
                                  f"{what}: median residual {med_k:.2e}, "
                                  f"plain {med_p:.2e}")
                         line.append(head)
-                        if n >= 96:
-                            timed.append((n, lid, dt, k_k, pre, rhs, inv_dt,
-                                          inv_hlam))
                     print(f"[nk] {what}: " + "; ".join(line), flush=True)
         gm = float(np.exp(np.mean(logs)))
         print(f"[nk] unconverged solves at budget 40: geometric mean of the "
@@ -1965,7 +1992,9 @@ def phase_nk_kernel(summary):
             if code > 0:
                 want(torch.equal(x_k, rhs / 2), "the ||s|| exit's x")
         check(not failures, "phase 2f: " + "; ".join(failures))
-        for n, lid, dt, k, pre, rhs, inv_dt, inv_hlam in timed:
+        for n, lid, dt, pre, rhs, inv_dt, inv_hlam in timed:
+            k = int(nkk.schur_kernel(pre.schur, rhs, inv_dt, inv_hlam, 1e-8,
+                                     40)[1])
             t_k = cuda_ms(lambda: nkk.schur_kernel(
                 pre.schur, rhs, inv_dt, inv_hlam, 1e-8, 40), 10)
             t_p = cuda_ms(lambda: nkk.schur_plain(
@@ -1976,7 +2005,9 @@ def phase_nk_kernel(summary):
             print(f"[nk] N={n} {lid} dt={dt:g} budget 40: kernel {t_k:.4f} "
                   f"ms ({k} iterations, {t_k / max(k, 1) * 1e3:.1f} us an "
                   f"iteration), plain {t_p:.4f} ms (40 masked), bound "
-                  f"{b_ms:.5f} ms ({b_by})", flush=True)
+                  f"{b_ms:.5f} ms ({b_by}; the folded kernel's own "
+                  f"{nkk.schur_folded_flops(ni, k) / 1e9:.4f} GFLOP)",
+                  flush=True)
             if (n, lid, dt) == (128, "singular", 1.0):  # the cold solve's
                 summary["nk_schur"].update(ms=t_k, plain_ms=t_p,
                                            bound_ms=b_ms, bound_by=b_by,
@@ -2152,6 +2183,47 @@ def phase_newton_warm():
     rms = newton_line("newton warm step", step, time.time() - t0)
     check(step.newton_stats["gmres_vectors"] and rms <= 1e-8,
           f"the PTC step from the stored state: ||F||_rms {rms:.3e}")
+
+
+def phase_newton_warm256():
+    """The Newton N=256 Re=5000 sharp-lid solve warm from the stored state
+    with the knobs of phase 14 at tolerance 1e-6 (0 PTC steps), then one
+    PTC step from it through the graphed matvec, whose Schur kernel
+    streams its operator bands at this order."""
+    kw = dict(nx=256, ny=256, Re=5000.0,
+              initial_state_path=str(STEADY_RE5000_N256))
+    solver = steady.NewtonSolver(params=newton_params(**kw))
+    t0 = time.time()
+    solver.solve()
+    torch.cuda.synchronize()
+    call = time.time() - t0
+    m = solver.metrics
+    rms0 = steady_rms(solver)
+    print(f"[newton warm N=256] Re=5000 singular legendre tol=1e-6 float64 "
+          f"from {STEADY_RE5000_N256.name}: {m.iterations} PTC steps, "
+          f"converged={m.converged}, wall {m.wall_time_seconds:.3f}s (call "
+          f"{call:.3f}s), ||F||_rms {rms0:.3e}, psi_min {m.psi_min:.7f}",
+          flush=True)
+    check(m.converged and m.iterations == 0,
+          f"the warm N=256 solve: {m.iterations} steps, converged "
+          f"{m.converged}, ||F||_rms {rms0:.3e}")
+    launches = nkk.LAUNCHES["nk_schur"]
+    step = steady.NewtonSolver(params=newton_params(
+        tolerance=0.0, newton_max_steps=1, **kw))
+    t0 = time.time()
+    step.solve()
+    torch.cuda.synchronize()
+    call = time.time() - t0
+    rms = steady_rms(step)
+    vec = step.newton_stats.get("gmres_vectors", [])
+    print(f"[newton warm N=256] one PTC step from the stored state: wall "
+          f"{step.metrics.wall_time_seconds:.3f}s (call {call:.3f}s), GMRES "
+          f"vectors {vec}, nk_schur launches "
+          f"{nkk.LAUNCHES['nk_schur'] - launches} (the whole phase "
+          f"{nkk.LAUNCHES['nk_schur']}), ||F||_rms {rms0:.3e} -> {rms:.3e}",
+          flush=True)
+    check(vec and rms <= 1e-8,
+          f"the PTC step from the stored N=256 state: ||F||_rms {rms:.3e}")
 
 
 def profile_ptc_step(solver):
@@ -2516,6 +2588,8 @@ MAIN_PATHS = (
     # the JAX module)
     ("newton N=128 cold", phase_newton_cold, nkk.KERNELS),
     ("newton N=128 warm", phase_newton_warm, nkk.KERNELS),
+    # the Schur kernel's streamed geometry on a real system
+    ("newton N=256 warm", phase_newton_warm256, nkk.KERNELS),
     ("newton prelude N=128", phase_newton_prelude, SG_NO_CONTROL),
     ("sg resume N=128", phase_sg_resume, sgk.KERNELS),
     ("fv resume N=128", phase_fv_resume, fvk.KERNELS),
@@ -2542,7 +2616,8 @@ MAIN_PATHS = (
 COUNTERS = (sgk, fvk, sgl, fvl, TS, nkk)
 # the paths of --newton, in order
 NEWTON_PATHS = ("fsg N=96", "fsg N=96 polished", "newton N=128 cold",
-                "newton N=128 warm", "newton prelude N=128")
+                "newton N=128 warm", "newton N=256 warm",
+                "newton prelude N=128")
 
 
 def run_main_paths(paths, names, summary):
@@ -2578,7 +2653,7 @@ def main() -> int:
     ap.add_argument("--flagship-vmg", action="store_true",
                     help="run only the converged VMG [192, 96] Re=1000 solve")
     ap.add_argument("--newton", action="store_true",
-                    help="run only the Newton phases (1, 2f, 4, 4b, 13-15)")
+                    help="run only the Newton phases (1, 2f, 4, 4b, 13-15, 14b)")
     args = ap.parse_args()
     if args.flagship_vmg:
         return flagship_vmg()

@@ -14,12 +14,23 @@ On the CPU, float64, at N = 12-20:
 - Operators of the kernel's form can make the operator any matrix M
   (S(P) = M P): the breakdown codes -10 and -11 of the plain loop appear
   through ``schur_solve``, as through ``models/fv.bicgstab``.
-- The ctypes bindings match the C entries of ``csrc/nk_host.cu``; the
-  launch counters.
+- The kernel's folded operators (``SchurOps``: Lx, Ly, Rx, Ry, Cx, Ey,
+  computed once in numpy float64), applied in the kernel's 4-level order
+  by ``folded_apply``, give ``schur_apply`` within 1e-14 relative at N =
+  12-128, both lids, dt 0.05 / 1 / 3e3, and the masked loop on them stays
+  within FOLD_B8_TOL of ``schur_plain`` at budget 8 (at N=256, where
+  budget 8 amplifies any change of sum order beyond that, within
+  FOLD_SPREAD times the distance of the loop on ``reassociated_apply``,
+  the unfolded products associated the other way); ``matrix_ops``
+  operators fold exactly, and the padded table holds the folds and zeros.
+- The ctypes bindings match the C entries of ``csrc/nk_host.cu``, the
+  pointer and operator tables the header's enums; the launch counters.
 
 On a CUDA card (marker ``gpu``; run there with ``python -m pytest
 tests/test_torch_nk.py -m gpu --noconftest``): the kernel against the plain
-loop at ni = 11, 19, 95, 127, dt 0.05 / 1 / 3e3, both lids, with the plain
+loop at ni = 11, 19, 95, 127 (operator bands resident in shared memory)
+and 255 (streamed; budgets 8 and 16 only), dt 0.05 / 1 / 3e3, both lids,
+with the plain
 loop on the CPU as the yardstick of rounding (budgets 8 and 16: equal k
 and within 1e-12 relative or 10x the CPU loop's distance; budget 40: k
 within 2, converged solves within the 1e-8 test on their true residuals,
@@ -83,6 +94,26 @@ def schur_rhs(prob, pre, inv_dt, seed=5):
     rhs = r_p - pre.beta_sq * nk.div(S, nk.hsolve(S, r_u, inv_hlam),
                                      nk.hsolve(S, r_v, inv_hlam))
     return rhs.contiguous(), inv_hlam
+
+
+def folded_apply(S, pp, inv_dt, inv_hlam):
+    """S(pp) on the folded operators in the kernel's order of product
+    levels (csrc/nk_schur.cu: level 1 to 4)."""
+    wx, wy = S.Lx @ pp, S.Ly @ pp
+    zx, zy = (wx @ S.Rx) * inv_hlam, (wy @ S.Ry) * inv_hlam
+    ax, ay = S.Cx @ zx, S.Vx @ zy
+    d = torch.cat([ax, ay], 1) @ torch.cat([S.VyT, S.Ey], 0)
+    return inv_dt * pp - S.beta_sq * d
+
+
+def reassociated_apply(S, pp, inv_dt, inv_hlam):
+    """``schur_apply`` with each two-sided product associated the other
+    way (A (P B) for (A P) B): the same operators, another rounding."""
+    def hsolve(f):
+        return (S.Vx @ ((S.Vxi @ (f @ S.Vyi.T)) * inv_hlam)) @ S.Vy.T
+
+    gx, gy = S.Gxr @ (pp @ S.IyTr), S.Ixr @ (pp @ S.GyTr)
+    return inv_dt * pp - S.beta_sq * nk.div(S, hsolve(gx), hsolve(gy))
 
 
 def matrix_ops(M, device="cpu"):
@@ -286,6 +317,113 @@ def test_schur_solve_matches_jax_within_its_budget(jx, n, lid):
     assert rel(host(x_t), np.asarray(x_j)) < 1e-12
 
 
+_CPU = {}
+
+
+def cpu_problem(n, lid):
+    if (n, lid) not in _CPU:
+        _CPU[(n, lid)] = problem(n, lid)
+    return _CPU[(n, lid)]
+
+
+# the masked loop on the folded operators against schur_plain at budget 8:
+# the fold's rounding (<= 3.8e-15 an S-apply) amplified by the iterations;
+# worst reading 7.4e-13 over the 24 systems (13x margin; the host BLAS's
+# sum order moves it: 2.7e-12 with level 4 summed as two products)
+FOLD_B8_TOL = 1e-11
+# at N=256 budget 8 amplifies any change of sum order beyond that (the sharp
+# lid at dt 0.05: 2.1e-7 for the re-association, 1.4e-6 for the host BLAS
+# in 4 threads instead of 1), so there the fold is held to FOLD_SPREAD times
+# the re-association's distance; the fold's over the re-association's is
+# 0.07-2.96 at N = 12-256 (3.4x margin)
+FOLD_SPREAD = 10.0
+
+
+class TestFold:
+    @pytest.mark.parametrize("dt", [0.05, 1.0, 3e3])
+    @pytest.mark.parametrize("n", [12, 20, 96, 128])
+    @pytest.mark.parametrize("lid", sorted(LIDS))
+    def test_folded_apply_matches_schur_apply(self, lid, n, dt):
+        """One S-apply on the Schur right-hand side: the fold moves it by
+        rounding only (readings <= 3.8e-15)."""
+        prob, pre = cpu_problem(n, lid)
+        rhs, inv_hlam = schur_rhs(prob, pre, 1.0 / dt)
+        got = folded_apply(pre.schur, rhs, 1.0 / dt, inv_hlam)
+        want = nk.schur_apply(pre.schur, rhs, 1.0 / dt, inv_hlam)
+        assert rel(host(got), host(want)) <= 1e-14
+
+    @pytest.mark.parametrize("dt", [0.05, 1.0, 3e3])
+    @pytest.mark.parametrize("n", [12, 20, 96, 128])
+    @pytest.mark.parametrize("lid", sorted(LIDS))
+    def test_folded_loop_matches_the_plain_loop(self, lid, n, dt):
+        prob, pre = cpu_problem(n, lid)
+        rhs, inv_hlam = schur_rhs(prob, pre, 1.0 / dt)
+        x_f, k_f = nk.schur_bicgstab(
+            lambda pp: folded_apply(pre.schur, pp, 1.0 / dt, inv_hlam), rhs,
+            1e-8, 8)
+        x_p, k_p = nk.schur_plain(pre.schur, rhs, 1.0 / dt, inv_hlam, 1e-8,
+                                  8)
+        assert int(k_f) == int(k_p) == 8
+        assert rel(host(x_f), host(x_p)) <= FOLD_B8_TOL
+
+    @pytest.mark.parametrize("dt", [0.05, 1.0, 3e3])
+    @pytest.mark.parametrize("lid", sorted(LIDS))
+    def test_folded_loop_matches_the_plain_loop_at_n256(self, lid, dt):
+        """The order the kernel streams its operator bands at: the fold's
+        distance from the plain loop at budget 8 within FOLD_SPREAD times
+        that of the loop on ``reassociated_apply`` (or FOLD_B8_TOL)."""
+        prob, pre = cpu_problem(256, lid)
+        rhs, inv_hlam = schur_rhs(prob, pre, 1.0 / dt)
+        loops = [nk.schur_bicgstab(
+            lambda pp, f=f: f(pre.schur, pp, 1.0 / dt, inv_hlam), rhs, 1e-8,
+            8) for f in (folded_apply, reassociated_apply)]
+        x_p, k_p = nk.schur_plain(pre.schur, rhs, 1.0 / dt, inv_hlam, 1e-8,
+                                  8)
+        (x_f, k_f), (x_r, k_r) = loops
+        assert int(k_f) == int(k_r) == int(k_p) == 8
+        err, spread = rel(host(x_f), host(x_p)), rel(host(x_r), host(x_p))
+        assert err <= max(FOLD_B8_TOL, FOLD_SPREAD * spread), (err, spread)
+
+    @pytest.mark.parametrize("n", [2, 5, 17])
+    def test_matrix_ops_fold_exactly(self, n):
+        """S(P) = M P: Lx is M, the identities and zeros pass through, bit
+        for bit, and the folded apply is the product Lx P alone."""
+        M = np.random.default_rng(n).standard_normal((n, n))
+        S, inv_hlam = matrix_ops(M)
+        eye = np.eye(n)
+        want = {"Lx": M, "Ly": 0 * eye, "Rx": eye, "Ry": 0 * eye,
+                "Cx": eye, "Vx": eye, "VyT": eye, "Ey": 0 * eye}
+        for name, mat in want.items():
+            np.testing.assert_array_equal(host(getattr(S, name)), mat)
+        P = torch.as_tensor(np.random.default_rng(n + 1).standard_normal(
+            (n, n)))
+        np.testing.assert_array_equal(
+            host(folded_apply(S, P, 0.0, inv_hlam)), host(S.Lx @ P))
+
+    @pytest.mark.parametrize("n", [12, 20])
+    def test_the_table_holds_the_folds(self, n):
+        """The kernel's table: the numpy float64 folds in _FOLDED order,
+        each name its (ni x ni) view, zero beyond ni up to whole tiles."""
+        _, pre = cpu_problem(n, "singular")
+        S = pre.schur
+        ni, n_p = n - 1, -(-(n - 1) // 16) * 16
+        h = {k: host(getattr(S, k)) for k in (
+            "Gxr", "IyTr", "Ixr", "GyTr", "Vxi", "Vyi", "Vx", "Vy", "Dxi",
+            "DyTi")}
+        want = {"Lx": h["Vxi"] @ h["Gxr"], "Ly": h["Vxi"] @ h["Ixr"],
+                "Rx": h["IyTr"] @ h["Vyi"].T, "Ry": h["GyTr"] @ h["Vyi"].T,
+                "Cx": h["Dxi"] @ h["Vx"], "Vx": h["Vx"], "VyT": h["Vy"].T,
+                "Ey": h["Vy"].T @ h["DyTi"]}
+        assert S.folded.shape == (8, n_p, n_p)
+        assert S.folded.dtype == torch.float64
+        table = host(S.folded)
+        for i, name in enumerate(nk._FOLDED):
+            np.testing.assert_array_equal(table[i, :ni, :ni], want[name])
+            np.testing.assert_array_equal(host(getattr(S, name)),
+                                          want[name])
+        assert not table[:, ni:, :].any() and not table[:, :, ni:].any()
+
+
 def test_bindings_match_the_c_entries():
     """Every C entry of csrc/nk_host.cu has a ctypes binding with its
     number of arguments (the card cannot be asked here)."""
@@ -303,6 +441,7 @@ def test_bindings_match_the_c_entries():
     text = host_cu.read_text().split('extern "C" {', 1)[1]
     entries = re.findall(r"^[\w ]+?\**\s*(\w+)\(([^)]*)\)\s*\{", text, re.M)
     assert {name for name, _ in entries} == {"nk_schur_run",
+                                             "nk_schur_geometry",
                                              "nk_error_string"}
     for name, args in entries:
         assert len(getattr(lib, name).argtypes) == len(args.split(",")), name
@@ -320,6 +459,16 @@ def test_pointer_table_matches_the_header():
         n.lower() for n in nk._PTR_NAMES]
 
 
+def test_operator_table_matches_the_header():
+    header = (Path(nk.__file__).parents[1] / "csrc" /
+              "nk_common.cuh").read_text()
+    body = header.split("enum Op {", 1)[1].split("};", 1)[0]
+    names = re.findall(r"\bO_(\w+)", body)
+    assert names[-1] == "COUNT"
+    assert [n.lower() for n in names[:-1]] == [
+        n.lower() for n in nk._FOLDED]
+
+
 def test_counters(counts):
     nk.LAUNCHES["nk_schur"] = 2
     nk.count_replay({"nk_schur": 3})
@@ -333,6 +482,8 @@ def test_counters(counts):
 def test_bound_counts():
     assert nk.schur_flops(127, 1) == 28 * 2.0 * 127 ** 3 + 40.0 * 127 ** 2
     assert nk.schur_bytes(127) == 8.0 * 13 * 127 * 127
+    assert nk.schur_folded_flops(127, 1) == (16 * 2.0 * 127 ** 3
+                                             + 40.0 * 127 ** 2)
 
 
 # ------------------------------------------------------------- on the card
@@ -387,11 +538,13 @@ class TestOnCard:
     # the kernel's and the plain loop's, not to the other solution (two
     # solutions within the test differ by up to cond(S) times it); a solve
     # that runs out its budget is held by test_unconverged_residuals
-    @pytest.mark.parametrize("budget", [8, 16, 40])
+    # N=256 streams its operator bands: budgets 8 and 16
+    @pytest.mark.parametrize("n,budget", [
+        (n, b) for n in (12, 20, 96, 128) for b in (8, 16, 40)]
+        + [(256, 8), (256, 16)])
     @pytest.mark.parametrize("dt", [0.05, 1.0, 3e3])
-    @pytest.mark.parametrize("n", [12, 20, 96, 128])
     @pytest.mark.parametrize("lid", sorted(LIDS))
-    def test_kernel_matches_the_plain_loop(self, cuda, counts, lid, n, dt,
+    def test_kernel_matches_the_plain_loop(self, cuda, counts, lid, dt, n,
                                            budget):
         S, rhs, inv_dt, inv_hlam = card_system(n, lid, dt, cuda)
         x_k, k_k = nk.schur_kernel(S, rhs, inv_dt, inv_hlam, 1e-8, budget)
@@ -412,6 +565,17 @@ class TestOnCard:
         if k_p < budget:
             assert k_k < budget, (k_k, k_p)
             assert residual(S, x_p, rhs, inv_dt, inv_hlam) <= 1.5e-8
+
+    @pytest.mark.parametrize("n,resident", [(12, True), (20, True),
+                                            (96, True), (128, True),
+                                            (256, False)])
+    def test_geometry(self, cuda, n, resident):
+        """The operator bands stay in shared memory through N=128 (one
+        item a block), and are streamed at N=256."""
+        got, grid = nk.schur_geometry(n - 1)
+        tiles = (-(-(n - 1) // 16)) ** 2
+        assert got == resident
+        assert grid == 2 * tiles if resident else 0 < grid <= 2 * tiles
 
     def test_unconverged_residuals(self, cuda):
         """Budget 40 on the systems the plain loop does not solve within
