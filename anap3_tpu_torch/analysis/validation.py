@@ -2,19 +2,22 @@
 vortex tables, Saad conserved quantities.
 
 The port's own copy of ``anap3_tpu/analysis/validation.py``, limited to what
-``models/base.py`` calls. It carries over the exact error definitions of the
+``models/base.py`` and the driver (``main.py``: the objectives) call. It carries over the exact error definitions of the
 reference:
 - relative L2 on interior reference-grid points only, margin 1e-10
   (base.py:970-1054), keys ``u_L2_error[,_regu]`` / ``v_L2_error[,_regu]``;
 - Botella comparison rows with percent errors on |psi|, |omega|, x, y for the
   primary/BL/BR vortices (base.py:890-964).
 
-pandas and matplotlib are imported only by the functions that use them.
+The tables are read with the standard library's ``csv``; matplotlib is
+imported only by the heatmaps.
 """
 
 from __future__ import annotations
 
+import csv
 import logging
+import math
 from pathlib import Path
 from typing import Callable, Dict, Optional
 
@@ -29,6 +32,8 @@ __all__ = [
     "botella_validation_rows",
     "saad_quantities_rows",
     "save_validation_error_heatmaps",
+    "fv_l2_objective",
+    "botella_vortex_objective",
 ]
 
 
@@ -97,15 +102,21 @@ def compute_l2_errors_vs_reference(
     return results
 
 
+def _csv_rows(path: Path) -> list:
+    """The rows of a CSV table (header first), without the lines and the
+    tails of lines that a ``#`` comments out."""
+    with open(path, newline="") as fh:
+        lines = [line.split("#", 1)[0] for line in fh]
+    return [row for row in csv.reader(lines) if row]
+
+
 def _load_botella(Re: float, base_dir: Optional[Path] = None) -> Optional[dict]:
     base_dir = Path(base_dir) if base_dir is not None else Path.cwd()
     path = base_dir / "data/validation/botella" / f"botella_Re{int(Re)}_vortex.csv"
     if not path.exists():
         return None
-    import pandas as pd
-
-    df = pd.read_csv(path, comment="#")
-    return df.iloc[0].to_dict()
+    header, row = _csv_rows(path)[:2]
+    return {k: float(v) for k, v in zip(header, row)}
 
 
 def botella_validation_rows(metrics, Re: float, base_dir=None) -> Optional[list]:
@@ -161,10 +172,8 @@ def saad_quantities_rows(metrics, Re: float, grid_label: str,
     path = base_dir / "data/validation/saad" / f"saad_Re{int(Re)}_quantities.csv"
     if not path.exists():
         return None
-    import pandas as pd
-
-    df = pd.read_csv(path)
-    ref = df.iloc[-1]  # finest grid row (512^2)
+    header, *body = _csv_rows(path)
+    ref = dict(zip(header, body[-1]))  # finest grid row (512^2)
     rows = []
     for name, computed, reference in (
         ("Energy", metrics.final_energy, float(ref["Energy"])),
@@ -220,3 +229,35 @@ def save_validation_error_heatmaps(ref_x, ref_y, ref_u, ref_v, cur_u, cur_v,
         plt.close(fig)
         paths.append(path)
     return paths
+
+
+def fv_l2_objective(validation_errors: Dict[str, float]) -> float:
+    """sqrt(u_err^2 + v_err^2) against the non-regularized FV truth."""
+    u_err = validation_errors.get("u_L2_error", float("inf"))
+    v_err = validation_errors.get("v_L2_error", float("inf"))
+    return math.sqrt(u_err**2 + v_err**2)
+
+
+def botella_vortex_objective(metrics, Re: float, base_dir=None) -> float:
+    """RMS of the primary vortex's relative psi error and its centre's
+    location errors against Botella & Peyret. The tables use two schemas:
+    Re=100 carries signed psi_min / psi_min_{x,y}, Re=400/1000 carry
+    |psi_primary| / {x,y}_primary; both are read."""
+    ref = _load_botella(Re, base_dir)
+    if ref is None:
+        return float("inf")
+    psi_ref = ref.get("psi_min")
+    if psi_ref is None and ref.get("psi_primary"):
+        psi_ref = -abs(ref["psi_primary"])  # the primary vortex is clockwise
+    x_ref = ref.get("psi_min_x", ref.get("x_primary"))
+    y_ref = ref.get("psi_min_y", ref.get("y_primary"))
+    errors = []
+    if psi_ref:
+        errors.append(abs(metrics.psi_min - psi_ref) / abs(psi_ref))
+    if x_ref:
+        errors.append(abs(metrics.psi_min_x - x_ref))
+    if y_ref:
+        errors.append(abs(metrics.psi_min_y - y_ref))
+    if not errors:
+        return float("inf")
+    return math.sqrt(sum(e**2 for e in errors) / len(errors))

@@ -206,6 +206,9 @@ class SGSolver(CavitySolver):
     # solver that claims it a JAX Mesh from anap3_tpu.parallel.spatial,
     # which this solver cannot use; the port's mesh is set directly.
     SUPPORTS_SPATIAL_MESH = False
+    # the port's driver (anap3_tpu_torch/main.py) sets ``spatial_mesh`` on
+    # a solver whose class says True (machine.mesh_axes: [x])
+    TAKES_SPATIAL_MESH = True
 
     def __init__(self, params=None, **kwargs):
         super().__init__(params=params, **kwargs)
@@ -491,6 +494,8 @@ class SGSolver(CavitySolver):
 
 class FSGSolver(SGSolver):
     """Full-single-grid nested-iteration multigrid spectral solver."""
+
+    TAKES_SPATIAL_MESH = False
 
     def _level_orders(self) -> list:
         return fsg_level_orders(self.params)

@@ -29,6 +29,7 @@ import torch
 from ..ops import basis as basis_ops
 from ..ops.corner import lid_profile
 from ..ops.singular import singular_fields_on_grid
+from ..utils import host_blas
 from .params import SpectralParameters
 
 __all__ = ["SpectralOps", "SpectralState", "build_spectral_ops", "ops_from_jax",
@@ -126,6 +127,7 @@ def _pack(host: dict, device, dtype) -> SpectralOps:
     return SpectralOps(**kwargs)
 
 
+@host_blas.one_thread()
 def build_spectral_ops(params: SpectralParameters, n: Optional[int] = None,
                        dtype=None, device=None) -> Tuple[SpectralOps, dict]:
     """Operators + grid info for order ``n`` (default ``params.nx``).
@@ -133,7 +135,8 @@ def build_spectral_ops(params: SpectralParameters, n: Optional[int] = None,
     The numpy construction is ``anap3_tpu/models/spectral_sg.py``'s
     (build_spectral_ops, float64 on the host); the result is cast to
     ``dtype`` (default ``params.dtype``) on ``device`` (default
-    ``params.device``)."""
+    ``params.device``). numpy's BLAS runs in one thread here, so the
+    operators are the same bits on every host (``utils/host_blas``)."""
     n = int(params.nx if n is None else n)
     if params.nx != params.ny:
         raise ValueError(

@@ -343,6 +343,8 @@ def _auto_criterion(params) -> bool:
 class VMGSolver(SGSolver):
     """FAS V-cycle multigrid solver; one outer iteration = one V-cycle."""
 
+    TAKES_SPATIAL_MESH = False
+
     NU1 = 2
     NU2 = 2
     NU_COARSE = 30
@@ -500,6 +502,8 @@ class VMGSolver(SGSolver):
 class FMGSolver(SGSolver):
     """Full multigrid: FSG nested iteration with V-cycle solves per
     level."""
+
+    TAKES_SPATIAL_MESH = False
 
     NU1 = VMGSolver.NU1
     NU2 = VMGSolver.NU2

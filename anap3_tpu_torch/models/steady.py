@@ -46,6 +46,7 @@ import torch
 import torch.nn.functional as nnf
 
 from ..ops import nk_kernels as nk
+from ..utils import host_blas
 from . import spectral_sg as core
 from .params import SpectralParameters
 from .runner import METRIC_KEYS, IterationResult
@@ -134,6 +135,7 @@ class _StokesPreconditioner:
     (the graphed matvec's buffer): both give the same bits.
     """
 
+    @host_blas.one_thread()
     def __init__(self, problem: _SteadyProblem, grid: dict,
                  schur_iters: int = 40):
         ops = problem.ops
@@ -459,6 +461,8 @@ class NewtonSolver(SGSolver):
     ``data/steady/sharp_Re*_N128.npz`` for Re-continuation). The solve runs
     in float64 whatever ``dtype`` asks.
     """
+
+    TAKES_SPATIAL_MESH = False
 
     Parameters = SpectralParameters
     SUPPORTS_SPATIAL_MESH = False

@@ -40,6 +40,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils import host_blas
 from .sg_kernels import _check
 
 __all__ = ["SchurOps", "schur_solve", "schur_kernel", "schur_plain",
@@ -88,7 +89,7 @@ class SchurOps:
     The plain version multiplies by the unfolded operators (``Vyi.T`` and
     ``Vy.T`` as transposed views), as the JAX package does. The kernel's
     S-apply is 4 product levels on operators folded once, on the host in
-    numpy float64 (they do not depend on dt):
+    numpy float64 in one BLAS thread (they do not depend on dt):
 
         Lx = Vxi Gxr, Ly = Vxi Ixr, Rx = IyTr Vyi^T, Ry = GyTr Vyi^T,
         Cx = Dxi Vx, Ey = Vy^T DyTi,
@@ -120,6 +121,7 @@ class SchurOps:
     VyT: torch.Tensor = field(init=False, repr=False)
     Ey: torch.Tensor = field(init=False, repr=False)
 
+    @host_blas.one_thread()
     def __post_init__(self):
         h = {name: getattr(self, name).detach().cpu().numpy().astype(
             np.float64) for name in ("Gxr", "IyTr", "Ixr", "GyTr", "Vxi",

@@ -193,6 +193,11 @@ def _rank(rank: int, world: int, port: int, device: str, timeout: float,
                           timeout=datetime.timedelta(seconds=timeout))
     initialize_distributed(num_processes=world, process_id=rank,
                            device=device, store=store, timeout=timeout)
+    # every rank holds here until all have joined: gloo connects the ranks
+    # pair by pair, and a rank whose job returns at once (no collective)
+    # must not close its connections while a slower peer is still
+    # connecting ("Connection closed by peer" on a loaded host)
+    dist.barrier()
     try:
         result = fn(**kwargs)
     except BaseException:

@@ -138,6 +138,20 @@ when it fails:
    float64 Newton polish on the card must converge in <= 12 PTC steps to
    steady_residual_rms <= 1e-9; the polish wall and the Ghia u error
    before and after;
+A. cli fsg N=96 (after 4b): the flagship through the port's CLI,
+   ``anap3_tpu_torch.main.main(["solver=gpu/fsg", "N=96", "Re=1000",
+   "plots=false", ...])`` in process with a temporary tracking store: the
+   ladder and iterations of phase 4; the run read back through the port's
+   tracking.search_runs converged, and the Ghia u-centerline max error of
+   its stored solution.vts <= 0.027;
+B. cli optimization N=40: one round of the corner-smoothing optimization
+   through the CLI (``-m +experiment/optimization=corner_smoothing
+   solver=gpu/fsg N=40 hydra.sweeper.params.N=40 optuna.n_trials=8
+   plots=false``): the 8 trials run as one batch of 8 FSG lanes
+   (parallel.batched.run_batched, the SG lane kernels), the store holds 8
+   child runs and the parent's optuna_trials.json with 8 trials and a
+   finite best_objective; lanes 0 and 7 again as FSGSolver.solve()
+   (uncounted): the same levels, iterations and bits;
 13. newton N=128 cold: NewtonSolver.solve() on the sharp lid
    (corner_treatment=singular) at Re=1000 from rest with the Newton knobs
    of conf/solver/spectral/newton.yaml on the Legendre grid of the stored
@@ -196,7 +210,7 @@ one-rank NCCL process group (NCCL refuses two ranks on one card):
 Then dryrun_multigpu over every card prints its line (one card: a one-rank
 NCCL world; its 2-process sweep is not measured).
 
-Phases 3 to 20 are the main paths: before each, the launch counters of
+Phases 3 to 20, A and B are the main paths: before each, the launch counters of
 every kernel family are zeroed, and after it every kernel the path runs
 must have launched and no plain version run. On the Newton paths (4b, 13,
 14, 14b) every GMRES vector replays one CUDA graph of the matvec, and the nk
@@ -237,6 +251,7 @@ import torch.distributed as dist
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from anap3_tpu_torch import main as cli  # noqa: E402
 from anap3_tpu_torch.models import fv as fvm  # noqa: E402
 from anap3_tpu_torch.models import spectral_sg as core  # noqa: E402
 from anap3_tpu_torch.models.params import (FVParameters,  # noqa: E402
@@ -259,6 +274,9 @@ from anap3_tpu_torch.parallel import sweep as TS  # noqa: E402
 from anap3_tpu_torch.parallel.dryrun import dryrun_multigpu  # noqa: E402
 from anap3_tpu_torch.parallel.scaling import measure_scaling  # noqa: E402
 from anap3_tpu_torch.parallel.sweep import stack_states  # noqa: E402
+from anap3_tpu_torch.plotting.data_loading import (  # noqa: E402
+    load_fields_from_vts, restructure_fields)
+from anap3_tpu_torch.utils import tracking as TT  # noqa: E402
 from anap3_tpu_torch.utils.profiling import (  # noqa: E402
     NoDeviceActivity, device_breakdown, profile_chunk, trace_device)
 
@@ -358,7 +376,8 @@ FV_TARGETS = {100.0: (11_497, 0.003), 1000.0: (11_570, 0.004)}
 FV_GHIA_MAX_ERR = 0.008
 # the Schur kernel against the masked plain loop (phase 2f), float64. The
 # yardstick of rounding is a second plain implementation: the same loop on
-# the CPU (the host BLAS's sum order); the kernel differs from the card's
+# the CPU in one thread (``cpu_loop``; the operators are built in one host
+# BLAS thread too, utils/host_blas); the kernel differs from the card's
 # plain loop only in sum order too. Budgets 8 and 16 (no solve stops early:
 # the fewest iterations a solve here takes at 40 is 21): k equal and dp
 # within NK_B8_TOL relative, or, where the CPU loop is itself further from
@@ -1600,7 +1619,9 @@ def phase_fsg():
           f"of the JAX record {JAX_FSG_ITERATIONS}")
     check(ghia <= GHIA_MAX_ERR, f"Ghia error {ghia:.4f} > {GHIA_MAX_ERR}")
     FSG_MARCH.update(iterations=m.iterations, ghia=ghia,
-                     wall=m.wall_time_seconds)
+                     wall=m.wall_time_seconds,
+                     levels=[(lv["n"], lv["iterations"])
+                             for lv in solver.levels])
 
 
 def vmg_params(n, re, **kw):
@@ -1748,6 +1769,137 @@ def phase_fsg_sweep():
               f"fsg sweep lane {k} differs from its FSGSolver solve")
 
 
+@contextlib.contextmanager
+def kept_solvers():
+    """The solvers the port's driver solves in the block: its run_solver
+    and its batches (parallel.batched.run_batched) are wrapped to keep
+    theirs; the driver's work is unchanged."""
+    kept = []
+    run_solver, run_batched = cli.run_solver, TB.run_batched
+
+    def solver_kept(*a, **kw):
+        out = run_solver(*a, **kw)
+        kept.append(out[2])
+        return out
+
+    def batch_kept(solvers, *a, **kw):
+        kept.extend(solvers)
+        return run_batched(solvers, *a, **kw)
+
+    cli.run_solver, TB.run_batched = solver_kept, batch_kept
+    try:
+        yield kept
+    finally:
+        cli.run_solver, TB.run_batched = run_solver, run_batched
+
+
+def ghia_u_error_stored(run) -> float:
+    """Phase A's Ghia u error from a tracked run's solution.vts artifact:
+    the degree-N Chebyshev interpolant of its x=0.5 node column, at Ghia's
+    y (the fields as the store holds them)."""
+    x, y, U, _, _ = restructure_fields(
+        load_fields_from_vts(Path(run["path"]) / "artifacts"))
+    data = np.genfromtxt(ROOT / "data/validation/ghia/ghia_Re1000_u_centerline"
+                         ".csv", delimiter=",", names=True)
+    col = U[:, int(np.argmin(np.abs(x - 0.5)))]
+    interp = np.polynomial.chebyshev.Chebyshev.fit(
+        y, col, deg=len(y) - 1, domain=[float(y[0]), float(y[-1])])
+    return float(np.max(np.abs(interp(data["y"]) - data["u"])))
+
+
+def phase_cli_fsg():
+    """Phase A: the flagship through the port's CLI, ``python -m
+    anap3_tpu_torch solver=gpu/fsg N=96 Re=1000`` (in process): phase 4's
+    ladder and iterations, and the run read back from the store."""
+    with tempfile.TemporaryDirectory() as tmp, kept_solvers() as kept:
+        t0 = time.time()
+        cli.main(["solver=gpu/fsg", "N=96", "Re=1000", "plots=false",
+                  "experiment_name=chip-smoke-cli",
+                  f"mlflow.tracking_uri={tmp}/mlruns"])
+        wall = time.time() - t0
+        runs = TT.search_runs("chip-smoke-cli", status="FINISHED")
+        check(len(runs) == 1 and len(kept) == 1,
+              f"the CLI run: {len(runs)} finished runs, {len(kept)} solves")
+        m, solver = runs[0]["metrics"], kept[0]
+        ghia = ghia_u_error_stored(runs[0])
+        levels = [(lv["n"], lv["iterations"]) for lv in solver.levels]
+        print(f"[cli fsg] python -m anap3_tpu_torch solver=gpu/fsg N=96 "
+              f"Re=1000: ladder {levels} (phase 4: {FSG_MARCH.get('levels')})"
+              f"; stored: iterations {int(m['iterations'])}, converged "
+              f"{int(m['converged'])}, wall_time_seconds "
+              f"{m['wall_time_seconds']:.3f}, first_chunk_seconds "
+              f"{m['first_chunk_seconds']:.3f}, L2 u {m['u_L2_error']:.5f} v "
+              f"{m['v_L2_error']:.5f}, Ghia u-centerline max err {ghia:.4f} "
+              f"(from the stored solution.vts); the driver's call "
+              f"{wall:.3f}s", flush=True)
+    check(levels == FSG_MARCH.get("levels")
+          and int(m["iterations"]) == FSG_MARCH.get("iterations"),
+          f"the CLI flagship: {levels}, {int(m['iterations'])} iterations, "
+          f"phase 4 {FSG_MARCH.get('levels')}")
+    check(int(m["converged"]) == 1, "the CLI flagship did not converge")
+    check(ghia <= GHIA_MAX_ERR, f"the CLI flagship's Ghia error {ghia:.4f}")
+
+
+def phase_cli_optimization():
+    """Phase B: one round of the corner-smoothing optimization through the
+    port's CLI (8 trials, one batch of 8 FSG N=40 lanes); lanes 0 and 7
+    again as FSGSolver.solve()."""
+    with tempfile.TemporaryDirectory() as tmp, kept_solvers() as kept:
+        t0 = time.time()
+        best = cli.main(["-m", "+experiment/optimization=corner_smoothing",
+                         "solver=gpu/fsg", "N=40", "hydra.sweeper.params.N=40",
+                         "optuna.n_trials=8", "plots=false",
+                         "experiment_name=chip-smoke-opt",
+                         f"mlflow.tracking_uri={tmp}/mlruns"])
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        runs = TT.search_runs("chip-smoke-opt")
+        parents = [r for r in runs if r["tags"].get("is_parent") == "true"]
+        children = [r for r in runs if r["tags"].get("sweep") == "child"]
+        check(len(parents) == 1, f"{len(parents)} parent runs")
+        trials = json.loads((Path(parents[0]["path"]) / "artifacts"
+                             / "optuna_trials.json").read_text())
+        pm = parents[0]["metrics"]
+    check(len(kept) == 8 and all(isinstance(s, FSGSolver) for s in kept),
+          f"the round ran {len(kept)} lanes in a batch, not 8 FSG lanes")
+    for r in sorted(children, key=lambda r: float(r["params"]
+                                                  ["corner_smoothing"])):
+        print(f"[cli optimization] child corner_smoothing "
+              f"{float(r['params']['corner_smoothing']):.5f}: iterations "
+              f"{int(r['metrics']['iterations'])}, converged "
+              f"{int(r['metrics']['converged'])}, L2 u "
+              f"{r['metrics']['u_L2_error']:.5f} v "
+              f"{r['metrics']['v_L2_error']:.5f}", flush=True)
+    print(f"[cli optimization] python -m anap3_tpu_torch -m "
+          f"+experiment/optimization=corner_smoothing N=40 optuna.n_trials=8:"
+          f" {len(children)} child runs, {len(trials['data'])} trials, best "
+          f"objective {pm['best_objective']:.6f} (returned {best:.6f}), "
+          f"shared batch wall {pm['batch_wall_time_seconds']:.3f}s, "
+          f"aggregate {pm['aggregate_lane_steps_per_sec']:.1f} lane-steps/s;"
+          f" the driver's call {wall:.3f}s", flush=True)
+    check(len(children) == 8 and len(trials["data"]) == 8,
+          f"{len(children)} child runs, {len(trials['data'])} trials")
+    check(np.isfinite(pm["best_objective"]), "best_objective not finite")
+    with uncounted():
+        for k in (0, 7):
+            lane = kept[k]
+            one = FSGSolver(params=dataclasses.replace(lane.params))
+            one.solve()
+            torch.cuda.synchronize()
+            same = [(lv["n"], lv["iterations"]) for lv in one.levels] == [
+                (lv["n"], lv["iterations"]) for lv in lane.levels]
+            bits = all(same_bits(a, b) for a, b in zip(one.state, lane.state))
+            print(f"[cli optimization] lane {k} (corner_smoothing "
+                  f"{lane.params.corner_smoothing:.5f}) again as "
+                  f"FSGSolver.solve(): "
+                  + ", ".join(f"N={lv['n']}: {lv['iterations']} it"
+                              for lv in one.levels)
+                  + f"; same levels and iterations {same}, bit-equal state "
+                  f"{bits}", flush=True)
+            check(same and bits, f"CLI optimization lane {k} differs from its "
+                  "FSGSolver solve")
+
+
 SG_SWEEP_LANES = [(re, cs) for cs in (0.15, 0.10)
                   for re in (100.0, 400.0, 1000.0, 3200.0)]
 # phase 11's sweep without a mesh: (wall, iterations, states), which the
@@ -1862,6 +2014,19 @@ def schur_on_cpu(S):
         if f.init and f.name != "beta_sq"})
 
 
+def cpu_loop(Sc, rhs, inv_dt, inv_hlam, budget):
+    """The plain loop on the CPU operators ``Sc`` in one torch thread: the
+    yardstick of rounding of phase 2f and of tests/test_torch_nk.py, the
+    same sum order on every host."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        return nkk.schur_plain(Sc, rhs.cpu(), inv_dt.cpu(), inv_hlam.cpu(),
+                               1e-8, budget)
+    finally:
+        torch.set_num_threads(threads)
+
+
 def perturbed(rhs, seed):
     """rhs times (1 + 1e-15 g), g seeded standard normal."""
     g = np.random.default_rng(seed).standard_normal(tuple(rhs.shape))
@@ -1915,9 +2080,8 @@ def phase_nk_kernel(summary):
                                       inv_hlam))
                     for budget in budgets:
                         x_k, k_k, x_p, k_p = card_pair(rhs, budget)
-                        x_c, k_c = nkk.schur_plain(
-                            Sc, rhs.cpu(), inv_dt.cpu(), inv_hlam.cpu(),
-                            1e-8, budget)
+                        x_c, k_c = cpu_loop(Sc, rhs, inv_dt, inv_hlam,
+                                            budget)
                         x_c = x_c.cuda()
                         err, spread = norm_rel(x_k, x_p), norm_rel(x_c, x_p)
                         head = (f"budget {budget}: k {k_k} (plain {k_p}, cpu "
@@ -2583,6 +2747,11 @@ MAIN_PATHS = (
     # the flagship again with the float64 Newton polish (after phase 4,
     # whose march it repeats)
     ("fsg N=96 polished", phase_fsg_polished, sgk.KERNELS + nkk.KERNELS),
+    # the port's CLI (python -m anap3_tpu_torch): the flagship, then one
+    # round of the corner-smoothing optimization as one batch on the SG
+    # lane kernels
+    ("cli fsg N=96", phase_cli_fsg, sgk.KERNELS),
+    ("cli optimization N=40", phase_cli_optimization, sgl.KERNELS),
     # the Newton iteration: each GMRES vector replays one CUDA graph of
     # the matvec, whose Schur BiCGSTAB is the nk kernel (no pallas_call in
     # the JAX module)

@@ -271,11 +271,14 @@ class TestPlainDispatch:
         assert torch.equal(x, rhs / 2) and torch.equal(x[:, 0], x_f)
 
     def test_matrix_ops_apply_M(self):
+        """S(P) is exactly M P: held bit for bit against the product of the
+        same library (torch), not numpy's, whose sum order may differ."""
         M = np.random.default_rng(3).standard_normal((5, 5))
         S, inv_hlam = matrix_ops(M)
         P = torch.as_tensor(np.random.default_rng(4).standard_normal((5, 5)))
         np.testing.assert_array_equal(
-            host(nk.schur_apply(S, P, 0.0, inv_hlam)), M @ host(P))
+            host(nk.schur_apply(S, P, 0.0, inv_hlam)),
+            host(torch.as_tensor(M) @ P))
 
 
 @pytest.fixture(scope="module")

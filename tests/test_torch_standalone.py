@@ -3,11 +3,17 @@
 - A fresh interpreter imports every module of the port (the batched-sweep
   modules of ``parallel/``, the lane-kernel wrappers, the Newton solver
   ``models/steady.py``, ``utils/checkpoint.py``, the multi-process modules
-  ``parallel/{spatial,distributed,scaling,dryrun}.py`` and the tracer
-  ``utils/profiling.py`` among them) and
+  ``parallel/{spatial,distributed,scaling,dryrun}.py``, the tracer
+  ``utils/profiling.py``, and the harness: the CLI ``main.py`` and
+  ``__main__.py``, ``utils/{config,tracking,optimize,yaml_subset}.py`` and
+  ``plotting/`` among them) and
   chip_smoke.py's import block while a ``sys.meta_path`` finder refuses
-  ``jax``, ``jaxlib`` and ``anap3_tpu`` (and their submodules); none of
-  them may end up in ``sys.modules``.
+  ``jax``, ``jaxlib`` and ``anap3_tpu``, and also PyYAML, pandas,
+  matplotlib and seaborn (and their submodules); none of them may end up
+  in ``sys.modules``. No line of the port's sources or of chip_smoke.py
+  imports ``jax`` or ``anap3_tpu``.
+- The port's plots of a tracked run have the file names of the JAX
+  package's plots of the same run (matplotlib's renders, pyvista off).
 - The port's copies of the JAX package's numpy modules (bases, transfer
   operators, lid profile, singular fields, VTS reader) give results equal
   bit for bit to the originals.
@@ -16,6 +22,7 @@
 """
 
 import dataclasses
+import re
 import subprocess
 import sys
 
@@ -38,7 +45,8 @@ from anap3_tpu_torch.utils import vts as port_vts
 _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "anap3_tpu")
+BLOCKED = ("jax", "jaxlib", "anap3_tpu", "yaml", "pandas", "matplotlib",
+           "seaborn")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -67,6 +75,15 @@ MULTI = {"anap3_tpu_torch.parallel.spatial",
          "anap3_tpu_torch.parallel.scaling", "anap3_tpu_torch.parallel.dryrun",
          "anap3_tpu_torch.utils.profiling"}
 assert MULTI <= set(names), MULTI - set(names)
+# and the harness: the CLI, config, tracking, the optimizer and the plots
+HARNESS = {"anap3_tpu_torch.main", "anap3_tpu_torch.__main__",
+           "anap3_tpu_torch.utils.config", "anap3_tpu_torch.utils.tracking",
+           "anap3_tpu_torch.utils.optimize",
+           "anap3_tpu_torch.utils.yaml_subset",
+           "anap3_tpu_torch.plotting.orchestrator",
+           "anap3_tpu_torch.plotting.fields",
+           "anap3_tpu_torch.plotting.validation"}
+assert HARNESS <= set(names), HARNESS - set(names)
 import chip_smoke  # its import block; main() runs only as a script
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
@@ -80,6 +97,56 @@ def test_port_imports_no_jax_and_no_jax_package(repo_root):
                           timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[0]) >= 25  # every module was imported
+
+
+_IMPORTS_JAX = re.compile(r"^\s*(import|from) (jax|anap3_tpu)(\.|\s|$)")
+
+
+def test_no_source_line_imports_jax_or_the_jax_package(repo_root):
+    files = sorted((repo_root / "anap3_tpu_torch").rglob("*.py")) + [
+        repo_root / "chip_smoke.py"]
+    assert len(files) >= 40
+    hits = [f"{f.relative_to(repo_root)}:{i}: {line.strip()}"
+            for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if _IMPORTS_JAX.match(line)]
+    assert not hits, hits
+
+
+def test_plots_have_the_jax_packages_file_names(tmp_path, monkeypatch,
+                                                 repo_root):
+    """One tracked run (the port's CLI, N=8), plotted by both packages
+    into two directories, renders at a small size (the names do not
+    depend on it)."""
+    from anap3_tpu.plotting import fields as jax_fields
+    from anap3_tpu.plotting import orchestrator as jax_plots
+    from anap3_tpu_torch import main as cli
+    from anap3_tpu_torch.plotting import fields as port_fields
+    from anap3_tpu_torch.plotting import orchestrator as port_plots
+    from anap3_tpu_torch.utils import tracking as port_tracking
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("ANAP3_DISABLE_PYVISTA", "1")
+    for mod in (jax_fields, port_fields):
+        monkeypatch.setattr(mod.generate_field_plots, "__defaults__",
+                            (40, 32, None))  # dpi, resample_n, only
+    store = tmp_path / "mlruns"
+    cli.main(["solver=gpu/sg", "N=8", "Re=100", "tolerance=0",
+              "max_iterations=40", "solver.device=cpu", "plots=false",
+              "experiment_name=P", f"mlflow.tracking_uri={store}"])
+    port_tracking.set_tracking_uri(store)
+    (run,) = port_tracking.search_runs("P")
+    names = {}
+    for name, plots in (("jax", jax_plots), ("port", port_plots)):
+        out = plots.generate_plots_for_run(
+            run["run_id"], store, tmp_path / name, "spectral", 8, 100.0,
+            upload_to_tracking=False, data_dir=repo_root / "data")
+        names[name] = sorted(p.name for p in out)
+        assert sorted(p.name for p in (tmp_path / name).iterdir()) == \
+            names[name]
+    assert names["port"] == names["jax"]
+    assert {"convergence.pdf", "vorticity.pdf", "ghia_comparison.pdf",
+            "u.png", "streamlines.png"} <= set(names["port"])
 
 
 def _equal(a, b):

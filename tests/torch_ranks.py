@@ -372,3 +372,37 @@ if __name__ == "__main__":
         # <= 1 is within the test's rtol 1e-4 / atol 1e-5
         "u_bound_ratio": float(np.max(err / (1e-5 + 1e-4 * np.abs(u_ref)))),
         "sharded_seconds": round(seconds, 1)}))
+
+
+def cli_sharded_job(out_dir, overrides):
+    """Every rank runs the port's CLI on one SG solve with
+    ``+machine.mesh_axes=[x]`` (the x-sharded solve over the group); rank 0
+    writes the final state (the solver's, gathered on every rank) and
+    returns the run's iterations, whether the solve was sharded, and what
+    rank 0's tracking store holds."""
+    from anap3_tpu_torch import main as cli
+    from anap3_tpu_torch.utils import tracking as TT
+
+    kept = []
+    run_solver = cli.run_solver
+
+    def solver_kept(*a, **kw):
+        out = run_solver(*a, **kw)
+        kept.append(out[2])
+        return out
+
+    cli.run_solver = solver_kept
+    try:
+        cli.main(list(overrides) + ["+machine.mesh_axes=[x]"])
+    finally:
+        cli.run_solver = run_solver
+    (solver,) = kept
+    info = {"rank": dist.get_rank(),
+            "sharded": solver.spatial_mesh is not None,
+            "iterations": int(solver.metrics.iterations)}
+    if dist.get_rank() == 0:
+        np.savez(Path(out_dir) / "cli_sharded.npz",
+                 **{k: t.cpu().numpy() for k, t in
+                    zip(("u", "v", "p"), solver.state)})
+        info["runs"] = len(TT.search_runs(status="FINISHED"))
+    return info
