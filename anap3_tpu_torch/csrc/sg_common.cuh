@@ -48,6 +48,7 @@ enum Ptr {
   P_REFNORM,  // chunk: (1,) residual-criterion normalization
   P_CU, P_CV, P_CP,  // smoother: second output ping-pong (scratch)
   P_LSC,      // (lanes, H_COUNT) per-lane scalars in the working type
+  P_X1B,      // x1 chunk: (lanes, 8, nf) border-strip constants (X1B_*)
   P_COUNT
 };
 
@@ -69,8 +70,10 @@ constexpr int NDPART = 4;
 // Quadrature partials: W(u^2+v^2), W w^2, W(|grad w|^2).
 constexpr int NQPART = 3;
 
-// Kernel counts reported to the wrapper's launch counters.
-enum Count { C_STAGE, C_DIAG, C_CONTROL, C_COUNT };
+// Kernel counts reported to the wrapper's launch counters: the stage, the
+// dt and sampled tails, the unsampled control, and the x1 stage and x1
+// sampled tail (matmul_algorithm=x1, float32; dt stays in C_DIAG).
+enum Count { C_STAGE, C_DIAG, C_CONTROL, C_STAGE_X1, C_DIAG_X1, C_COUNT };
 
 // Launch geometry of the stage kernel (sg_stage.cu), chosen on the host by
 // anap3_tpu_torch/ops/sg_kernels.py:stage_geometry and handed to every C
@@ -98,7 +101,16 @@ constexpr int MAX_SMEM = 232448;   // opt-in shared memory of a block
 
 struct StageGeo {
   int tn, cluster, rows, ks, depth, smem, nparts, ksplit;
+  // matmul_algorithm=x1 (not a slot: the host entries take it as an
+  // argument): bf16 tensor-core products, whole bands (ks = nf, depth 1)
+  int x1;
 };
+
+// The x1 stage's bf16 bands: k rounded up to whole mma k steps (16) plus 8,
+// so a band row is 4 (mod 8) words long and the 8 rows a fragment load
+// touches fall in 8 different bank quads.
+__host__ __device__ constexpr int x1_k16(int k) { return (k + 15) & ~15; }
+__host__ __device__ constexpr int x1_kp(int k) { return x1_k16(k) + 8; }
 
 // Threads of one k group, and the most threads a block may have (the
 // kernel's launch bound, which leaves each thread the registers it needs
@@ -129,6 +141,10 @@ struct Ops {
   const T *bc_u, *bc_v;
   const T *su, *sv, *sdudx, *sdudy, *sdvdx, *sdvdy, *sw, *sdwx, *sdwy;
   const T* lsc;  // (lanes, H_COUNT)
+  // x1 only: (lanes, 8, nf) the velocity products on the constant border
+  // strip, per run (rows X1B_*): Dx u, Dxx u, Dx v, Dxx v at column N,
+  // u DyT, u DyyT, v DyT, v DyyT at row N
+  const T* x1b;
   // lane b's scalars, set by at_lane
   T nu, beta_sq, cfl, lid, inv_dx, inv_dy;
 };
@@ -144,6 +160,7 @@ Ops<T> make_ops(const void* const* P) {
   o.sdvdx = c(P_SDVDX); o.sdvdy = c(P_SDVDY); o.sw = c(P_SW);
   o.sdwx = c(P_SDWX); o.sdwy = c(P_SDWY);
   o.lsc = c(P_LSC);
+  o.x1b = c(P_X1B);
   o.nu = o.beta_sq = o.cfl = o.lid = o.inv_dx = o.inv_dy = T(0);
   return o;
 }
@@ -300,6 +317,7 @@ struct Tail {
   T tol;
   int* flags;      // chunk: (lanes, 3) done, conv_iter, converged
   T* ref_norm;     // chunk: (lanes,)
+  int x1;          // the quadratures' products as x1 (float32 chunks)
 };
 
 // Slots of the 1024-thread tree that warp_tree reads: nb is at most
@@ -456,7 +474,9 @@ __device__ void finish_lane(const Tail<T>& t, int lane, bool sampled,
 // The geometry from the host's int array, checked against what the stage
 // kernel can take at order nf - 1 with elements of `elem` bytes;
 // cudaErrorInvalidValue when it cannot.
-cudaError_t stage_geometry(const int* geo, int nf, int elem, StageGeo* g);
+// With x1, the geometry of the x1 stage (float32 only).
+cudaError_t stage_geometry(const int* geo, int nf, int elem, int x1,
+                           StageGeo* g);
 template <typename T>
 cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
                          int lanes, const StageGeo& g, cudaStream_t s);
@@ -469,15 +489,17 @@ cudaError_t launch_control(const Tail<T>& t, int nf, int lanes,
                            cudaStream_t s);
 // A sampled tail: the quadratures of (u, v) and the finish, one cooperative
 // launch of `blocks` blocks (at least `lanes`, at most tail_coresident, at
-// most MAX_TAIL_ITEMS (tile, lane) items a block).
+// most MAX_TAIL_ITEMS (tile, lane) items a block); t.x1 takes the x1
+// instance.
 template <typename T>
 cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
                         const Tail<T>& t, int nf, int lanes, int blocks,
                         cudaStream_t s);
-// Co-resident blocks of the tail kernel on the current device;
-// cudaErrorNotSupported on a card without cooperative launch.
+// Co-resident blocks of the tail kernel (its x1 instance with x1) on the
+// current device; cudaErrorNotSupported on a card without cooperative
+// launch.
 template <typename T>
-cudaError_t tail_coresident(int* blocks);
+cudaError_t tail_coresident(int* blocks, int x1);
 constexpr int MAX_TAIL_ITEMS = 128;
 
 }  // namespace sg

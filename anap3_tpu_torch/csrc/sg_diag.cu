@@ -37,10 +37,23 @@
 //   - No fallback: a card without cooperative launch, a grid above the
 //     co-resident count, below the lane count, or one that leaves a block
 //     more than MAX_TAIL_ITEMS items is refused with an error.
+// x1 (float32 chunks under matmul_algorithm=x1): tail_kernel<float, true>
+//   takes the quadratures' products as the aligned kernel's x1 metrics pass
+//   does (anap3_tpu/ops/pallas_aligned.py metrics_pass, _DotEngine x1):
+//   over k < N each operand rounded to bf16, the product exact in float32,
+//   so the float32 sum is that of one bf16 tensor-core pass; the border
+//   term k = N unrounded. The operands are the exact kernel's float32
+//   tiles, each element below N rounded once by the thread that stages it.
+//   omega on the constant border strip (output column N of Dx v, row N of
+//   u DyT) is the per-run value of the stage's table (P_X1B,
+//   ops/sg_kernels.py:x1_border_table); grad(omega) is unrounded at the
+//   corner (N, N) only (omega's border is not constant): two warp sums in
+//   the corner's tile.
 // Lanes: dt_kernel runs one block per lane; tail_kernel's items carry their
 //   lane, whose operators, scalars and partials they use (see
 //   sg_common.cuh), and the finish of lane b reads only lane b's partials.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "sg_common.cuh"
 
@@ -110,12 +123,31 @@ __device__ __forceinline__ T tile_sum(const T* col, int l) {
   return x;
 }
 
+// x rounded to bf16 and back (x1 products).
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// x1: the elements this thread staged by load_tiles at k tile k0, rounded
+// to bf16 where k < n (the product's core; the border term k = n stays
+// unrounded). Each thread rounds what it loaded, so no barrier is added,
+// and the sums then run as the exact kernel's: a product of two bf16
+// values is exact in float32.
+__device__ __forceinline__ void x1_round_own(float (&As)[TILE][TILE],
+                                             float (&Bs)[TILE][TILE], int k0,
+                                             int n) {
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  if (k0 + tx < n) As[ty][tx] = bf16_round(As[ty][tx]);
+  if (k0 + ty < n) Bs[ty][tx] = bf16_round(Bs[ty][tx]);
+}
+
 // omega = Dx v - u DyT (smooth part) of tile (ti, tj) of one lane into
 // scratch, plus the energy and enstrophy partials over the TOTAL fields.
-template <typename T>
+// x1b: the lane's border-strip constants (x1 only; sg_common.cuh:P_X1B).
+template <typename T, bool X1>
 __device__ void omega_tile(const Ops<T>& o, const T* u, const T* v,
                            T* omega, T* qpart, int nf, int ti, int tj,
-                           TileSmem<T>& S) {
+                           const T* x1b, TileSmem<T>& S) {
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int i = ti * TILE + ty;
   const int j = tj * TILE + tx;
@@ -142,6 +174,10 @@ __device__ void omega_tile(const Ops<T>& o, const T* u, const T* v,
       if (kq >= nf) break;
       load_tiles(o.Dx, nf, nf, v, nf, nf, nf, kq, i, j, S.A1[q], S.B1[q]);
       load_tiles(u, nf, nf, o.DyT, nf, nf, nf, kq, i, j, S.A2[q], S.B2[q]);
+      if constexpr (X1) {
+        x1_round_own(S.A1[q], S.B1[q], kq, nf - 1);
+        x1_round_own(S.A2[q], S.B2[q], kq, nf - 1);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -154,6 +190,11 @@ __device__ void omega_tile(const Ops<T>& o, const T* u, const T* v,
       }
     }
     __syncthreads();
+  }
+  if constexpr (X1) {  // the constant border strip: Dx v at column N and
+                       // u DyT at row N, per-run values
+    if (in && j == nf - 1) dvdx = x1b[2 * nf + i];
+    if (in && i == nf - 1) dudy = x1b[4 * nf + j];
   }
   T e = 0, z = 0;
   if (in) {
@@ -177,7 +218,7 @@ __device__ void omega_tile(const Ops<T>& o, const T* u, const T* v,
 
 // grad(omega) = (Dx omega, omega DyT) of the smooth vorticity plus the
 // sampled singular gradients on tile (ti, tj); palinstrophy partials.
-template <typename T>
+template <typename T, bool X1>
 __device__ void grad_tile(const Ops<T>& o, const T* omega, T* qpart, int nf,
                           int ti, int tj, TileSmem<T>& S) {
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -201,6 +242,10 @@ __device__ void grad_tile(const Ops<T>& o, const T* omega, T* qpart, int nf,
       if (kq >= nf) break;
       load_tiles(o.Dx, nf, nf, omega, nf, nf, nf, kq, i, j, S.A1[q], S.B1[q]);
       load_tiles(omega, nf, nf, o.DyT, nf, nf, nf, kq, i, j, S.A2[q], S.B2[q]);
+      if constexpr (X1) {
+        x1_round_own(S.A1[q], S.B1[q], kq, nf - 1);
+        x1_round_own(S.A2[q], S.B2[q], kq, nf - 1);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -213,6 +258,29 @@ __device__ void grad_tile(const Ops<T>& o, const T* omega, T* qpart, int nf,
       }
     }
     __syncthreads();
+  }
+  if constexpr (X1) {
+    // the corner (N, N) unrounded: Dx[N] . omega[:, N] and omega[N] .
+    // DyT[:, N], a warp each, in the tile that holds it (block-uniform)
+    const int n = nf - 1, lo = n / TILE * TILE;
+    if (ti * TILE == lo && tj * TILE == lo) {
+      const int tid = ty * TILE + tx, l = tid % 32;
+      if (tid < 64) {
+        T sum = 0;
+        for (int k = l; k < nf; k += 32)
+          sum += tid < 32 ? o.Dx[(size_t)n * nf + k] * omega[(size_t)k * nf + n]
+                          : omega[(size_t)n * nf + k] * o.DyT[(size_t)k * nf + n];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (l == 0) S.vals[1][tid / 32] = sum;
+      }
+      __syncthreads();
+      if (i == n && j == n) {
+        dwx = S.vals[1][0];
+        dwy = S.vals[1][1];
+      }
+    }
   }
   T pal = 0;
   if (in) {
@@ -233,10 +301,11 @@ __device__ void grad_tile(const Ops<T>& o, const T* omega, T* qpart, int nf,
 
 // Two blocks an SM at least: the grid is the co-resident count, and a
 // block of 256 threads may otherwise take every register of an SM.
-template <typename T>
+template <typename T, bool X1>
 __global__ void __launch_bounds__(TILE * TILE, 2)
     tail_kernel(Ops<T> o0, const T* u, const T* v, T* omega, Tail<T> t,
                 int nf) {
+  static_assert(!X1 || sizeof(T) == 4, "x1 runs in float32");
   __shared__ TileSmem<T> S;
   __shared__ T sums[TAIL_COLS];
   cg::grid_group grid = cg::this_grid();
@@ -254,15 +323,15 @@ __global__ void __launch_bounds__(TILE * TILE, 2)
   };
   each([&](const Ops<T>& o, int lane, int ti, int tj) {
     const size_t f = lane * lane_full(nf);
-    omega_tile(o, u + f, v + f, omega + f,
-               t.qpart + lane * lane_blocks(nf) * NQPART, nf,
-               ti, tj, S);
+    omega_tile<T, X1>(o, u + f, v + f, omega + f,
+                      t.qpart + lane * lane_blocks(nf) * NQPART, nf, ti, tj,
+                      X1 ? o.x1b + (size_t)lane * 8 * nf : nullptr, S);
   });
   grid.sync();
   each([&](const Ops<T>& o, int lane, int ti, int tj) {
-    grad_tile(o, omega + lane * lane_full(nf),
-              t.qpart + lane * lane_blocks(nf) * NQPART, nf,
-              ti, tj, S);
+    grad_tile<T, X1>(o, omega + lane * lane_full(nf),
+                     t.qpart + lane * lane_blocks(nf) * NQPART, nf, ti, tj,
+                     S);
   });
   grid.sync();
   if (finisher) {
@@ -283,8 +352,10 @@ cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
 }
 
 template <typename T>
-cudaError_t tail_coresident(int* blocks) {
-  static int most = 0;
+cudaError_t tail_coresident(int* blocks, int x1) {
+  if (x1 && sizeof(T) != 4) return cudaErrorInvalidValue;
+  static int cached[2] = {0, 0};
+  int& most = cached[x1 ? 1 : 0];
   if (most) {
     *blocks = most;
     return cudaSuccess;
@@ -298,7 +369,8 @@ cudaError_t tail_coresident(int* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, tail_kernel<T>, TILE * TILE, 0);
+        &per_sm, x1 ? tail_kernel<T, sizeof(T) == 4> : tail_kernel<T, false>,
+        TILE * TILE, 0);
   if (err == cudaSuccess && per_sm < 1)
     err = cudaErrorCooperativeLaunchTooLarge;
   if (err != cudaSuccess) return err;
@@ -312,7 +384,7 @@ cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
                         const Tail<T>& t, int nf, int lanes, int blocks,
                         cudaStream_t s) {
   int most = 0;
-  cudaError_t err = tail_coresident<T>(&most);
+  cudaError_t err = tail_coresident<T>(&most, t.x1);
   if (err != cudaSuccess) return err;
   const long items = (long)lane_blocks(nf) * lanes;
   if (t.lanes != lanes || (!t.metrics && !(t.rows && t.dpart)) ||
@@ -332,14 +404,17 @@ cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, tail_kernel<T>, o, u, v, omega, t, nf);
+  err = t.x1 ? cudaLaunchKernelEx(&cfg, tail_kernel<T, sizeof(T) == 4>, o,
+                                  u, v, omega, t, nf)
+             : cudaLaunchKernelEx(&cfg, tail_kernel<T, false>, o, u, v,
+                                  omega, t, nf);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 #define SG_INSTANTIATE(T)                                                   \
   template cudaError_t launch_dt<T>(const Ops<T>&, const T*, const T*, T*,  \
                                     int, int, cudaStream_t);                \
-  template cudaError_t tail_coresident<T>(int*);                            \
+  template cudaError_t tail_coresident<T>(int*, int);                       \
   template cudaError_t launch_tail<T>(const Ops<T>&, const T*, const T*,    \
                                       T*, const Tail<T>&, int, int, int,    \
                                       cudaStream_t);

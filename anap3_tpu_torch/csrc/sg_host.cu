@@ -30,6 +30,13 @@
 // step for n_steps calls of sg_step_run. Bound: like the step, by the launches' latency at the
 // V-cycle's sizes (a step's products are ~0.2 GFLOP at N=192).
 //
+// With x1 = 1 (matmul_algorithm=x1, float32 only) a chunk runs the x1
+// instances of the stage and tail kernels (one bf16 tensor-core pass a
+// product; sg_stage.cu, sg_diag.cu), counted as C_STAGE_X1 and C_DIAG_X1;
+// dt and control are the exact chunk's. The step and the smoother take no
+// x1: the JAX package's per-step fallback keeps x3 and its V-cycle
+// smoother runs x6.
+//
 // sg_lanes_chunk_run is sg_chunk_run for B sweep lanes at once (the lanes'
 // state machines are independent, their flags carried in from the previous
 // chunk): it takes the place of the Pallas fori_loops of
@@ -141,7 +148,10 @@ int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
     a.flags = st == 3 ? flags : nullptr;
     a.dpart = st == 3 && flags ? w.dpart : nullptr;
     SG_CHECK(launch_stage<T>(w.o, a, nf, w.lanes, w.g, s));
-    counts[C_STAGE] += 1;
+    if (w.g.x1)
+      counts[C_STAGE_X1] += 1;
+    else
+      counts[C_STAGE] += 1;
   }
   return 0;
 }
@@ -162,7 +172,7 @@ template <typename T>
 int step_run(const void* const* P, int nf, const int* geo, int with_tau,
              int tail_blocks, int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, 1);
-  SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
+  SG_CHECK(stage_geometry(geo, nf, sizeof(T), 0, &w.g));
   int rc = rk4<T>(w, nf, with_tau != 0, true, nullptr, counts, s);
   if (rc) return rc;
   return metrics_tail(w, P, nf, tail_blocks, counts, s);
@@ -172,7 +182,7 @@ template <typename T>
 int smooth_run(const void* const* P, int nf, const int* geo, int n_steps,
                int with_tau, int tail_blocks, int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, 1);
-  SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
+  SG_CHECK(stage_geometry(geo, nf, sizeof(T), 0, &w.g));
   auto m = [&](int k) { return static_cast<T*>(const_cast<void*>(P[k])); };
   T* const outs[2][3] = {{w.bu, w.bv, w.bp}, {m(P_CU), m(P_CV), m(P_CP)}};
   Work<T> wi = w;  // step i: base = step i-1's output (the input for i = 0)
@@ -189,23 +199,25 @@ int smooth_run(const void* const* P, int nf, const int* geo, int n_steps,
 template <typename T>
 int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
               int chunk, int start_iter, int warmup, int metrics_every,
-              int use_residual, double tol, int tail_blocks, int* counts,
-              cudaStream_t s) {
+              int use_residual, double tol, int x1, int tail_blocks,
+              int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, lanes);
-  SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
+  SG_CHECK(stage_geometry(geo, nf, sizeof(T), x1, &w.g));
+  if (x1 && !w.o.x1b) return (int)cudaErrorInvalidValue;
   const int* flags = static_cast<const int*>(P[P_FLAGS]);
   for (int i = 0; i < chunk; ++i) {
     const int idx = start_iter + i;
     // dt at the chunk's first step; later steps take it from the tail
     int rc = rk4<T>(w, nf, false, i == 0, flags, counts, s);
     if (rc) return rc;
-    const Tail<T> t = chunk_tail(w, P, i, idx, warmup, tol, use_residual);
+    Tail<T> t = chunk_tail(w, P, i, idx, warmup, tol, use_residual);
+    t.x1 = x1;
     // the aligned kernel's cadence: the first step of every chunk and
     // every metrics_every-th global iteration (one decision for all lanes)
     if (i == 0 || idx % metrics_every == 0) {
       SG_CHECK(launch_tail<T>(w.o, w.u, w.v, w.omega, t, nf, lanes,
                               tail_blocks, s));
-      counts[C_DIAG] += 1;
+      counts[x1 ? C_DIAG_X1 : C_DIAG] += 1;
     } else {
       SG_CHECK(launch_control<T>(t, nf, lanes, s));
       counts[C_CONTROL] += 1;
@@ -217,13 +229,16 @@ int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
 // Timing aid: `reps` launches of one kernel group on a chunk workspace of
 // `lanes` lanes (0: one last stage of a chunk step, out of place into the
 // B buffers, with the base's partials; 1: dt; 2: a sampled step's tail;
-// 3: an unsampled step's control). Not part of any solve.
+// 3: an unsampled step's control), the x1 instances with x1. Not part of
+// any solve.
 template <typename T>
 int bench_run(const void* const* P, int nf, const int* geo, int lanes,
-              int which, int reps, int tail_blocks, cudaStream_t s) {
+              int which, int reps, int x1, int tail_blocks, cudaStream_t s) {
   Work<T> w = make_work<T>(P, lanes);
-  SG_CHECK(stage_geometry(geo, nf, sizeof(T), &w.g));
-  const Tail<T> t = chunk_tail(w, P, 0, 0, 1 << 30, 0.0, 0);
+  SG_CHECK(stage_geometry(geo, nf, sizeof(T), x1, &w.g));
+  if (x1 && !w.o.x1b) return (int)cudaErrorInvalidValue;
+  Tail<T> t = chunk_tail(w, P, 0, 0, 1 << 30, 0.0, 0);
+  t.x1 = x1;
   for (int r = 0; r < reps; ++r) {
     if (which == 0) {
       StageArgs<T> a;
@@ -277,46 +292,48 @@ int sg_smooth_run(int dtype, int nf, const int* geo, const void* const* ptrs,
                                        tail_blocks, counts, s);
 }
 
+// x1: 1 for matmul_algorithm=x1 (float32 only; refused in float64).
 int sg_lanes_chunk_run(int dtype, int nf, const int* geo, int lanes,
                        const void* const* ptrs, int chunk, int start_iter,
                        int warmup, int metrics_every, int use_residual,
-                       double tol, int tail_blocks, int* counts,
+                       double tol, int x1, int tail_blocks, int* counts,
                        void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? sg::chunk_run<double>(ptrs, nf, geo, lanes, chunk,
                                        start_iter, warmup, metrics_every,
-                                       use_residual, tol, tail_blocks,
+                                       use_residual, tol, x1, tail_blocks,
                                        counts, s)
                : sg::chunk_run<float>(ptrs, nf, geo, lanes, chunk,
                                       start_iter, warmup, metrics_every,
-                                      use_residual, tol, tail_blocks, counts,
-                                      s);
+                                      use_residual, tol, x1, tail_blocks,
+                                      counts, s);
 }
 
 int sg_chunk_run(int dtype, int nf, const int* geo, const void* const* ptrs,
                  int chunk, int start_iter, int warmup, int metrics_every,
-                 int use_residual, double tol, int tail_blocks, int* counts,
-                 void* stream) {
+                 int use_residual, double tol, int x1, int tail_blocks,
+                 int* counts, void* stream) {
   return sg_lanes_chunk_run(dtype, nf, geo, 1, ptrs, chunk, start_iter,
-                            warmup, metrics_every, use_residual, tol,
+                            warmup, metrics_every, use_residual, tol, x1,
                             tail_blocks, counts, stream);
 }
 
 int sg_bench_run(int dtype, int nf, const int* geo, int lanes,
-                 const void* const* ptrs, int which, int reps,
+                 const void* const* ptrs, int which, int reps, int x1,
                  int tail_blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   return dtype ? sg::bench_run<double>(ptrs, nf, geo, lanes, which, reps,
-                                       tail_blocks, s)
-               : sg::bench_run<float>(ptrs, nf, geo, lanes, which, reps,
+                                       x1, tail_blocks, s)
+               : sg::bench_run<float>(ptrs, nf, geo, lanes, which, reps, x1,
                                       tail_blocks, s);
 }
 
-// The co-resident blocks of the tail kernel of `dtype` on the current
-// device into *blocks (the most its cooperative launch may take).
-int sg_tail_coresident(int dtype, int* blocks) {
-  return dtype ? (int)sg::tail_coresident<double>(blocks)
-               : (int)sg::tail_coresident<float>(blocks);
+// The co-resident blocks of the tail kernel of `dtype` (its x1 instance
+// with x1) on the current device into *blocks (the most its cooperative
+// launch may take).
+int sg_tail_coresident(int dtype, int x1, int* blocks) {
+  return dtype ? (int)sg::tail_coresident<double>(blocks, x1)
+               : (int)sg::tail_coresident<float>(blocks, x1);
 }
 
 const char* sg_error_string(int code) {

@@ -60,12 +60,43 @@
 //     B = 1, each of 128 threads.
 //   - every sum runs in one fixed order (k ascending, then a fixed warp tree
 //     for the partials), so a run reproduces bit for bit.
+// x1 (matmul_algorithm=x1, float32 only): the instance stage_kernel<float,
+//   TN, true> runs the products as ONE bf16 tensor-core pass with float32
+//   sums, the semantics of the aligned kernel's x1 mode (anap3_tpu/ops/
+//   pallas_aligned.py make_aligned_chunk_runner with algorithm="x1",
+//   _DotEngine's x1 branches in pallas_tiled.py), which works on the
+//   bordered core: index N = nf - 1 of each axis is the border, whose state
+//   values are per-run constants. So:
+//   - a velocity product contracts k < N in bf16 (the operator's hi half
+//     and the stage state, each rounded to nearest even) and adds the
+//     border term k = N unrounded; on the constant border strip (output
+//     column N of Dx u, Dxx u, Dx v, Dxx v; output row N of u DyT, ...)
+//     it is exact float32, as the kernel's constant strips are;
+//   - the pressure chain contracts the inner grid in bf16 twice, Gx p and
+//     Ix p rounded to bf16 in between (eng.cache of LP); the corner (N, N)
+//     contracts the unrounded row exactly (its _corner_dot), a warp each.
+//   The border strip's values are per-run constants (the kernel's CCOL and
+//   CROW strips), which the wrapper computes once in float64
+//   (ops/sg_kernels.py:x1_border_table, pointer slot P_X1B).
+//   Each product is mma.sync.m16n8k16 (bf16 in, f32 sums) on the
+//   transposed tile: m = the block's tn columns (1-3 tiles of 16), n = its
+//   8 rows, k in steps of 16. The bands are staged whole (ks = nf), as bf16
+//   with k contiguous ([row][k] and [column][k], rows padded to 4 (mod 8)
+//   words: no bank conflict on a fragment load), rounded once per staged
+//   element while staging (a global load, a conversion, a shared store; no
+//   cp.async: the operands are float32 in device memory). Each warp takes
+//   whole (product, m tile) items over all k and leaves its fragment in a
+//   float32 stash, from which the threads of k group 0 read their 2 x 2
+//   outputs, add the border terms, and run the same epilogue as the exact
+//   kernel. Bound: as the exact kernel's, latency; the bf16 products are
+//   ~45 MFLOP a stage at N=128 against 989 TFLOP/s.
 // Lanes: the lane is the grid's z axis, so one launch advances every lane of
 //   a sweep by one stage (anap3_tpu/ops/pallas_lanes.py
 //   make_lane_chunk_runner, pallas_lanes_aligned.py
 //   make_aligned_lane_runner); lane b's blocks run the one-lane code on lane
 //   b's buffers and scalars, and a cluster never spans two lanes.
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 
 #include "sg_common.cuh"
 
@@ -94,11 +125,30 @@ __host__ __device__ inline size_t stage_smem_elems(int nf, int tn, int ks,
   return (size_t)2 * STAGE_TM * tn + (size_t)2 * STAGE_TM * stage_nip(nf) +
          red_elems(tn, ksplit) + (size_t)depth * slab_elems(4, 4, ks, tn);
 }
+// The x1 stage's shared memory in bytes: the float32 part of the exact
+// layout up to the ring, then the stash of its ten products (8 rows by tn),
+// then the largest phase's bf16 bands (phase 1: Gx, Ix rows and p columns;
+// 2: Dx, Dxx, u, v rows and u, v, DyT, DyyT columns; 3: the gathered rows
+// and IyT, GyT columns).
+__host__ __device__ inline size_t stage_x1_smem_bytes(int nf, int tn,
+                                                      int ksplit) {
+  const int ni = nf - 2, kp1 = x1_kp(ni), kp2 = x1_kp(nf - 1);
+  const size_t f32 =
+      stage_smem_elems(nf, tn, 0, 0, ksplit) + (size_t)10 * STAGE_TM * tn;
+  size_t b16 = (size_t)(4 * STAGE_TM + 4 * tn) * kp2;
+  const size_t p1 = (size_t)(2 * STAGE_TM + tn) * kp1;
+  const size_t p3 = (size_t)(2 * STAGE_TM + 2 * tn) * kp1;
+  if (p1 > b16) b16 = p1;
+  if (p3 > b16) b16 = p3;
+  return 4 * f32 + 2 * b16;
+}
 
-cudaError_t stage_geometry(const int* geo, int nf, int elem, StageGeo* g) {
-  if (!geo || nf < 3) return cudaErrorInvalidValue;
+cudaError_t stage_geometry(const int* geo, int nf, int elem, int x1,
+                           StageGeo* g) {
+  if (!geo || nf < 3 || (x1 && elem != 4)) return cudaErrorInvalidValue;
   const StageGeo s{geo[G_TN], geo[G_CLUSTER], geo[G_ROWS], geo[G_KS],
-                   geo[G_DEPTH], geo[G_SMEM], geo[G_NPARTS], geo[G_KSPLIT]};
+                   geo[G_DEPTH], geo[G_SMEM], geo[G_NPARTS], geo[G_KSPLIT],
+                   x1 ? 1 : 0};
   const bool tile =
       (s.tn == 16 || s.tn == 32 || s.tn == 48) && s.cluster >= 1 &&
       s.cluster <= (s.tn == 48 ? MAX_CLUSTER_NP : MAX_CLUSTER) &&
@@ -111,9 +161,11 @@ cudaError_t stage_geometry(const int* geo, int nf, int elem, StageGeo* g) {
       s.ksplit * stage_group_threads(s.tn) <= stage_max_threads(elem, s.tn);
   const bool staging = s.depth >= 1 && s.depth <= 3 && s.ks >= 1 &&
                        (s.ks >= nf || s.ks % s.ksplit == 0);
+  const size_t smem =
+      x1 ? stage_x1_smem_bytes(nf, s.tn, s.ksplit)
+         : stage_smem_elems(nf, s.tn, s.ks, s.depth, s.ksplit) * elem;
   if (!tile || !groups || !staging || s.smem > MAX_SMEM ||
-      (size_t)s.smem !=
-          stage_smem_elems(nf, s.tn, s.ks, s.depth, s.ksplit) * elem)
+      (size_t)s.smem != smem || (x1 && (s.ks < nf || s.depth != 1)))
     return cudaErrorInvalidValue;
   *g = s;
   return cudaSuccess;
@@ -315,7 +367,314 @@ __device__ __forceinline__ void load_inputs(
   }
 }
 
+// The Gx p and Ix p row bands of this block's rows, gathered from the
+// cluster's column slices (gp_own, ip_own of each peer) into gp_band and
+// ip_band ([k][TM], k < ni), four elements a thread in flight at a time.
 template <typename T, int TN>
+__device__ __forceinline__ void gather_bands(cg::cluster_group& cluster,
+                                             T* gp_own, T* ip_own,
+                                             T* gp_band, T* ip_band,
+                                             int ni) {
+  constexpr int TM = STAGE_TM;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  for (int e0 = tid; e0 < ni * TM; e0 += 4 * nt) {
+    T gv[4], iv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * nt;
+      if (e < ni * TM) {
+        const int k = e / TM, r = e % TM, peer = k / TN;
+        const int kc = r * TN + k - peer * TN;
+        gv[u] = cluster.map_shared_rank(gp_own, peer)[kc];
+        iv[u] = cluster.map_shared_rank(ip_own, peer)[kc];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * nt;
+      if (e < ni * TM) {
+        gp_band[e] = gv[u];  // e = k * TM + r
+        ip_band[e] = iv[u];
+      }
+    }
+  }
+}
+
+// ---- the x1 products (float32 stage only)
+
+using bf16 = __nv_bfloat16;
+
+// Elements a thread stages per round: its loads of a round are all issued
+// before the first conversion, so their latencies overlap.
+constexpr int X1_UNROLL = 4;
+
+// Rows [row0, row0 + TM) of the NB operands X[b] (leading dim ld, rows < m)
+// over k < K as bf16 rows dst[(b * TM + r) * kp + k], zero past the
+// operand up to x1_k16(K).
+template <int NB>
+__device__ __forceinline__ void x1_rows(bf16* dst, const float* const* X,
+                                        int ld, int m, int row0, int K,
+                                        int kp) {
+  const int k16 = x1_k16(K), total = STAGE_TM * k16, nt = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < total; e0 += X1_UNROLL * nt) {
+    float val[NB][X1_UNROLL];
+#pragma unroll
+    for (int q = 0; q < X1_UNROLL; ++q) {
+      const int e = e0 + q * nt, r = e / k16, k = e - r * k16;
+      const bool ok = e < total && row0 + r < m && k < K;
+      const size_t off = ok ? (size_t)(row0 + r) * ld + k : 0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) val[b][q] = ok ? __ldg(X[b] + off) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < X1_UNROLL; ++q) {
+      const int e = e0 + q * nt, r = e / k16, k = e - r * k16;
+      if (e < total) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          dst[(b * STAGE_TM + r) * kp + k] = __float2bfloat16_rn(val[b][q]);
+      }
+    }
+  }
+}
+
+// Columns [col0, col0 + TN) of the NB operands Y[b] (leading dim ld,
+// columns < n) over k < K as bf16 rows dst[(b * TN + c) * kp + k]
+// (transposed: k contiguous), zero past the operand up to x1_k16(K).
+// Global reads run along the columns.
+template <int TN, int NB>
+__device__ __forceinline__ void x1_cols(bf16* dst, const float* const* Y,
+                                        int ld, int n, int col0, int K,
+                                        int kp) {
+  const int k16 = x1_k16(K), total = k16 * TN, nt = blockDim.x;
+  for (int e0 = threadIdx.x; e0 < total; e0 += X1_UNROLL * nt) {
+    float val[NB][X1_UNROLL];
+#pragma unroll
+    for (int q = 0; q < X1_UNROLL; ++q) {
+      const int e = e0 + q * nt, k = e / TN, c = e - k * TN;
+      const bool ok = e < total && col0 + c < n && k < K;
+      const size_t off = ok ? (size_t)k * ld + col0 + c : 0;
+#pragma unroll
+      for (int b = 0; b < NB; ++b) val[b][q] = ok ? __ldg(Y[b] + off) : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < X1_UNROLL; ++q) {
+      const int e = e0 + q * nt, k = e / TN, c = e - k * TN;
+      if (e < total) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          dst[(b * TN + c) * kp + k] = __float2bfloat16_rn(val[b][q]);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ unsigned ld_pair(const bf16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// d += A B^T over k < k16 for one warp: A the 16 rows a[m * kp + k] (the
+// output's columns), B the 8 rows b[n * kp + k] (its rows); the fragment
+// layouts of mma.m16n8k16 .row.col (g = lane / 4, tig = lane % 4): A rows
+// g and g + 8, B row g, k pairs 2 tig and 2 tig + 8; D[m][n] in d as
+// (g, 2 tig), (g, 2 tig + 1), (g + 8, 2 tig), (g + 8, 2 tig + 1).
+__device__ __forceinline__ void x1_mma(float (&d)[4], const bf16* a,
+                                       const bf16* b, int kp, int k16,
+                                       int g, int tig) {
+  const bf16* a0 = a + g * kp + 2 * tig;
+  const bf16* a1 = a0 + 8 * kp;
+  const bf16* b0 = b + g * kp + 2 * tig;
+#pragma unroll 2
+  for (int k0 = 0; k0 < k16; k0 += 16) {
+    const unsigned fa0 = ld_pair(a0 + k0), fa1 = ld_pair(a1 + k0);
+    const unsigned fa2 = ld_pair(a0 + k0 + 8), fa3 = ld_pair(a1 + k0 + 8);
+    const unsigned fb0 = ld_pair(b0 + k0), fb1 = ld_pair(b0 + k0 + 8);
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(fa0), "r"(fa1), "r"(fa2), "r"(fa3), "r"(fb0), "r"(fb1));
+  }
+}
+
+// A warp's D (m tile mt) into out[i * TN + j]: output row i = n, column
+// j = 16 mt + m.
+template <int TN>
+__device__ __forceinline__ void x1_store(float* out, const float (&d)[4],
+                                         int mt, int g, int tig) {
+  const int j = mt * 16 + g, i = 2 * tig;
+  out[i * TN + j] = d[0];
+  out[(i + 1) * TN + j] = d[1];
+  out[i * TN + j + 8] = d[2];
+  out[(i + 1) * TN + j + 8] = d[3];
+}
+
+// The border terms of output a = 2 rho + t, at (i, j), of the x1 products
+// (u, v: the stage input at lane offset; x1b: the lane's border-strip
+// constants; corner: dp/dx, dp/dy at (N, N)): the unrounded k = N term in
+// float32, or on the constant border strip the exact per-run value; the
+// pressure chain's corner.
+__device__ __forceinline__ void x1_border(const Ops<float>& o, const float* u,
+                                          const float* v, const float* x1b,
+                                          const float* corner, int nf, int i,
+                                          int j, int a, float (&acc)[32],
+                                          float (&dp)[8]) {
+  const int n = nf - 1;
+  if (j == n) {  // Dx u, Dxx u, Dx v, Dxx v on the constant column N
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[4 * q + a] = x1b[q * nf + i];
+  } else {
+    const float dx = o.Dx[(size_t)i * nf + n];
+    const float dxx = o.Dxx[(size_t)i * nf + n];
+    const float un = u[(size_t)n * nf + j], vn = v[(size_t)n * nf + j];
+    acc[a] += dx * un; acc[4 + a] += dxx * un;
+    acc[8 + a] += dx * vn; acc[12 + a] += dxx * vn;
+  }
+  if (i == n) {  // u DyT, u DyyT, v DyT, v DyyT on the constant row N
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[16 + 4 * q + a] = x1b[(4 + q) * nf + j];
+  } else {
+    const float dy = o.DyT[(size_t)n * nf + j];
+    const float dyy = o.DyyT[(size_t)n * nf + j];
+    const float un = u[(size_t)i * nf + n], vn = v[(size_t)i * nf + n];
+    acc[16 + a] += un * dy; acc[20 + a] += un * dyy;
+    acc[24 + a] += vn * dy; acc[28 + a] += vn * dyy;
+  }
+  if (i == n && j == n) {
+    dp[a] = corner[0];
+    dp[4 + a] = corner[1];
+  }
+}
+
+// Phases 1-3 of the x1 stage: acc and dp of this thread's 2 x 2 outputs
+// (k group 0; zeros in the others), with the same cluster barriers as the
+// exact kernel's phases (arrive after the Gx p / Ix p slices, wait before
+// the gather, arrive after it). `work` is the shared memory past the
+// reduction space: the stash, then the bf16 bands.
+template <int TN>
+__device__ __forceinline__ void x1_products(
+    const Ops<float>& o0, const StageArgs<float>& a0, int nf, size_t lf,
+    size_t lq, int row0, int col0, cg::cluster_group& cluster,
+    float* gp_own, float* ip_own, float* gp_band, float* ip_band,
+    float* work, int kg, int r0, int c, float (&acc)[32], float (&dp)[8]) {
+  constexpr int TM = STAGE_TM, MT = TN / 16;  // m tiles of the columns
+  const int tid = threadIdx.x, warp = tid / 32, nwarps = blockDim.x / 32;
+  const int g = (tid % 32) / 4, tig = tid % 4;
+  const int ni = nf - 2, n = nf - 1;
+  const int kp1 = x1_kp(ni), k1 = x1_k16(ni);
+  const int kp2 = x1_kp(n), k2 = x1_k16(n);
+  float* stash = work;  // [10][TM][TN]: the 8 velocity products, dp/dx, dp/dy
+  bf16* hb = reinterpret_cast<bf16*>(stash + 10 * TM * TN);
+  const float* u = a0.u_in + lf;
+  const float* v = a0.v_in + lf;
+
+  // 1. this block's column slice of Gx p and Ix p over the inner grid
+  {
+    bf16 *gx = hb, *ix = hb + TM * kp1, *pc = hb + 2 * TM * kp1;
+    const float* rows[2] = {o0.Gx, o0.Ix};
+    const float* cols[1] = {a0.p_in + lq};
+    x1_rows<2>(gx, rows, ni, nf, row0, ni, kp1);
+    x1_cols<TN, 1>(pc, cols, ni, ni, col0, ni, kp1);
+    __syncthreads();
+    for (int it = warp; it < 2 * MT; it += nwarps) {
+      const int q = it / MT, mt = it % MT;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma(d, pc + mt * 16 * kp1, q ? ix : gx, kp1, k1, g, tig);
+      x1_store<TN>(q ? ip_own : gp_own, d, mt, g, tig);
+    }
+  }
+  cluster_arrive();
+  __syncthreads();  // every warp is done with phase 1's bands
+
+  // 2. the eight velocity products over k < N: product q contracts column
+  // band cq = (u, u, v, v, DyT, DyyT, DyT, DyyT)[q] with row band
+  // rq = (Dx, Dxx, Dx, Dxx, u, u, v, v)[q]
+  {
+    bf16* rb = hb;                 // Dx, Dxx, u, v rows [q][TM][kp2]
+    bf16* cb = hb + 4 * TM * kp2;  // u, v, DyT, DyyT columns [q][TN][kp2]
+    const float* rows[4] = {o0.Dx, o0.Dxx, u, v};
+    const float* cols[4] = {u, v, o0.DyT, o0.DyyT};
+    x1_rows<4>(rb, rows, nf, nf, row0, n, kp2);
+    x1_cols<TN, 4>(cb, cols, nf, nf, col0, n, kp2);
+    __syncthreads();
+    for (int it = warp; it < 8 * MT; it += nwarps) {
+      const int q = it / MT, mt = it % MT;
+      const int cq = q < 4 ? q / 2 : 2 + (q & 1);
+      const int rq = q < 4 ? (q & 1) : 2 + (q - 4) / 2;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma(d, cb + (cq * TN + mt * 16) * kp2, rb + rq * TM * kp2, kp2, k2,
+             g, tig);
+      x1_store<TN>(stash + q * TM * TN, d, mt, g, tig);
+    }
+  }
+
+  // 3. the row bands of Gx p and Ix p from the cluster (float32), rounded
+  // to bf16 and contracted with the IyT and GyT columns over the inner grid
+  cluster_wait();  // every slice of the band is written
+  gather_bands<float, TN>(cluster, gp_own, ip_own, gp_band, ip_band, ni);
+  cluster_arrive();  // this block is done with its peers' slices
+  __syncthreads();   // the gathered bands are whole; phase 2 is done
+  {
+    bf16 *a5 = hb, *a6 = hb + TM * kp1, *iy = hb + 2 * TM * kp1;
+    bf16* gy = iy + TN * kp1;
+    for (int e = tid; e < TM * k1; e += blockDim.x) {
+      const int r = e / k1, k = e - r * k1;
+      a5[r * kp1 + k] = __float2bfloat16_rn(k < ni ? gp_band[k * TM + r]
+                                                   : 0.f);
+      a6[r * kp1 + k] = __float2bfloat16_rn(k < ni ? ip_band[k * TM + r]
+                                                   : 0.f);
+    }
+    const float* cols[2] = {o0.IyT, o0.GyT};
+    x1_cols<TN, 2>(iy, cols, nf, nf, col0, ni, kp1);  // gy follows iy
+    __syncthreads();
+    for (int it = warp; it < 2 * MT; it += nwarps) {
+      const int q = it / MT, mt = it % MT;
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma(d, (q ? gy : iy) + mt * 16 * kp1, q ? a6 : a5, kp1, k1, g, tig);
+      x1_store<TN>(stash + (8 + q) * TM * TN, d, mt, g, tig);
+    }
+    __syncthreads();
+  }
+  // the pressure chain's corner (N, N): the unrounded rows of the gathered
+  // bands against IyT's and GyT's border column, a warp each
+  float* corner = reinterpret_cast<float*>(hb);  // phase 3's bands are done
+  if (row0 + TM > n && col0 <= n && n < col0 + TN && warp < 2) {
+    const float* band = warp ? ip_band : gp_band;
+    const float* opT = warp ? o0.GyT : o0.IyT;
+    float sum = 0.f;
+    for (int k = tid % 32; k < ni; k += 32)
+      sum += band[k * TM + n - row0] * __ldg(opT + (size_t)k * nf + n);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (tid % 32 == 0) corner[warp] = sum;
+  }
+  __syncthreads();
+
+  // this thread's outputs from the stash, then the border terms
+#pragma unroll
+  for (int q = 0; q < 32; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) dp[q] = 0.f;
+  if (kg == 0) {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int rho = a / 2, t = a % 2;
+      const int e = (r0 + rho) * TN + c + t;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[4 * q + a] = stash[q * TM * TN + e];
+      dp[a] = stash[8 * TM * TN + e];
+      dp[4 + a] = stash[9 * TM * TN + e];
+      const int i = row0 + r0 + rho, j = col0 + c + t;
+      if (i < nf && j < nf)
+        x1_border(o0, u, v, o0.x1b + blockIdx.z * (size_t)8 * nf, corner,
+                  nf, i, j, a, acc, dp);
+    }
+  }
+}
+
+template <typename T, int TN, bool X1>
 __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
     stage_kernel(Ops<T> o0, StageArgs<T> a0, int nf, StageGeo g) {
   constexpr int TM = STAGE_TM, NT0 = stage_group_threads(TN);
@@ -358,6 +717,14 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   d3.lda = 0; d3.m = 0; d3.row0 = 0;
   d3.ldb = nf; d3.n = nf; d3.col0 = col0; d3.K = ni;
 
+  T acc[32];  // Dx u, Dxx u, Dx v, Dxx v, u DyT, u DyyT, v DyT, v DyyT
+              // at (r0 + rho, c + t): acc[4 q + 2 rho + t]
+  T dp[8];    // dp/dx, dp/dy at (r0 + rho, c + t): dp[4 q + 2 rho + t]
+  if constexpr (X1) {
+    static_assert(sizeof(T) == 4, "x1 runs in float32");
+    x1_products<TN>(o0, a0, nf, lf, lq, row0, col0, cluster, gp_own, ip_own,
+                    gp_band, ip_band, ring, kg, r0, c, acc, dp);
+  } else {
   // 1. this block's column slice of Gx p and Ix p (k < ni), published to
   // the cluster; the barrier completes while phase 2 runs
   {
@@ -394,7 +761,6 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
 
   // 2. Dx u, Dxx u, Dx v, Dxx v, u DyT, u DyyT, v DyT, v DyyT (k < nf) at
   // (r0 + rho, c + t): acc[4 q + 2 rho + t]
-  T acc[32];
 #pragma unroll
   for (int q = 0; q < 32; ++q) acc[q] = T(0);
   {
@@ -431,29 +797,8 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   // four elements a thread in flight at a time
   const int n3 = ring_start<T, TN>(ring, ks, depth, d3);
   cluster_wait();  // every slice of the band is written
-  for (int e0 = tid; e0 < ni * TM; e0 += 4 * nt) {
-    T gv[4], iv[4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * nt;
-      if (e < ni * TM) {
-        const int k = e / TM, r = e % TM, peer = k / TN;
-        const int kc = r * TN + k - peer * TN;
-        gv[u] = cluster.map_shared_rank(gp_own, peer)[kc];
-        iv[u] = cluster.map_shared_rank(ip_own, peer)[kc];
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int e = e0 + u * nt;
-      if (e < ni * TM) {
-        gp_band[e] = gv[u];  // e = k * TM + r
-        ip_band[e] = iv[u];
-      }
-    }
-  }
+  gather_bands<T, TN>(cluster, gp_own, ip_own, gp_band, ip_band, ni);
   cluster_arrive();  // this block is done with its peers' slices
-  T dp[8];  // dp/dx, dp/dy at (r0 + rho, c + t): dp[4 q + 2 rho + t]
 #pragma unroll
   for (int q = 0; q < 8; ++q) dp[q] = T(0);
   for (int s = 0; s < n3; ++s) {
@@ -473,6 +818,7 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
     ring_next<T, TN>(slot, ks, depth, d3, n3, s);
   }
   reduce_groups<T, NT0>(dp, red, kg, t0, ksplit);
+  }
 
   // 4. residuals, RK update, BC select (k group 0), partial sums at
   // (r0 + rho, c + t), index a = 2 rho + t. Lane offsets are added at each
@@ -627,7 +973,7 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   cluster_wait();  // no block leaves while a peer may read its slices
 }
 
-template <typename T, int TN>
+template <typename T, int TN, bool X1>
 cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
                       int lanes, const StageGeo& g, cudaStream_t s) {
   // shared memory above 48 KB, and for 48-wide tiles clusters above the
@@ -635,11 +981,11 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        stage_kernel<T, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stage_kernel<T, TN, X1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         MAX_SMEM);
     if (err == cudaSuccess && TN == 48)
       err = cudaFuncSetAttribute(
-          stage_kernel<T, TN>,
+          stage_kernel<T, TN, X1>,
           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     opted_in = true;
@@ -664,7 +1010,7 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
        checked[2] != g.ksplit)) {
     int n = 0;
     cudaError_t err =
-        cudaOccupancyMaxActiveClusters(&n, stage_kernel<T, TN>, &cfg);
+        cudaOccupancyMaxActiveClusters(&n, stage_kernel<T, TN, X1>, &cfg);
     if (err == cudaSuccess && n < 1) err = cudaErrorInvalidClusterSize;
     if (err != cudaSuccess) return err;
     checked[0] = g.cluster;
@@ -672,7 +1018,7 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
     checked[2] = g.ksplit;
   }
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, stage_kernel<T, TN>, o, a, nf, g);
+      cudaLaunchKernelEx(&cfg, stage_kernel<T, TN, X1>, o, a, nf, g);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -681,10 +1027,21 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
 template <typename T>
 cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
                          int lanes, const StageGeo& g, cudaStream_t s) {
+  if (g.x1) {  // the bf16 tensor-core instance, float32 only
+    if constexpr (sizeof(T) == 4) {
+      switch (g.tn) {
+        case 16: return launch_tn<T, 16, true>(o, a, nf, lanes, g, s);
+        case 32: return launch_tn<T, 32, true>(o, a, nf, lanes, g, s);
+        case 48: return launch_tn<T, 48, true>(o, a, nf, lanes, g, s);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
   switch (g.tn) {
-    case 16: return launch_tn<T, 16>(o, a, nf, lanes, g, s);
-    case 32: return launch_tn<T, 32>(o, a, nf, lanes, g, s);
-    case 48: return launch_tn<T, 48>(o, a, nf, lanes, g, s);
+    case 16: return launch_tn<T, 16, false>(o, a, nf, lanes, g, s);
+    case 32: return launch_tn<T, 32, false>(o, a, nf, lanes, g, s);
+    case 48: return launch_tn<T, 48, false>(o, a, nf, lanes, g, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,8 +2,9 @@
 
 The counterpart of ``anap3_tpu/models/base.py``: ``solve()``, ``params`` /
 ``metrics`` / ``fields`` / ``time_series``, vortex metrics, validation
-errors and tables, and VTS export (bilinear evaluation and spline vorticity
-by default, as in the JAX base class). Everything after the solve is numpy host
+errors and tables, the global quantities, VTS export (bilinear evaluation
+and spline vorticity by default, as in the JAX base class) and the HDF5
+``save`` (h5py and pandas, imported only there). Everything after the solve is numpy host
 code, as in the JAX package. There is no compile cache (PyTorch runs
 eagerly; the kernels cache their own build); ``checkpoint_dir`` is taken by
 the SG and FV solves (``utils/checkpoint.py``).
@@ -12,6 +13,7 @@ the SG and FV solves (``utils/checkpoint.py``).
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -169,6 +171,14 @@ class CavitySolver:
         omega = self._vorticity_full()
         return vortex_metrics_from_fields(psi, omega.reshape(psi.shape), X, Y)
 
+    def compute_global_quantities(self) -> Dict[str, float]:
+        """The final energy, enstrophy and palinstrophy (E, Z, P)."""
+        return {
+            "E": self.metrics.final_energy,
+            "Z": self.metrics.final_enstrophy,
+            "P": self.metrics.final_palinstrophy,
+        }
+
     def compute_validation_errors(self, reference_dir: str = "data/validation/fv",
                                   base_dir=None,
                                   save_plots: bool = True) -> Dict[str, float]:
@@ -232,3 +242,38 @@ class CavitySolver:
         points, pdata, fdata, dims = self.to_vtk_payload()
         vts_mod.write_vts(filepath, points, pdata, fdata, dims)
         log.info("Saved VTS to %s", filepath)
+
+    def save(self, filepath) -> None:
+        """Write params, metrics, time series and fields to HDF5, the JAX
+        package's layout (``anap3_tpu/models/base.py:save``): one group per
+        table (params, metrics, time_series, fields; the last two when
+        present), one dataset per column, text as bytes. Needs h5py and
+        pandas, imported here: without them it raises ImportError naming
+        the missing package, before any file is opened."""
+        try:
+            import h5py
+            import pandas  # noqa: F401  (the tables' to_dataframe)
+        except ImportError as exc:
+            raise ImportError(f"CavitySolver.save needs the {exc.name} "
+                              f"package, which is not installed") from exc
+        filepath = Path(filepath)
+        filepath.parent.mkdir(parents=True, exist_ok=True)
+        with h5py.File(filepath, "w") as h5:
+            for group, table in (
+                    ("params", self.params),
+                    ("metrics", self.metrics),
+                    ("time_series", self.time_series),
+                    ("fields", self.fields)):
+                if table is None:
+                    continue
+                df = table.to_dataframe()
+                if group == "params":
+                    # the port's run control; the JAX package has none
+                    df = df.drop(columns=["device"], errors="ignore")
+                g = h5.create_group(group)
+                for col in df.columns:
+                    vals = df[col].to_numpy()
+                    if vals.dtype == object:
+                        vals = vals.astype("S")
+                    g.create_dataset(col, data=vals)
+        log.info("Saved HDF5 to %s", filepath)

@@ -218,6 +218,10 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
     nothing, and every chunk writes fresh output tensors, so chunk k's
     state is never overwritten by chunk k+1: a checkpoint of chunk k
     saves chunk k's state even while chunk k+1 runs.
+
+    A chunk that would cross ``max_iterations`` runs only the steps below
+    it, from a runner of that length, so the state is the state at the
+    cap. (The JAX package runs the last chunk whole and reports the cap.)
     """
     chunk = int(min(chunk, max(1, max_iterations)))
     if convergence_metric not in ("rel_iter", "residual", "energy"):
@@ -228,11 +232,19 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
     plateau_target = int(energy_plateau_chunks or ENERGY_PLATEAU_CHUNKS)
     inner_metric = "rel_iter" if use_energy else convergence_metric
     inner_tol = 0.0 if use_energy else tolerance
-    if chunk_runner is not None:
-        runner = chunk_runner(chunk, inner_tol, inner_metric)
-    else:
-        runner = make_chunk_runner(step_fn, get_uv, chunk, inner_tol, warmup,
-                                   inner_metric)
+    runners = {}
+
+    def dispatch(st, start, rn):
+        """Chunk ``[start, start + n)`` with n = ``chunk``, or the remainder
+        below ``max_iterations`` for the last one: a runner is built per
+        length, so a capped solve never steps past its cap."""
+        n = min(chunk, max_iterations - start)
+        if n not in runners:
+            runners[n] = (chunk_runner(n, inner_tol, inner_metric)
+                          if chunk_runner is not None else
+                          make_chunk_runner(step_fn, get_uv, n, inner_tol,
+                                            warmup, inner_metric))
+        return _Pending(runners[n](st, start, rn))
 
     rows_buf: List[np.ndarray] = []
     idx_buf: List[np.ndarray] = []
@@ -264,12 +276,12 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
     t_chunk = time.time()
     cur = None
     if it < max_iterations:
-        cur = _Pending(runner(state, it, ref_norm))
+        cur = dispatch(state, it, ref_norm)
     while cur is not None:
         state_k, _, _, _, _, ref_k = cur.out
         nxt = None
         if it + chunk < max_iterations:
-            nxt = _Pending(runner(state_k, it + chunk, ref_k))
+            nxt = dispatch(state_k, it + chunk, ref_k)
         # one bundled device->host read for chunk k's control flow
         done_host, conv_iter_host, conv_flag, rows_host = cur.read()
         state = state_k

@@ -36,8 +36,9 @@ from .runner import (ENERGY_PLATEAU_CHUNKS, METRIC_KEYS, WARMUP_ITERS,
                      IterationResult, run_fixed_point)
 from ..ops import basis as basis_ops
 from ..ops.poisson import spectral_dirichlet_poisson
-from ..ops.sg_kernels import (ALIGNED_METRICS_EVERY, MAX_KERNEL_N,
-                              make_sg_chunk_runner, make_sg_step)
+from ..ops.sg_kernels import (ALIGNED_METRICS_EVERY, MAX_KERNEL_N, MAX_X1_N,
+                              make_sg_chunk_runner, make_sg_step,
+                              x1_supported)
 from ..ops.singular import eval_singular_uv, singular_min_n
 from ..ops.transfer import (make_level_transfer_matrices,
                             nodal_interpolation_matrix)
@@ -140,13 +141,23 @@ def prolongate(params, state, n_coarse: int, n_fine: int, ops_fine):
     return core.SpectralState(u, v, p)
 
 
-def _matmul_policy(params) -> None:
+def _matmul_policy(params, x1_runs: bool = True) -> None:
+    """Check ``matmul_algorithm`` for a solve on the kernels. x1 (one bf16
+    tensor-core pass) is float32 only, as the Pallas kernel that has it:
+    under float64 it raises where x1 would run (``x1_runs``)."""
     alg = str(getattr(params, "matmul_algorithm", "auto") or "auto").lower()
-    if alg == "x1":
-        raise NotImplementedError(
-            "matmul_algorithm=x1 (one bf16 pass) has no CUDA kernel")
-    if alg not in ("auto", "x3", "x6"):
+    if alg not in ("auto", "x1", "x3", "x6"):
         raise ValueError(f"unknown matmul_algorithm {alg!r}")
+    if alg == "x1" and x1_runs:
+        if str(params.dtype) != "float32":
+            raise ValueError(
+                f"matmul_algorithm=x1 runs in float32 only (the bf16 "
+                f"tensor-core kernels), not {params.dtype}")
+        log.info("matmul_algorithm=x1: the SG chunks of the aligned orders "
+                 "(N %% 8 == 0, 32 <= N <= %d) run one bf16 tensor-core "
+                 "pass a product; the step and other orders exact FMA "
+                 "products", MAX_X1_N)
+        return
     log.info("matmul_algorithm=%s: the SG kernels run exact FMA products "
              "in %s", alg, params.dtype)
 
@@ -167,7 +178,13 @@ def make_fused_paths(ops, matmul_algorithm: str = "auto"):
     ``matmul_algorithm=x6`` at N <= MAX_FUSED_N with a smoothed lid (the x6
     chunk kernel's rows), else every ALIGNED_METRICS_EVERY-th step. The x6
     chunk kernel takes rel_iter only and JAX runs the residual criterion
-    per step there; the port's chunk kernel takes both."""
+    per step there; the port's chunk kernel takes both.
+
+    ``matmul_algorithm=x1`` routes as JAX does: the chunk runner of an
+    ``x1_supported`` order (JAX's aligned tier, either lid) runs the x1
+    kernels; the step keeps the exact products (JAX's per-step fallback
+    keeps x3); any other order logs JAX's warning and runs the exact
+    kernels. ``auto`` never selects x1."""
     n = ops.nf - 1
     if n > MAX_KERNEL_N:
         if n not in _PLAIN_ORDERS_LOGGED:
@@ -177,6 +194,14 @@ def make_fused_paths(ops, matmul_algorithm: str = "auto"):
         return (lambda s: core.sg_step(ops, s)), None
     step = make_sg_step(ops)
     alg = str(matmul_algorithm or "auto").lower()
+    if alg == "x1" and not x1_supported(n):
+        if ops.singular:
+            log.warning("matmul_algorithm=x1 covers only the aligned tier; "
+                        "singular N=%d runs x3", n)
+        else:
+            log.warning("matmul_algorithm=x1 covers only the aligned tier "
+                        "(N %% 8 == 0, 32 <= N <= 320); N=%d runs x3", n)
+        alg = "x3"
     m_every = ALIGNED_METRICS_EVERY
     if alg == "x6" and ops.nf - 1 <= MAX_FUSED_N and not ops.singular:
         m_every = 1
@@ -184,7 +209,7 @@ def make_fused_paths(ops, matmul_algorithm: str = "auto"):
     def factory(chunk, tol_, metric_):
         return make_sg_chunk_runner(ops, chunk, tol_, WARMUP_ITERS,
                                     convergence_metric=metric_,
-                                    metrics_every=m_every)
+                                    metrics_every=m_every, x1=alg == "x1")
 
     return step, factory
 
@@ -230,14 +255,20 @@ class SGSolver(CavitySolver):
         flag = self._use_pallas_flag()
         return self.device.type == "cuda" if flag is None else flag
 
-    def _paths(self, ops):
+    def _paths(self, ops, exact: bool = False):
+        """The level's step and chunk-runner factory; ``exact`` keeps the
+        exact products under x1 (a stage that JAX runs on its XLA step)."""
         if self._kernels_enabled():
-            return make_fused_paths(ops, self.params.matmul_algorithm)
+            alg = str(self.params.matmul_algorithm or "auto").lower()
+            return make_fused_paths(ops, "x3" if exact and alg == "x1"
+                                    else alg)
         return (lambda s: core.sg_step(ops, s)), None
 
-    def _check_options(self) -> None:
+    def _check_options(self, x1_runs: bool = True) -> None:
+        """``x1_runs``: False on paths that never take x1 (sweeps, the
+        V-cycles), where it is not checked against the dtype."""
         if self._kernels_enabled():
-            _matmul_policy(self.params)
+            _matmul_policy(self.params, x1_runs)
 
     def _stall_chunks(self) -> int:
         sc = int(self.params.stall_chunks)

@@ -411,7 +411,7 @@ class VMGSolver(SGSolver):
                     level.n, cyc_chunk, anchor_n=192, anchor_window=150)
             else:
                 # the coarsest single-level stage: the SG chunk kernel
-                step, chunk_runner = self._paths(level.ops)
+                step, chunk_runner = self._paths(level.ops, exact=True)
                 budget = max_iter
                 window = scaled_plateau_chunks(level.n, cyc_chunk)
             result = run_fixed_point(
@@ -445,7 +445,7 @@ class VMGSolver(SGSolver):
         # cascade with another divergence policy: change them together
         tol = self.params.tolerance if tolerance is None else tolerance
         max_iter = self.params.max_iterations if max_iter is None else max_iter
-        self._check_options()
+        self._check_options(x1_runs=False)
         check_fp32_matmul(self.device)
         if self._reject_singular():
             super().solve(tolerance=tol, max_iter=max_iter)
@@ -516,7 +516,7 @@ class FMGSolver(SGSolver):
     def solve(self, tolerance: float = None, max_iter: int = None) -> None:
         tol = self.params.tolerance if tolerance is None else tolerance
         max_iter = self.params.max_iterations if max_iter is None else max_iter
-        self._check_options()
+        self._check_options(x1_runs=False)
         check_fp32_matmul(self.device)
         if self._reject_singular():
             super().solve(tolerance=tol, max_iter=max_iter)
@@ -555,7 +555,7 @@ class FMGSolver(SGSolver):
                     level.n, cyc_chunk, anchor_n=192, anchor_window=150)
             else:
                 # the coarsest single-level stage: the SG chunk kernel
-                step, chunk_runner = self._paths(level.ops)
+                step, chunk_runner = self._paths(level.ops, exact=True)
                 budget = max_iter
                 window = scaled_plateau_chunks(level.n, cyc_chunk)
             metric = resolve_convergence_metric(self.params,

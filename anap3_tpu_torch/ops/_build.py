@@ -51,8 +51,8 @@ def _nvcc() -> str:
                        "the CUDA kernels cannot be built on this host")
 
 
-def _source_hash(srcs) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _source_hash(srcs, flags=NVCC_FLAGS) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for path in srcs:
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -67,18 +67,22 @@ def sources(family: str) -> list:
             + sorted(CSRC.glob(f"{family}_*.cuh")))
 
 
-def _build(out: Path, srcs, info: dict) -> None:
+def _build(out: Path, srcs, info: dict, compiler=None, libs=()) -> None:
+    """Compile ``srcs`` into the shared library ``out`` (atomically, with
+    its build.log beside it): nvcc with NVCC_FLAGS unless ``compiler``
+    (the command and its flags) is given; ``libs`` are linked last."""
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in srcs if s.suffix == ".cu"]]
+    head = [_nvcc(), *NVCC_FLAGS] if compiler is None else list(compiler)
+    cmd = [*head, "-o", str(tmp), *[str(s) for s in srcs], *libs]
     t0 = time.time()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     log_text = proc.stdout + proc.stderr
     (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + log_text)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log_text}")
+        raise RuntimeError(f"{Path(head[0]).name} failed "
+                           f"({proc.returncode}):\n{log_text}")
     os.replace(tmp, out)
     info.update(build_seconds=time.time() - t0, ptxas=log_text)
 
@@ -91,16 +95,18 @@ def _bind_sg(lib: ctypes.CDLL) -> None:
     # ..., the tail kernel's grid, the launch counts, the stream
     lib.sg_step_run.argtypes = [i, i, ip, pp, i, i, ip, vp]
     lib.sg_step_run.restype = i
-    lib.sg_chunk_run.argtypes = [i, i, ip, pp, i, i, i, i, i, d, i, ip, vp]
+    lib.sg_chunk_run.argtypes = [i, i, ip, pp, i, i, i, i, i, d, i, i, ip,
+                                 vp]
     lib.sg_chunk_run.restype = i
+    # ..., tol, x1, tail blocks, counts, stream
     lib.sg_lanes_chunk_run.argtypes = [i, i, ip, i, pp, i, i, i, i, i, d, i,
-                                       ip, vp]
+                                       i, ip, vp]
     lib.sg_lanes_chunk_run.restype = i
     lib.sg_smooth_run.argtypes = [i, i, ip, pp, i, i, i, ip, vp]
     lib.sg_smooth_run.restype = i
-    lib.sg_bench_run.argtypes = [i, i, ip, i, pp, i, i, i, vp]
+    lib.sg_bench_run.argtypes = [i, i, ip, i, pp, i, i, i, i, vp]
     lib.sg_bench_run.restype = i
-    lib.sg_tail_coresident.argtypes = [i, ip]
+    lib.sg_tail_coresident.argtypes = [i, i, ip]
     lib.sg_tail_coresident.restype = i
     lib.sg_error_string.argtypes = [i]
     lib.sg_error_string.restype = ctypes.c_char_p
@@ -150,7 +156,7 @@ def _ensure_built(family: str) -> Path:
     out = _library_path(family)
     info = _info.setdefault(family, {})
     if not out.exists():
-        _build(out, sources(family), info)
+        _build(out, [s for s in sources(family) if s.suffix == ".cu"], info)
         info["cached"] = False
     info.setdefault("build_seconds", 0.0)
     info.setdefault("cached", True)

@@ -62,10 +62,22 @@ chunk is ``chunk_launches(chunk, start_iter, metrics_every)`` launches; a
 step is dt, four stages and the tail kernel; the smoother dt and four
 stages a step, then the tail kernel.
 
+matmul_algorithm=x1: ``make_sg_chunk_runner(..., x1=True)`` (float32
+only) runs the chunk with every product as one bf16 tensor-core pass, the
+semantics of ``anap3_tpu/ops/pallas_aligned.py:make_aligned_chunk_runner``
+with ``algorithm="x1"`` on its bordered core (the x1 instances of the
+stage and tail kernels; see the note in csrc/sg_stage.cu). Its plain
+version is ``chunk_plain(..., hi=x1_operators(ops))``: the same roundings
+(``bf16_round``) with float32 matmuls of the rounded operands, which are
+exact products, so only the sum order differs from the kernel's.
+``x1_supported`` is the JAX package's aligned tier, the orders where x1
+applies; the step and the smoother have no x1 mode.
+
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
 by kernel (sg_stage: one per RK stage; sg_diag: dt and the tail kernel;
-sg_control: the unsampled control); ``PLAIN_CALLS`` counts calls of the
-plain versions. ``reset_counts()`` zeroes both.
+sg_control: the unsampled control; sg_stage_x1 and sg_diag_x1: the x1
+stage and x1 tail launches); ``PLAIN_CALLS`` counts calls of the plain
+versions. ``reset_counts()`` zeroes both.
 """
 
 from __future__ import annotations
@@ -82,6 +94,10 @@ from ..models.spectral_sg import SpectralOps, SpectralState
 
 __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "step_plain", "chunk_plain", "smooth_plain", "LAUNCHES",
+           "EXACT_KERNELS", "X1_KERNELS", "X1Operators", "x1_operators",
+           "x1_supported", "MAX_X1_N", "bf16_round", "x1_residuals",
+           "x1_rk4_step", "x1_conserved_quantities", "stage_x1_plain",
+           "x1_border_table", "x1_step_stages", "tc_matmul",
            "PLAIN_CALLS", "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS",
            "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body",
            "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
@@ -91,7 +107,14 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
 
-KERNELS = ("sg_stage", "sg_diag", "sg_control")
+# the exact kernels, then the x1 instances (csrc/sg_common.cuh:Count)
+EXACT_KERNELS = ("sg_stage", "sg_diag", "sg_control")
+X1_KERNELS = ("sg_stage_x1", "sg_diag_x1")
+KERNELS = EXACT_KERNELS + X1_KERNELS
+# the orders where matmul_algorithm=x1 applies: the JAX package's aligned
+# tier (anap3_tpu/ops/pallas_aligned.py:aligned_supported, the same cap
+# for both lids)
+MAX_X1_N = 320
 # the timed launch groups of bench_kernel (csrc/sg_host.cu:bench_run)
 BENCH_GROUPS = ("sg_stage", "dt", "tail", "sg_control")
 LAUNCHES = {k: 0 for k in KERNELS}
@@ -104,7 +127,7 @@ _PTR_NAMES = (
     "sing_dvdy", "sing_w", "sing_dwx", "sing_dwy",
     "u", "v", "p", "au", "av", "ap", "bu", "bv", "bp",
     "omega", "part", "dpart", "qpart", "scal", "tau_u", "tau_v", "tau_p",
-    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc")
+    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc", "x1b")
 _OP_NAMES = _PTR_NAMES[:20]
 _STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
               "palinstrophy")
@@ -173,6 +196,31 @@ def _stage_smem_elems(nf: int, tn: int, ks: int, depth: int,
     return 2 * STAGE_TM * tn + 2 * STAGE_TM * nip + red + depth * slot
 
 
+def _x1_kp(k: int) -> int:
+    """A bf16 band row of the x1 stage (csrc/sg_common.cuh:x1_kp)."""
+    return ((k + 15) & ~15) + 8
+
+
+def _stage_x1_smem_bytes(nf: int, tn: int, ksplit: int) -> int:
+    """Shared memory of an x1 stage block in bytes, as
+    csrc/sg_stage.cu:stage_x1_smem_bytes lays it out: the float32 part of
+    the exact layout up to its ring, the stash of the ten products, then
+    the largest phase's bf16 bands."""
+    ni = nf - 2
+    f32 = _stage_smem_elems(nf, tn, 0, 0, ksplit) + 10 * STAGE_TM * tn
+    b16 = max((4 * STAGE_TM + 4 * tn) * _x1_kp(nf - 1),
+              (2 * STAGE_TM + tn) * _x1_kp(ni),
+              (2 * STAGE_TM + 2 * tn) * _x1_kp(ni))
+    return 4 * f32 + 2 * b16
+
+
+def x1_supported(n: int) -> bool:
+    """True where matmul_algorithm=x1 applies at order ``n``: the JAX
+    package's aligned tier, N % 8 == 0 and 32 <= N <= 320 (the same cap
+    for both lids)."""
+    return n % 8 == 0 and 32 <= n <= MAX_X1_N
+
+
 # warp groups sharing each contraction, by column tile, and the staging
 # rule of stage_geometry: measured on an H100 by scripts/sg_stage_tune.py
 # (PERF.md, section 6)
@@ -185,7 +233,7 @@ MAX_KERNEL_N = MAX_CLUSTER_NP * _STAGE_TNS[-1] - 1
 @functools.lru_cache(maxsize=None)
 def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
                    tn: int = None, ksplit: int = None, ks: int = None,
-                   depth: int = None) -> StageGeometry:
+                   depth: int = None, x1: bool = False) -> StageGeometry:
     """The stage kernel's geometry at order nf - 1 in ``dtype`` for a launch
     of ``lanes`` lanes.
 
@@ -201,11 +249,15 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
     two 32-wide slabs, which keeps a block's shared memory small so that
     several blocks share an SM; where that does not fit, a ring of 32- or
     16-wide slabs, 3 slots where they fit, else 2. ``tn``, ``ksplit``, ``ks`` and ``depth`` override the
-    choice (scripts/sg_stage_tune.py sweeps them). Raises on an order,
-    dtype or override the kernel cannot take."""
+    choice (scripts/sg_stage_tune.py sweeps them). ``x1``: the x1 stage's
+    geometry (float32), the same tile, cluster and k groups with the
+    bands whole (ks = nf, one slot) in bf16; raises where they do not fit.
+    Raises on an order, dtype or override the kernel cannot take."""
     elem = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if elem is None:
         raise TypeError(f"the SG kernels take float32 or float64, not {dtype}")
+    if x1 and elem != 4:
+        raise ValueError(f"the x1 stage runs in float32, not {dtype}")
     if nf < 3:
         raise ValueError(f"order {nf - 1} is too small for the stage kernel")
     if tn is None:
@@ -228,6 +280,15 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
     def smem(k, d):
         return elem * _stage_smem_elems(nf, tn, k, d, ksplit)
 
+    if x1:
+        size = _stage_x1_smem_bytes(nf, tn, ksplit)
+        if size > MAX_SMEM:
+            raise ValueError(f"order {nf - 1}: the x1 stage's bands need "
+                             f"{size} bytes of shared memory")
+        return StageGeometry(
+            tn=tn, cluster=cluster, rows=rows, ks=nf, depth=1, smem=size,
+            nparts=cluster * rows, ksplit=ksplit,
+            threads=ksplit * stage_group_threads(tn), grid=(cluster, rows))
     if ks is None or depth is None:
         first = ((nf, 1) if lanes * cluster * rows <= SMS or nf <= 64
                  else (32, 2))
@@ -279,36 +340,50 @@ def tail_block_items(nf: int, lanes: int, blocks: int, b: int):
             for it in range(b, nb * lanes, blocks)]
 
 
-_CORESIDENT = {}  # dtype code -> co-resident tail blocks on this card
+# dtype code -> co-resident blocks on this card of the tail kernel, and of
+# its x1 instance
+_CORESIDENT = {}
+_CORESIDENT_X1 = {}
 
 
-def _tail_blocks(ops: SpectralOps, lanes: int, lib) -> int:
-    """The tail kernel's grid for ``lanes`` lanes of ``ops`` on this card
-    (its co-resident count asked once per dtype)."""
+def _tail_blocks(ops: SpectralOps, lanes: int, lib, x1: bool = False) -> int:
+    """The tail kernel's grid (its x1 instance's with ``x1``) for ``lanes``
+    lanes of ``ops`` on this card (its co-resident count asked once per
+    dtype and instance)."""
     code = _dtype_code(ops.dtype)
-    if code not in _CORESIDENT:
+    table = _CORESIDENT_X1 if x1 else _CORESIDENT
+    if code not in table:
         most = ctypes.c_int(0)
-        _raise_on(lib, lib.sg_tail_coresident(code, ctypes.byref(most)),
+        _raise_on(lib, lib.sg_tail_coresident(code, int(x1),
+                                              ctypes.byref(most)),
                   "sg_tail_coresident")
-        _CORESIDENT[code] = most.value
-    return tail_grid(ops.nf, lanes, _CORESIDENT[code])
+        table[code] = most.value
+    return tail_grid(ops.nf, lanes, table[code])
 
 
-def chunk_launches(chunk: int, start_iter: int, metrics_every: int) -> dict:
+def chunk_launches(chunk: int, start_iter: int, metrics_every: int,
+                   x1: bool = False) -> dict:
     """The launches of one chunk by kernel: four stages a step, dt at the
     first step, and one tail a step: the tail kernel (sg_diag) on a sampled
     step (the first, and every ``metrics_every``-th global iteration, as
-    ``chunk_plain`` samples), control (sg_control) on the others."""
+    ``chunk_plain`` samples), control (sg_control) on the others. With
+    ``x1`` the stages and sampled tails are the x1 instances' (sg_stage_x1,
+    sg_diag_x1); dt stays sg_diag's."""
     sampled = sum(1 for i in range(chunk)
                   if i == 0 or (start_iter + i) % metrics_every == 0)
+    if x1:
+        return {"sg_stage_x1": 4 * chunk, "sg_diag": int(chunk > 0),
+                "sg_diag_x1": sampled, "sg_control": chunk - sampled}
     return {"sg_stage": 4 * chunk, "sg_diag": int(chunk > 0) + sampled,
             "sg_control": chunk - sampled}
 
 
-def _check_launches(counts, chunk, start_iter, metrics_every):
+def _check_launches(counts, chunk, start_iter, metrics_every, x1=False):
     """Raise where the C entry's counts differ from the chunk's plan."""
-    got = dict(zip(KERNELS, (int(n) for n in counts)))
-    want = chunk_launches(chunk, start_iter, metrics_every)
+    got = {k: 0 for k in KERNELS}
+    got.update(zip(KERNELS, (int(n) for n in counts)))
+    plan = chunk_launches(chunk, start_iter, metrics_every, x1)
+    want = {k: plan.get(k, 0) for k in KERNELS}
     if got != want:
         raise RuntimeError(f"chunk launches {got}, planned {want}")
 
@@ -411,10 +486,10 @@ def _raise_on(lib, rc: int, what: str):
         raise RuntimeError(f"{what} failed: CUDA error {rc} ({msg})")
 
 
-def _geo(ops: SpectralOps, lanes: int = 1):
-    """The stage geometry of ``ops`` for ``lanes`` lanes as the C entries
-    take it."""
-    return stage_geometry(ops.nf, ops.dtype, lanes).as_c()
+def _geo(ops: SpectralOps, lanes: int = 1, x1: bool = False):
+    """The stage geometry of ``ops`` for ``lanes`` lanes (the x1 stage's
+    with ``x1``) as the C entries take it."""
+    return stage_geometry(ops.nf, ops.dtype, lanes, x1=x1).as_c()
 
 
 def _count(counts):
@@ -462,7 +537,7 @@ def _step_kernel(ops, state, tau, lsc):
     metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
     ws = _workspace(ops, u=state.u, v=state.v, p=state.p, bu=out.u,
                     bv=out.v, bp=out.p, metrics=metrics, lsc=lsc, **taus)
-    counts = (ctypes.c_int * 3)()
+    counts = (ctypes.c_int * len(KERNELS))()
     rc = lib.sg_step_run(_dtype_code(ops.dtype), nf, _geo(ops),
                          _ptr_table(ws), int(tau is not None),
                          _tail_blocks(ops, 1, lib), counts, _stream())
@@ -528,7 +603,7 @@ def make_sg_smoother(ops: SpectralOps):
         metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
         ws = dict(scratch, u=state.u, v=state.v, p=state.p, bu=out.u,
                   bv=out.v, bp=out.p, metrics=metrics, **taus)
-        counts = (ctypes.c_int * 3)()
+        counts = (ctypes.c_int * len(KERNELS))()
         rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
                                _ptr_table(ws), int(n_steps), int(bool(taus)),
                                _tail_blocks(ops, 1, lib), counts, _stream())
@@ -548,22 +623,224 @@ def make_sg_smoother(ops: SpectralOps):
     return run
 
 
+# ---------------------------------------------------------------- x1
+
+
+class X1Operators(NamedTuple):
+    """The bf16 hi halves of the operators (each float32 entry rounded to
+    bfloat16, held in float32) that the x1 products contract with, over
+    the bordered core: the velocity operators without their border index
+    N = nf - 1 (its term is added exactly), the pressure operators whole
+    (their contraction runs over the inner grid)."""
+    Dx: torch.Tensor    # (nf, N)
+    Dxx: torch.Tensor   # (nf, N)
+    DyT: torch.Tensor   # (N, nf)
+    DyyT: torch.Tensor  # (N, nf)
+    Gx: torch.Tensor    # (nf, ni)
+    Ix: torch.Tensor    # (nf, ni)
+    IyT: torch.Tensor   # (ni, nf)
+    GyT: torch.Tensor   # (ni, nf)
+    # True: the stage's products summed as the x1 stage kernel's tensor
+    # cores sum them (``tc_matmul``), the yardstick of the kernel's sum
+    # order; False: float32 matmuls, the plain version
+    tc: bool = False
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even) and held in its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def x1_operators(ops: SpectralOps, tc: bool = False) -> X1Operators:
+    """The hi halves of ``ops`` (float32 only: x1 is a float32 mode); with
+    ``tc`` the stage sums as the tensor cores do (``X1Operators.tc``)."""
+    if ops.dtype != torch.float32:
+        raise ValueError(f"matmul_algorithm=x1 runs in float32, not "
+                         f"{ops.dtype}")
+    n = ops.nf - 1
+    return X1Operators(
+        Dx=bf16_round(ops.Dx[:, :n]), Dxx=bf16_round(ops.Dxx[:, :n]),
+        DyT=bf16_round(ops.DyT[:n]), DyyT=bf16_round(ops.DyyT[:n]),
+        Gx=bf16_round(ops.Gx), Ix=bf16_round(ops.Ix),
+        IyT=bf16_round(ops.IyT), GyT=bf16_round(ops.GyT), tc=tc)
+
+
+def tc_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of float32 operands that hold bf16 values, summed as the
+    x1 stage kernel's mma.sync products are on an H100: k in blocks of 16
+    from k = 0, each block's products summed exactly and added to the
+    float32 accumulator, the sum rounded toward zero (scripts/x1_parity.py
+    measured this order against the kernel; PERF.md, Findings)."""
+    k = a.shape[-1]
+    kb = -(-k // 16)
+    pad = kb * 16 - k
+    a64 = torch.nn.functional.pad(a.double(), (0, pad))
+    b64 = torch.nn.functional.pad(b.double(), (0, 0, 0, pad))
+    blocks = torch.einsum("mbk,bkn->bmn", a64.reshape(a.shape[0], kb, 16),
+                          b64.reshape(kb, 16, b.shape[-1]))
+    acc = torch.zeros(blocks.shape[1:], dtype=torch.float32, device=a.device)
+    for block in blocks:
+        exact = acc.double() + block
+        acc = exact.float()
+        over = acc.double().abs() > exact.abs()
+        acc = torch.where(over, torch.nextafter(acc, torch.zeros_like(acc)),
+                          acc)
+    return acc
+
+
+def x1_border_table(ops: SpectralOps) -> torch.Tensor:
+    """The x1 stage's per-run constants (csrc/sg_common.cuh:Ops::x1b): the
+    velocity products on the constant border strip, in float64 from the
+    boundary values, cast to float32, as the aligned kernel's constant
+    strips (``_prep_aligned``): rows Dx u, Dxx u, Dx v, Dxx v at column N
+    and u DyT, u DyyT, v DyT, v DyyT at row N, each (nf,)."""
+    n = ops.nf - 1
+    d = lambda t: t.double()
+    bu, bv = d(ops.bc_u), d(ops.bc_v)
+    rows = [d(ops.Dx) @ bu[:, n], d(ops.Dxx) @ bu[:, n],
+            d(ops.Dx) @ bv[:, n], d(ops.Dxx) @ bv[:, n],
+            bu[n] @ d(ops.DyT), bu[n] @ d(ops.DyyT),
+            bv[n] @ d(ops.DyT), bv[n] @ d(ops.DyyT)]
+    return torch.stack(rows).to(ops.dtype).contiguous()
+
+
+def x1_left(hi_op, op, w, exact_border_column: bool, tc: bool = False):
+    """``op @ w`` as one bf16 pass of the aligned kernel's bordered core
+    (``anap3_tpu/ops/pallas_aligned.py``, ``_DotEngine`` x1): the sum over
+    k < N of bf16 products in float32, plus the border term op[:, N] w[N]
+    unrounded. Where w's border column is a per-run constant (a velocity)
+    the output column N is exact, as the kernel's constant strips are;
+    else (the vorticity) only the corner (N, N) is. ``tc``: the core
+    summed by ``tc_matmul`` and the border term added in one rounding, as
+    the x1 stage kernel does."""
+    n = w.shape[0] - 1
+    if tc:
+        out = (tc_matmul(hi_op, bf16_round(w[:n])).double()
+               + op[:, n:].double() @ w[n:].double()).float()
+    else:
+        out = hi_op @ bf16_round(w[:n]) + op[:, n:] @ w[n:]
+    if exact_border_column:  # a per-run constant: float64, as the kernel's
+        out[:, n] = (op.double() @ w[:, n].double()).to(out.dtype)
+    else:
+        out[n, n] = op[n] @ w[:, n]
+    return out
+
+
+def x1_right(w, hi_opT, opT, exact_border_row: bool, tc: bool = False):
+    """``w @ opT``, the transpose of ``x1_left``'s rule: bf16 over k < N
+    plus w[:, N] opT[N] unrounded; the output row N exact where w's
+    border row is constant, else its corner only; ``tc`` as there."""
+    n = w.shape[1] - 1
+    if tc:
+        out = (tc_matmul(bf16_round(w[:, :n]), hi_opT).double()
+               + w[:, n:].double() @ opT[n:].double()).float()
+    else:
+        out = bf16_round(w[:, :n]) @ hi_opT + w[:, n:] @ opT[n:]
+    if exact_border_row:
+        out[n] = (w[n].double() @ opT.double()).to(out.dtype)
+    else:
+        out[n, n] = w[n] @ opT[:, n]
+    return out
+
+
+def x1_residuals(ops: SpectralOps, hi: X1Operators, u, v, p):
+    """``models/spectral_sg.residuals`` with the x1 products: the velocity
+    products by ``x1_left`` / ``x1_right``; the pressure chain as the
+    aligned kernel runs it, (Gx p) rounded to bf16 before its contraction
+    with IyT, both passes bf16 over the inner grid, except the corner
+    (N, N), which contracts the unrounded row with IyT's border column
+    (its ``_corner_dot``)."""
+    tc = hi.tc
+    mm = tc_matmul if tc else torch.matmul
+    du_dx = x1_left(hi.Dx, ops.Dx, u, True, tc)
+    dv_dx = x1_left(hi.Dx, ops.Dx, v, True, tc)
+    du_dy = x1_right(u, hi.DyT, ops.DyT, True, tc)
+    dv_dy = x1_right(v, hi.DyT, ops.DyT, True, tc)
+    lap_u = (x1_left(hi.Dxx, ops.Dxx, u, True, tc)
+             + x1_right(u, hi.DyyT, ops.DyyT, True, tc))
+    lap_v = (x1_left(hi.Dxx, ops.Dxx, v, True, tc)
+             + x1_right(v, hi.DyyT, ops.DyyT, True, tc))
+    p_h = bf16_round(p)
+    a5, a6 = mm(hi.Gx, p_h), mm(hi.Ix, p_h)
+    dp_dx = mm(bf16_round(a5), hi.IyT)
+    dp_dy = mm(bf16_round(a6), hi.GyT)
+    n = ops.nf - 1
+    dp_dx[n, n] = a5[n] @ ops.IyT[:, n]
+    dp_dy[n, n] = a6[n] @ ops.GyT[:, n]
+    if ops.singular:
+        U = u + ops.sing_u
+        V = v + ops.sing_v
+        conv_u = U * (du_dx + ops.sing_dudx) + V * (du_dy + ops.sing_dudy)
+        conv_v = U * (dv_dx + ops.sing_dvdx) + V * (dv_dy + ops.sing_dvdy)
+    else:
+        conv_u = u * du_dx + v * du_dy
+        conv_v = u * dv_dx + v * dv_dy
+    R_u = -conv_u - dp_dx + ops.nu * lap_u
+    R_v = -conv_v - dp_dy + ops.nu * lap_v
+    R_p = -ops.beta_sq * (du_dx + dv_dy)[1:-1, 1:-1]
+    return R_u, R_v, R_p
+
+
+def x1_rk4_step(ops: SpectralOps, hi: X1Operators, state: SpectralState):
+    """``models/spectral_sg.rk4_step`` with ``x1_residuals``."""
+    u0, v0, p0 = state
+    dt = core.adaptive_dt(ops, u0, v0)
+    u_in, v_in, p_in = u0, v0, p0
+    for alpha in core.RK4_ALPHAS:
+        R_u, R_v, R_p = x1_residuals(ops, hi, u_in, v_in, p_in)
+        adt = alpha * dt
+        u_in, v_in = core.enforce_bc(ops, u0 + adt * R_u, v0 + adt * R_v)
+        p_in = p0 + adt * R_p
+    return SpectralState(u_in, v_in, p_in), (R_u, R_v, R_p)
+
+
+def x1_conserved_quantities(ops: SpectralOps, hi: X1Operators, u, v):
+    """``models/spectral_sg.conserved_quantities`` with the x1 products:
+    omega = Dx v - u DyT by the velocity rule, grad(omega) with omega
+    rounded to bf16 and its border taken unrounded (the aligned kernel's
+    metrics pass)."""
+    omega = (x1_left(hi.Dx, ops.Dx, v, True)
+             - x1_right(u, hi.DyT, ops.DyT, True))
+    dwx = x1_left(hi.Dx, ops.Dx, omega, False)
+    dwy = x1_right(omega, hi.DyT, ops.DyT, False)
+    if ops.singular:
+        u = u + ops.sing_u
+        v = v + ops.sing_v
+        omega = omega + ops.sing_w
+        dwx = dwx + ops.sing_dwx
+        dwy = dwy + ops.sing_dwy
+    energy = 0.5 * torch.sum(ops.W2d * (u * u + v * v))
+    enstrophy = 0.5 * torch.sum(ops.W2d * omega * omega)
+    palinstrophy = 0.5 * torch.sum(ops.W2d * (dwx * dwx + dwy * dwy))
+    return energy, enstrophy, palinstrophy
+
+
+def stage_x1_plain(ops, hi, u_in, v_in, p_in, u0, v0, p0, adt):
+    """One x1 RK stage from base (u0, v0, p0): the stage state and the
+    residuals (the x1 stage kernel's plain version)."""
+    R_u, R_v, R_p = x1_residuals(ops, hi, u_in, v_in, p_in)
+    u, v = core.enforce_bc(ops, u0 + adt * R_u, v0 + adt * R_v)
+    return SpectralState(u, v, p0 + adt * R_p), (R_u, R_v, R_p)
+
+
 # ---------------------------------------------------------------- chunk
 
 
 def chunk_plain(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
-                 use_residual, metrics_every):
-    """The chunk kernel's arithmetic in plain torch, at its cadence."""
+                 use_residual, metrics_every, hi=None):
+    """The chunk kernel's arithmetic in plain torch, at its cadence; with
+    the hi halves ``hi`` (``x1_operators``), the x1 chunk's."""
     PLAIN_CALLS["sg_chunk"] += 1
     return chunk_body(ops, state, start_iter, ref_norm, chunk, tolerance,
-                      warmup, use_residual, metrics_every)
+                      warmup, use_residual, metrics_every, hi=hi)
 
 
 def chunk_body(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
-               use_residual, metrics_every, carry=None):
+               use_residual, metrics_every, carry=None, hi=None):
     """``chunk_plain`` without its count, starting from the flags ``carry``
     = (done, conv_iter, converged) of a previous chunk (fresh when None):
-    a lane of ``ops/sg_lane_kernels.lanes_plain``."""
+    a lane of ``ops/sg_lane_kernels.lanes_plain``. ``hi`` selects the x1
+    products."""
     dev, dtype = ops.device, ops.dtype
     if carry is None:
         done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -576,9 +853,14 @@ def chunk_body(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
     rows = []
     for i in range(chunk):
         idx = int(start_iter) + i
-        new, (R_u, R_v, R_p) = core.rk4_step(ops, state)
+        if hi is None:
+            new, (R_u, R_v, R_p) = core.rk4_step(ops, state)
+        else:
+            new, (R_u, R_v, R_p) = x1_rk4_step(ops, hi, state)
         if i == 0 or idx % metrics_every == 0:
-            held = torch.stack(core.conserved_quantities(ops, new.u, new.v))
+            held = torch.stack(
+                core.conserved_quantities(ops, new.u, new.v) if hi is None
+                else x1_conserved_quantities(ops, hi, new.u, new.v))
         rel = torch.maximum(rel_change(new.u, state.u),
                             rel_change(new.v, state.v))
         row = torch.cat([torch.stack([rel, torch.linalg.norm(R_u),
@@ -610,20 +892,22 @@ def chunk_workspace(ops: SpectralOps, state: SpectralState, chunk: int,
 
 
 def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
-                  use_residual, metrics_every, lsc):
+                  use_residual, metrics_every, lsc, x1b=None):
     from ._build import load_library
 
     lib = load_library("sg")
+    x1 = x1b is not None
     ws = chunk_workspace(ops, state, chunk, ref_norm, lsc)
-    counts = (ctypes.c_int * 3)()
-    rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
+    ws["x1b"] = x1b
+    counts = (ctypes.c_int * len(KERNELS))()
+    rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops, x1=x1),
                           _ptr_table(ws), int(chunk), int(start_iter),
                           int(warmup), int(metrics_every), int(use_residual),
-                          float(tolerance), _tail_blocks(ops, 1, lib), counts,
-                          _stream())
+                          float(tolerance), int(x1),
+                          _tail_blocks(ops, 1, lib, x1), counts, _stream())
     _count(counts)
     _raise_on(lib, rc, "sg_chunk_run")
-    _check_launches(counts, chunk, start_iter, metrics_every)
+    _check_launches(counts, chunk, start_iter, metrics_every, x1)
     flags = ws["flags"]
     return (SpectralState(ws["u"], ws["v"], ws["p"]), flags[0] > 0,
             flags[1], flags[2] > 0, ws["rows"], ws["ref_norm"][0])
@@ -632,44 +916,86 @@ def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
 def make_sg_chunk_runner(ops: SpectralOps, chunk: int, tolerance: float,
                          warmup: int = WARMUP_ITERS,
                          convergence_metric: str = "rel_iter",
-                         metrics_every: int = ALIGNED_METRICS_EVERY):
+                         metrics_every: int = ALIGNED_METRICS_EVERY,
+                         x1: bool = False):
     """``chunk`` RK4 steps with the convergence state machine, as one
-    device-side loop (see the module docstring for the contract)."""
+    device-side loop (see the module docstring for the contract). ``x1``
+    runs the products as one bf16 pass (float32 only; the solvers route it
+    to ``x1_supported`` orders): the x1 kernels on CUDA, the x1 plain
+    version on the CPU."""
     if convergence_metric not in ("rel_iter", "residual"):
         raise ValueError(
             f"chunk runners take the mapped criterion (rel_iter or "
             f"residual), not {convergence_metric!r}")
     _check_ops(ops)
+    if x1 and ops.dtype != torch.float32:
+        raise ValueError(f"matmul_algorithm=x1 runs in float32, not "
+                         f"{ops.dtype}")
     args = dict(chunk=int(chunk), tolerance=float(tolerance),
                 warmup=int(warmup),
                 use_residual=convergence_metric == "residual",
                 metrics_every=max(1, int(metrics_every)))
     lsc = scalar_table([ops])
+    made = {}  # x1: the kernels' border table, the plain version's hi halves
 
     def chunk_fn(state, start_iter, ref_norm):
         if _on_cuda(ops, state):
+            if x1 and "x1b" not in made:
+                made["x1b"] = x1_border_table(ops)
             return _chunk_kernel(ops, state, start_iter, ref_norm, lsc=lsc,
-                                 **args)
-        return chunk_plain(ops, state, start_iter, ref_norm, **args)
+                                 x1b=made.get("x1b"), **args)
+        if x1 and "hi" not in made:
+            made["hi"] = x1_operators(ops)
+        return chunk_plain(ops, state, start_iter, ref_norm, **args,
+                           hi=made.get("hi"))
 
     return chunk_fn
 
 
 def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int,
-                 lanes: int = 1, geometry: StageGeometry = None) -> None:
+                 lanes: int = 1, geometry: StageGeometry = None,
+                 x1: bool = False) -> None:
     """Enqueue ``reps`` launches of one group of ``BENCH_GROUPS`` on a chunk
     workspace of ``lanes`` lanes, for timing only (not counted in
     LAUNCHES): "sg_stage" is a chunk step's last stage (out of place, with
     the base's partials), "dt" the dt launch, "tail" a sampled step's tail
-    launch, "sg_control" an unsampled step's control launch. ``geometry``
-    (one of the same tile and cluster, so the partial sums fit) replaces
-    the stage geometry of ``ops``."""
+    launch, "sg_control" an unsampled step's control launch; with ``x1``
+    the x1 stage and tail. ``geometry`` (one of the same tile and cluster,
+    so the partial sums fit) replaces the stage geometry of ``ops``."""
     from ._build import load_library
 
     lib = load_library("sg")
-    geo = _geo(ops, lanes) if geometry is None else geometry.as_c()
+    geo = _geo(ops, lanes, x1) if geometry is None else geometry.as_c()
     rc = lib.sg_bench_run(_dtype_code(ops.dtype), ops.nf, geo,
                           int(lanes), _ptr_table(ws),
-                          BENCH_GROUPS.index(which), int(reps),
-                          _tail_blocks(ops, lanes, lib), _stream())
+                          BENCH_GROUPS.index(which), int(reps), int(x1),
+                          _tail_blocks(ops, lanes, lib, x1), _stream())
     _raise_on(lib, rc, f"sg_bench_run({which})")
+
+
+def x1_step_stages(ops: SpectralOps, state: SpectralState):
+    """One x1 step of the kernels from ``state``, one launch at a time
+    through the bench entry (CUDA only, not counted in LAUNCHES): dt_kernel,
+    then each RK stage with its alpha * dt. Returns the four stage inputs
+    (``state`` first), the four stage outputs and the alpha * dt of each,
+    so that each stage can be held against ``stage_x1_plain`` on the same
+    inputs; the last output is the x1 chunk's step from ``state``."""
+    ws = chunk_workspace(ops, state, 1, float("inf"))
+    ws["x1b"] = x1_border_table(ops)
+    bench_kernel(ops, ws, "dt", 1)
+    dt = ws["scal"][0, 0].clone()
+    ins, outs, adts = [], [], []
+    cur = state
+    for alpha in core.RK4_ALPHAS:
+        adt = torch.tensor(alpha, dtype=ops.dtype, device=ops.device) * dt
+        for name, t in zip(("au", "av", "ap"), cur):
+            ws[name].copy_(t)
+        ws["scal"][0, 0] = adt  # the launch's alpha is 1
+        bench_kernel(ops, ws, "sg_stage", 1, x1=True)
+        out = SpectralState(ws["bu"].clone(), ws["bv"].clone(),
+                            ws["bp"].clone())
+        ins.append(cur)
+        outs.append(out)
+        adts.append(adt)
+        cur = out
+    return ins, outs, adts

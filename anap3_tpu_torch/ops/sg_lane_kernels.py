@@ -189,12 +189,13 @@ def _lanes_kernel(ops_list, statics, states, start_iter, carry, chunk,
         bp=torch.empty_like(states.p),
         rows=torch.empty((chunk, B, 7), dtype=ops0.dtype, device=ops0.device),
         flags=carry.flags.clone(), ref_norm=carry.ref_norm.clone())
-    counts = (ctypes.c_int * 3)()
+    counts = (ctypes.c_int * len(sgk.KERNELS))()
+    # sweeps pass no matmul algorithm (exact products: x1 = 0)
     rc = lib.sg_lanes_chunk_run(sgk._dtype_code(ops0.dtype), ops0.nf,
                                 sgk._geo(ops0, B), B, sgk._ptr_table(ws),
                                 int(chunk), int(start_iter), int(warmup),
                                 int(metrics_every), int(use_residual),
-                                float(tolerance),
+                                float(tolerance), 0,
                                 sgk._tail_blocks(ops0, B, lib), counts,
                                 sgk._stream())
     key = "sg_lanes_tiled" if metrics_every == 1 else "sg_lanes_aligned"

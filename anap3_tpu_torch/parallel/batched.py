@@ -110,7 +110,8 @@ def run_batched(solvers: Sequence, mesh=None) -> List[IterationResult]:
     log.info("Batched sweep: %d lanes of %s (N=%s)", len(solvers),
              type(first).__name__, p0.nx)
     if isinstance(first, (SGSolver, FSGSolver)):
-        first._check_options()
+        # sweeps pass no matmul algorithm (as the JAX package's): no x1
+        first._check_options(x1_runs=False)
     if isinstance(first, FSGSolver):
         from .fsg_sweep import run_batched_fsg
 

@@ -7,7 +7,7 @@ ride a ``StackedOps``; every chunk advances every lane. A lane that goes
 NaN/Inf is frozen without touching the others and reported as diverged
 (the reference's divergence handling, multigrid/fsg.py:1184-1190).
 
-Two things differ from the JAX package, both on purpose:
+Three things differ from the JAX package, all on purpose:
 
 - The per-lane state machine is carried from chunk to chunk
   (``runner.LaneCarry``): a lane that converged or diverged stays frozen,
@@ -18,6 +18,9 @@ Two things differ from the JAX package, both on purpose:
 - ``convergence_metric="residual"`` is honoured per lane, each lane with
   its own normalization, as the B=1 runner does; the JAX sweep supports
   rel_iter and energy only, and ``main.py`` downgrades residual to rel_iter.
+- A chunk that would cross ``max_iterations`` runs only the steps below it
+  (a chunk function of that length), as ``runner.run_fixed_point`` does;
+  the JAX sweep runs it whole, past its cap.
 
 With a ``mesh`` (a ``DeviceMesh`` with a ``"sweep"`` dimension, one rank a
 card or CPU worker), every rank passes the whole batch, as every process
@@ -317,11 +320,19 @@ def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
         ops = stack_ops(ops.lanes[lanes])
         states = type(states)(*(t[lanes] for t in states))
     chunk_runner = lane_runner(lanes) if lane_runner is not None else None
-    if chunk_runner is not None:
-        runner = chunk_runner(chunk, inner_tol, warmup, inner_metric)
-    else:
-        runner = make_batched_chunk_runner(step_fn, get_uv, ops, chunk,
-                                           inner_tol, warmup, inner_metric)
+    runners = {}
+
+    def runner(n):
+        """The chunk function of ``n`` steps (``chunk``, or the last
+        chunk's remainder below ``max_iterations``), built once a length."""
+        if n not in runners:
+            runners[n] = (
+                chunk_runner(n, inner_tol, warmup, inner_metric)
+                if chunk_runner is not None else
+                make_batched_chunk_runner(step_fn, get_uv, ops, n, inner_tol,
+                                          warmup, inner_metric))
+        return runners[n]
+
     try:
         res = _sweep_loop(runner, states, len(ops), tolerance,
                           max_iterations, chunk, warmup, max_history_points,
@@ -349,7 +360,8 @@ def _gathered(res: SweepResult, split: _MeshLanes) -> SweepResult:
 def _sweep_loop(runner, states, B, tolerance, max_iterations, chunk, warmup,
                 max_history_points, use_energy, plateau_target,
                 split) -> SweepResult:
-    """The host loop of ``run_batched_sweep`` over this rank's lanes."""
+    """The host loop of ``run_batched_sweep`` over this rank's lanes;
+    ``runner(n)`` is the chunk function of ``n`` steps."""
     rows_buf: List[np.ndarray] = []
     idx_buf: List[np.ndarray] = []
     n_kept = 0
@@ -364,13 +376,18 @@ def _sweep_loop(runner, states, B, tolerance, max_iterations, chunk, warmup,
     t0 = time.time()
     it = 0
     cur = None
+    def dispatch(st, start, carry):
+        # the last chunk runs only the steps left below the cap
+        n = min(chunk, max_iterations - start)
+        return _Pending(runner(n)(st, start, carry))
+
     if it < max_iterations:
-        cur = _Pending(runner(states, it, None))
+        cur = dispatch(states, it, None)
     while cur is not None:
         states, carry, _ = cur.out
         nxt = None
         if it + chunk < max_iterations:
-            nxt = _Pending(runner(states, it + chunk, carry))
+            nxt = dispatch(states, it + chunk, carry)
         flags_h, rows_h = cur.read()
         if first_chunk_time == 0.0:
             first_chunk_time = time.time() - t0

@@ -8,8 +8,11 @@ emits the same layout pyvista produces (inline ``format="binary"`` with
 ``vtkZLibDataCompressor`` and ``UInt32`` headers), so files written here load
 in any VTK tool and the reference fixtures load here bit-exactly.
 
-The port's own copy of ``anap3_tpu/utils/vts.py``, on the pure zlib/base64
-path (the JAX package's optional C++ codec is not built by the port).
+The port's own copy of ``anap3_tpu/utils/vts.py``. Compressed payloads
+with UInt32 headers go through the port's native codec
+(``utils/native.py``: ``csrc/vts_codec.cpp``, zlib and base64 in one C++
+pass) where it builds, else through the zlib/base64 code below, which
+writes the same bytes; ``codec_name()`` says which one runs.
 
 Inline-binary payload layout (per VTK XML spec):
     base64(header) + base64(zlib-block-1 .. zlib-block-n)
@@ -26,7 +29,8 @@ from xml.etree import ElementTree as ET
 
 import numpy as np
 
-__all__ = ["StructuredGridData", "read_vts", "write_vts"]
+__all__ = ["StructuredGridData", "read_vts", "write_vts", "codec_name",
+           "encode_python", "decode_python"]
 
 _DTYPES = {
     "Float64": np.float64,
@@ -57,9 +61,31 @@ class StructuredGridData:
         return (x1 - x0 + 1, y1 - y0 + 1, z1 - z0 + 1)
 
 
+def _native_codec():
+    from . import native
+
+    return native.vts_codec()
+
+
+def codec_name() -> str:
+    """"native" where the C++ codec encodes and decodes, else "python"."""
+    return "python" if _native_codec() is None else "native"
+
+
 def _decode_inline_binary(text: str, dtype: np.dtype, header_dtype=np.uint32,
                           compressed: bool = True) -> np.ndarray:
     raw = "".join(text.split())
+    if compressed and np.dtype(header_dtype).itemsize == 4:
+        codec = _native_codec()
+        if codec is not None:
+            return np.frombuffer(codec.decode(raw), dtype=dtype)
+    return decode_python(raw, dtype, header_dtype, compressed)
+
+
+def decode_python(raw: str, dtype: np.dtype, header_dtype=np.uint32,
+                  compressed: bool = True) -> np.ndarray:
+    """The Python codec's decode of an inline-binary payload (no
+    whitespace)."""
     hsize_word = np.dtype(header_dtype).itemsize
     if not compressed:
         head = base64.b64decode(raw[: _b64len(hsize_word)])
@@ -90,6 +116,16 @@ def _b64len(nbytes: int) -> int:
 
 
 def _encode_inline_binary(data: bytes, header_dtype=np.uint32) -> str:
+    if np.dtype(header_dtype).itemsize == 4:
+        codec = _native_codec()
+        if codec is not None:
+            return codec.encode(data, 5)
+    return encode_python(data, header_dtype)
+
+
+def encode_python(data: bytes, header_dtype=np.uint32) -> str:
+    """The Python codec's inline-binary payload of ``data``: one zlib block
+    at level 5."""
     comp = zlib.compress(data, 5)
     fmt = "<IIII" if np.dtype(header_dtype).itemsize == 4 else "<QQQQ"
     header = struct.pack(fmt, 1, len(data), len(data), len(comp))

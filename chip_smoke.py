@@ -50,12 +50,39 @@ when it fails:
    than the bound; then, at N=128 in float32 and float64, a chunk whose
    tolerance is met mid-chunk: flags, NaN rows and the frozen state as the
    plain chunk's;
+2g. the x1 kernels (matmul_algorithm=x1: stage_kernel<float, TN, true>
+   and tail_kernel<float, true>, one bf16 tensor-core pass a product)
+   against the plain x1 version (sg_kernels.chunk_plain with hi) on the
+   same CUDA tensors, float32, N = 32, 96, 128, 256 and 320 (X1_N),
+   smoothed and singular lids, from a seeded random state: one stage
+   within 1e-5 relative on u, v, p of the plain stage; every stage of 16
+   steps along the kernel's own trajectory (sg_kernels.x1_step_stages)
+   within 1e-5 of the plain stage that sums as the tensor cores do
+   (x1_operators(ops, tc=True)) from the same inputs, and that trajectory
+   bit-equal to the kernel's 16-step chunk; one tail launch's quadratures
+   within 1e-5 of x1_conserved_quantities; the x1 stage and tail at least
+   100x further from the exact ones than from their plain x1; the 16 steps
+   one by one from the plain trajectory and the whole chunk from rest and
+   from the seeded state against the plain x1, within X1_SPREAD times the
+   largest distance of the tc plain from the plain over the phase (the
+   spread of the x1 arithmetic under the tensor cores' rounding), flags
+   equal; at N = 96, 128, 256 the ms of an x1 and an exact stage launch
+   and tail launch, of an x1 and an exact chunk step, the plain versions,
+   the bound (products at the bf16 rate) and the bf16 torch.matmul
+   yardstick;
 3. SG N=128 Re=1000 float32 (the BASELINE timesteps/s cell): SGSolver
    .solve(max_iter=50_000) with chunk 5000; steps/s net of the first chunk;
+3b. the same under matmul_algorithm=x1: steps/s beside phase 3's, the
+   relative distance of its state from phase 3's at step 50,000, and the
+   launch counters, which must show x1 stage launches and no exact ones;
 4. FSG N=96 Re=1000 tol=1e-6 float32 (the flagship): FSGSolver.solve() with
    max_iterations=400_000; iterations within 20% of the JAX record
    (176,389), Ghia u-centerline max error <= 0.027, L2 errors against the
    stored FV truth;
+4x1. the flagship under matmul_algorithm=x1 (its levels N=48 and 96 are
+   aligned orders), capped at 200,000 steps a level: whether it converged,
+   its iterations and L2 (no bound: the JAX package documents x1 as losing
+   accuracy), no exact stage launch;
 2c. the SG smoothing loop (sg_smooth_run, the VMG/FMG smoother) with 2 and
    30 steps against its plain version at N = 48, 96, 192, float32 and
    float64, smoothed and singular lids, forced by a tau that is random
@@ -143,7 +170,9 @@ A. cli fsg N=96 (after 4b): the flagship through the port's CLI,
    "plots=false", ...])`` in process with a temporary tracking store: the
    ladder and iterations of phase 4; the run read back through the port's
    tracking.search_runs converged, and the Ghia u-centerline max error of
-   its stored solution.vts <= 0.027;
+   its stored solution.vts <= 0.027; the line names the VTS codec that
+   wrote and read it (the native C++ one, or Python where g++ or zlib is
+   missing);
 B. cli optimization N=40: one round of the corner-smoothing optimization
    through the CLI (``-m +experiment/optimization=corner_smoothing
    solver=gpu/fsg N=40 hydra.sweeper.params.N=40 optuna.n_trials=8
@@ -223,7 +252,8 @@ card's published peaks); the last line is the result object.
 
 ``python3 chip_smoke.py --newton`` runs phases 1, 2f, 4 (whose march the
 polished flagship repeats), 4b, 13, 14, 14b and 15 alone, with the same
-checks.
+checks. ``python3 chip_smoke.py --x1`` runs phases 1, 2g, 3, 3b, 4 and 4x1
+alone.
 
 ``python3 chip_smoke.py --flagship-vmg`` instead runs the converged VMG
 [192, 96] Re=1000 tol=1e-6 float32 solve (the JAX record: 47,685 cycles,
@@ -277,6 +307,7 @@ from anap3_tpu_torch.parallel.sweep import stack_states  # noqa: E402
 from anap3_tpu_torch.plotting.data_loading import (  # noqa: E402
     load_fields_from_vts, restructure_fields)
 from anap3_tpu_torch.utils import tracking as TT  # noqa: E402
+from anap3_tpu_torch.utils import vts as VTS  # noqa: E402
 from anap3_tpu_torch.utils.profiling import (  # noqa: E402
     NoDeviceActivity, device_breakdown, profile_chunk, trace_device)
 
@@ -340,6 +371,10 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     "sg_stage": _SG_SITES,
     "sg_diag": _SG_SITES,
     "sg_control": _SG_SITES,
+    # matmul_algorithm=x1: the aligned chunk kernel's one-bf16-pass mode
+    # (make_aligned_chunk_runner, algorithm="x1")
+    "sg_stage_x1": "anap3_tpu/ops/pallas_aligned.py:647",
+    "sg_diag_x1": "anap3_tpu/ops/pallas_aligned.py:647",
     # the body _make_iterate of make_pallas_fv_step / _chunk_runner: the
     # assembly and the solve, then the pressure stage with the chunk's
     # state machine (and the step's metrics vector)
@@ -354,7 +389,9 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     # matvec_fused (steady.py:251), which XLA compiles
     "nk_schur": "anap3_tpu/models/steady.py:173",
 }
-SOURCES = {"sg_lanes_tiled": "anap3_tpu_torch/csrc/sg_host.cu",
+SOURCES = {"sg_stage_x1": "anap3_tpu_torch/csrc/sg_stage.cu",
+           "sg_diag_x1": "anap3_tpu_torch/csrc/sg_diag.cu",
+           "sg_lanes_tiled": "anap3_tpu_torch/csrc/sg_host.cu",
            "sg_lanes_aligned": "anap3_tpu_torch/csrc/sg_host.cu",
            "fv_lanes": "anap3_tpu_torch/csrc/fv_host.cu"}
 # sweep lanes: (Re, corner_smoothing, CFL, beta_squared); singular lanes
@@ -419,6 +456,34 @@ FV_F32_TOL = 1e-4
 # rate), and HBM bytes/s
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 PEAK_BYTES = 3.35e12
+# the dense bf16 tensor-core rate: the x1 kernels' products
+PEAK_BF16 = 989e12
+# phase 2g (matmul_algorithm=x1, float32): the orders, and the bounds of
+# the x1 kernels against the plain x1 version on the same CUDA tensors.
+# x1 rounds each stage state to bf16, so two float32 implementations of it
+# that sum in other orders part where a value lies at a bf16 rounding
+# boundary: the next stage rounds it 2^-8 apart, and the Chebyshev
+# operators carry that into a line of the residual. The kernel's tensor
+# cores sum each 16-wide k block exactly and round the accumulator toward
+# zero (sg_kernels.tc_matmul; scripts/x1_parity.py: the plain x1 summed so
+# lands as far from the plain float32 x1 as the kernel does, stage by
+# stage, step by step and chunk by chunk), further from round-to-nearest
+# than float32 sums are from each other, so such flips are frequent. The
+# checks that hold the kernel's arithmetic compare like with like: one
+# stage from the same inputs (X1_STAGE_TOL against the plain stage), every
+# stage of 16 steps along the kernel's own trajectory against the tc
+# stage from the same inputs (X1_STAGE_TOL), that trajectory bit-equal to
+# the 16-step chunk, and one tail launch (X1_STAGE_TOL; the tail sums on
+# CUDA cores in float32), each also 100x apart from exact. Trajectories
+# from the same start (16 steps one by one from the plain trajectory, the
+# 16-step chunk from rest and from the seeded state) are held to
+# X1_SPREAD times the largest distance of the tc plain's trajectory from
+# the plain one over the phase, with the flags equal.
+X1_N = (32, 96, 128, 256, 320)
+X1_STAGE_TOL = 1e-5
+X1_SPREAD = 10
+# phase 3's FMA state and rate, for phase 3b
+SG_FMA = {}
 
 
 class SmokeFailure(Exception):
@@ -700,7 +765,7 @@ def phase_kernels(summary):
                         (out_k[4].double() - out_p[4].double()).abs().max())
                     print(f"[kernels] N=128 float32 developed flow: abs err "
                           + ", ".join(f"{k} {summary[k]['max_abs_err']:.3e}"
-                                      for k in sgk.KERNELS), flush=True)
+                                      for k in sgk.EXACT_KERNELS), flush=True)
                     time_kernels(ops, st0, summary)
 
 
@@ -759,7 +824,7 @@ def time_kernels(ops, st0, summary):
         b_ms, b_by = bounds[name]
         rows[name] = dict(ms=ms[name], plain_ms=cuda_ms(fn, 50),
                           bound_ms=b_ms, bound_by=b_by)
-    for name in sgk.KERNELS:
+    for name in sgk.EXACT_KERNELS:
         summary[name].update(rows[name], library_ms=None)
     summary["sg_diag"]["parts"] = {"dt_kernel": rows["dt"],
                                    "tail_kernel": rows["tail"]}
@@ -779,24 +844,246 @@ def time_kernels(ops, st0, summary):
               f"({r['bound_by']})", flush=True)
 
 
-def stage_library_ms(ops, st):
+def stage_library_ms(ops, st, dtype=None):
     """torch.matmul doing the stage's 12 products on stacked operands in
-    the working dtype, TF32 off: [Dx, Dxx, Dx, Dxx] @ [u, u, v, v],
-    [u, u, v, v] @ [DyT, DyyT, DyT, DyyT], and ([Gx, Ix] @ p) @ [IyT, GyT].
-    A yardstick only; the port never calls it."""
+    the working dtype (or ``dtype``: bf16 for x1), TF32 off: [Dx, Dxx, Dx,
+    Dxx] @ [u, u, v, v], [u, u, v, v] @ [DyT, DyyT, DyT, DyyT], and
+    ([Gx, Ix] @ p) @ [IyT, GyT]. A yardstick only; the port never calls
+    it."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
-    u, v, p = st
-    left = torch.stack([ops.Dx, ops.Dxx, ops.Dx, ops.Dxx])
+    cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
+    u, v, p = (cast(t) for t in st)
+    left = cast(torch.stack([ops.Dx, ops.Dxx, ops.Dx, ops.Dxx]))
     fields = torch.stack([u, u, v, v])
-    right = torch.stack([ops.DyT, ops.DyyT, ops.DyT, ops.DyyT])
-    grads = torch.stack([ops.Gx, ops.Ix])
-    interp = torch.stack([ops.IyT, ops.GyT])
+    right = cast(torch.stack([ops.DyT, ops.DyyT, ops.DyT, ops.DyyT]))
+    grads = cast(torch.stack([ops.Gx, ops.Ix]))
+    interp = cast(torch.stack([ops.IyT, ops.GyT]))
 
     def products():
         return (torch.matmul(left, fields), torch.matmul(fields, right),
                 torch.matmul(torch.matmul(grads, p), interp))
 
     return cuda_ms(products, 50)
+
+
+def x1_bound(nf, what):
+    """(ms, what bounds it) of an x1 launch group: its products (counted as
+    sg_work counts them) at the dense bf16 tensor-core rate, its bytes (the
+    float32 operands, as the exact kernels') at the HBM rate."""
+    flops, nbytes = sg_work(nf, torch.float32)[what]
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def x1_stage(ops, hi, st_in, base):
+    """One x1 stage (alpha = 1) from ``st_in`` on the base ``base``, kernel
+    and plain: the bench entry's chunk-step stage into the B buffers, dt
+    from dt_kernel on the base; the plain stage with that dt."""
+    ws = sgk.chunk_workspace(ops, base, 16, float("inf"))
+    ws["x1b"] = sgk.x1_border_table(ops)
+    for a, b in (("au", st_in.u), ("av", st_in.v), ("ap", st_in.p)):
+        ws[a].copy_(b)
+    sgk.bench_kernel(ops, ws, "dt", 1)
+    sgk.bench_kernel(ops, ws, "sg_stage", 1, x1=True)
+    torch.cuda.synchronize()  # a fault shows where it happened
+    dt = ws["scal"][0, 0].clone()
+    plain, _ = sgk.stage_x1_plain(ops, hi, *st_in, *base, dt)
+    return (ws["bu"], ws["bv"], ws["bp"]), plain, ws
+
+
+def x1_errs(out_k, out_p):
+    """The largest relative error of two chunk outputs' u, v, p and 7 row
+    columns."""
+    return max([rel_err(a, b) for a, b in zip(out_k[0], out_p[0])]
+               + [rel_err(out_k[4][:, c], out_p[4][:, c]) for c in range(7)])
+
+
+def x1_chain(ops, hi, tc, st, steps):
+    """``steps`` x1 steps of the kernels one stage launch at a time from
+    ``st``: the largest distance of a stage from the tc plain stage and
+    from the plain stage on the same inputs, and the last state."""
+    to_tc = to_plain = 0.0
+    cur = st
+    for _ in range(steps):
+        ins, outs, adts = sgk.x1_step_stages(ops, cur)
+        for x, out_k, adt in zip(ins, outs, adts):
+            ref_tc, _ = sgk.stage_x1_plain(ops, tc, *x, *cur, adt)
+            ref, _ = sgk.stage_x1_plain(ops, hi, *x, *cur, adt)
+            to_tc = max([to_tc] + [rel_err(a, b)
+                                   for a, b in zip(out_k, ref_tc)])
+            to_plain = max([to_plain] + [rel_err(a, b)
+                                         for a, b in zip(out_k, ref)])
+        cur = outs[-1]
+    return to_tc, to_plain, cur
+
+
+def x1_tail(ops, hi, st):
+    """(kernel vs plain, plain vs exact) of one x1 tail launch's enstrophy
+    and palinstrophy on ``st``."""
+    ws = sgk.chunk_workspace(ops, st, 1, float("inf"))
+    ws["x1b"] = sgk.x1_border_table(ops)
+    sgk.bench_kernel(ops, ws, "tail", 1, x1=True)
+    got = ws["scal"][0, 3:6]  # S_E, S_Z, S_P
+    want = sgk.x1_conserved_quantities(ops, hi, st.u, st.v)
+    exact = core.conserved_quantities(ops, st.u, st.v)
+    return (max(rel_err(got[i], want[i]) for i in range(3)),
+            max(rel_err(want[i], exact[i]) for i in range(3)))
+
+
+def phase_x1_kernels(summary):
+    """2g: the x1 stage and tail kernels against the plain x1 version; every
+    case is printed, then the phase fails on any case out of its bound."""
+    rng = np.random.default_rng(15)
+    chunk, m_every, warmup = 16, 16, 10
+    inf = float("inf")
+    fails = []
+    traj = []  # (case, what, kernel's distance, the tc plain's)
+    for n in X1_N:
+        for corner in ("smoothing", "singular"):
+            ops, _ = core.build_spectral_ops(params(n, "float32", corner))
+            hi = sgk.x1_operators(ops)
+            tc = sgk.x1_operators(ops, tc=True)
+            st = random_state(ops, rng)
+            base = random_state(ops, rng)
+            out_k, out_p, ws = x1_stage(ops, hi, st, base)
+            e_stage = [rel_err(a, b) for a, b in zip(out_k, out_p)]
+            # the exact stage from the same inputs: x1 is a bf16-level
+            # change, far above the kernel's distance from its plain x1
+            dt = ws["scal"][0, 0]
+            R_u, R_v, R_p = core.residuals(ops, *st)
+            ex = (*core.enforce_bc(ops, base.u + dt * R_u,
+                                   base.v + dt * R_v), base.p + dt * R_p)
+            e_exact = max(rel_err(a, b) for a, b in zip(out_k, ex))
+            # every stage of the chunk along the kernel's own trajectory,
+            # and that trajectory against the chunk
+            e_chain, e_chain_plain, last = x1_chain(ops, hi, tc, st, chunk)
+            run_k = sgk.make_sg_chunk_runner(ops, chunk, 1e-30, warmup,
+                                             "rel_iter", m_every, x1=True)
+            ck = run_k(st, 0, inf)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(ck[0], last))
+            e_tail, tail_exact = x1_tail(ops, hi, st)
+
+            def plain(state, start, steps, h=hi):
+                return sgk.chunk_plain(ops, state, start, inf, steps, 1e-30,
+                                       warmup, False, m_every, hi=h)
+
+            one_k = sgk.make_sg_chunk_runner(ops, 1, 1e-30, warmup,
+                                             "rel_iter", m_every, x1=True)
+            e_steps = y_steps = 0.0
+            cur, flags_ok = st, True
+            for k in range(chunk):
+                sk, sp = one_k(cur, k, inf), plain(cur, k, 1)
+                flags_ok &= ([int(sk[i]) for i in (1, 2, 3)]
+                             == [int(sp[i]) for i in (1, 2, 3)])
+                e_steps = max(e_steps, x1_errs(sk, sp))
+                y_steps = max(y_steps, x1_errs(plain(cur, k, 1, tc), sp))
+                cur = sp[0]
+            case = f"x1 N={n} {corner}"
+            traj.append((case, "steps one by one", e_steps, y_steps))
+            res = {}
+            for name, start_state in (("rest", core.initial_state(ops)),
+                                      ("seeded", st)):
+                ck = run_k(start_state, 0, inf)
+                cp = plain(start_state, 0, chunk)
+                flags_ok &= ([int(ck[i]) for i in (1, 2, 3)]
+                             == [int(cp[i]) for i in (1, 2, 3)])
+                res[name] = (x1_errs(ck, cp),
+                             x1_errs(plain(start_state, 0, chunk, tc), cp))
+                traj.append((case, f"chunk from {name}", *res[name]))
+            print(f"[x1] N={n} {corner}: stage u/v/p "
+                  f"{'/'.join(f'{e:.1e}' for e in e_stage)} (tol "
+                  f"{X1_STAGE_TOL:.0e}); the 64 stages along the kernel's "
+                  f"trajectory {e_chain:.1e} from the tc stage (tol "
+                  f"{X1_STAGE_TOL:.0e}; {e_chain_plain:.1e} from the plain "
+                  f"stage), bit-equal to the 16-step chunk {same}; tail "
+                  f"{e_tail:.1e} (tol {X1_STAGE_TOL:.0e}; plain x1 from "
+                  f"exact {tail_exact:.1e}); 16 steps one by one "
+                  f"{e_steps:.1e} (tc plain {y_steps:.1e}); the 16-step "
+                  f"chunk from rest {res['rest'][0]:.1e} (tc plain "
+                  f"{res['rest'][1]:.1e}), from the seeded state "
+                  f"{res['seeded'][0]:.1e} (tc plain {res['seeded'][1]:.1e})"
+                  f"; the x1 stage against the exact one {e_exact:.2e}; "
+                  f"flags equal {flags_ok}", flush=True)
+            for ok, what in (
+                    (max(e_stage) <= X1_STAGE_TOL, "stage"),
+                    (e_chain <= X1_STAGE_TOL, "stages along the chunk"),
+                    (same, "the chunk is not its stages"),
+                    (e_tail <= X1_STAGE_TOL, "tail"),
+                    (flags_ok, "flags"),
+                    (e_exact > 100 * max(e_stage), "x1 apart from exact"),
+                    (tail_exact > 100 * e_tail, "x1 tail apart from exact")):
+                if not ok:
+                    fails.append(f"{case}: {what}")
+            if corner == "smoothing" and n in (96, 128, 256):
+                x1_times(ops, hi, st, base, summary, n)
+    spread = {}
+    for _, what, _, y in traj:
+        key = "steps" if what.startswith("steps") else "chunk"
+        spread[key] = max(spread.get(key, 0.0), y)
+    print(f"[x1] the tc plain's largest distance from the plain x1 over the "
+          f"phase: steps one by one {spread['steps']:.2e}, 16-step chunks "
+          f"{spread['chunk']:.2e}; bounds {X1_SPREAD}x: "
+          f"{X1_SPREAD * spread['steps']:.2e}, "
+          f"{X1_SPREAD * spread['chunk']:.2e}", flush=True)
+    for case, what, e, _ in traj:
+        key = "steps" if what.startswith("steps") else "chunk"
+        if not e <= X1_SPREAD * spread[key]:
+            fails.append(f"{case}: {what} {e:.2e}")
+    check(not fails, "x1 kernels out of bounds: " + "; ".join(fails))
+
+
+def x1_times(ops, hi, st, base, summary, n):
+    """ms of an x1 stage launch and of an x1 chunk step beside the exact
+    ones, the plain versions, the bound and the bf16 library yardstick; at
+    N=128 the summary's x1 rows."""
+    reps, chunk = 200, 64
+    _, _, ws = x1_stage(ops, hi, st, base)
+    t_x1 = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "sg_stage", reps,
+                                            x1=True), 1) / reps
+    t_ex = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "sg_stage", reps),
+                   1) / reps
+    t_tail = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "tail", reps,
+                                              x1=True), 1) / reps
+    t_tail_ex = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "tail", reps),
+                        1) / reps
+    dt = ws["scal"][0, 0].clone()
+    t_plain = cuda_ms(lambda: sgk.stage_x1_plain(ops, hi, *st, *base, dt), 50)
+    t_tail_plain = cuda_ms(
+        lambda: sgk.x1_conserved_quantities(ops, hi, st.u, st.v), 50)
+    st0 = core.initial_state(ops)
+    runs = {x1: sgk.make_sg_chunk_runner(ops, chunk, 1e-30, 10, "rel_iter",
+                                         16, x1=x1) for x1 in (False, True)}
+    step_ms = {x1: cuda_ms(lambda: run(st0, 0, float("inf")), 3) / chunk
+               for x1, run in runs.items()}
+    b_ms, b_by = x1_bound(ops.nf, "sg_stage")
+    bt_ms, bt_by = x1_bound(ops.nf, "tail")
+    lib = stage_library_ms(ops, st, torch.bfloat16)
+    card = torch.cuda.get_device_name(0)
+    print(f"[x1] N={n} float32 on {card}: stage launch x1 {t_x1:.4f} ms, "
+          f"exact {t_ex:.4f} ms, plain x1 {t_plain:.4f} ms, bound "
+          f"{b_ms:.3g} ms ({b_by}), library (12 products as torch.matmul "
+          f"on bf16) {lib:.4f} ms; tail launch x1 {t_tail:.4f} ms, exact "
+          f"{t_tail_ex:.4f} ms, plain x1 quadratures {t_tail_plain:.4f} ms, "
+          f"bound {bt_ms:.3g} ms ({bt_by}); chunk ms/step x1 "
+          f"{step_ms[True]:.4f}, exact {step_ms[False]:.4f}", flush=True)
+    if n == 128:
+        out_k, out_p, _ = x1_stage(ops, hi, st, base)
+        summary["sg_stage_x1"].update(
+            ms=t_x1, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib, max_abs_err=max(
+                float((a.double() - b.double()).abs().max())
+                for a, b in zip(out_k, out_p)))
+        run = sgk.make_sg_chunk_runner(ops, 1, 1e-30, 10, "rel_iter", 16,
+                                       x1=True)
+        rk = run(st, 0, float("inf"))[4]
+        rp = sgk.chunk_plain(ops, st, 0, float("inf"), 1, 1e-30, 10, False,
+                             16, hi=hi)[4]
+        summary["sg_diag_x1"].update(
+            ms=t_tail, plain_ms=t_tail_plain, bound_ms=bt_ms,
+            bound_by=bt_by, library_ms=None,
+            max_abs_err=float((rk[:, 4:].double()
+                               - rp[:, 4:].double()).abs().max()))
 
 
 def ring_zero_tau(ops, rng, scale=0.01):
@@ -1577,7 +1864,67 @@ def phase_sg():
           "SG state is not finite")
     check(it == 50_000 or solver.metrics.converged,
           f"SG stopped at {it} without converging")
+    SG_FMA.update(net=net, state=tuple(t.clone() for t in solver.state),
+                  iterations=it)
     return net
+
+
+def phase_sg_x1():
+    """3b: phase 3's solve under matmul_algorithm=x1: the chunk on the x1
+    stage and tail kernels, none of the exact stage's launches."""
+    solver = SGSolver(params=params(128, "float32", matmul_algorithm="x1"))
+    t0 = time.time()
+    solver.solve(max_iter=50_000)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    it = solver.metrics.iterations
+    first = solver.first_chunk_time
+    chunk = int(solver.params.chunk_size)
+    net = (it - chunk) / max(solver.metrics.wall_time_seconds - first, 1e-9)
+    same = SG_FMA.get("iterations") == it
+    dist = [rel_err(a, b) for a, b in zip(solver.state, SG_FMA["state"])] \
+        if same else None
+    print(f"[sg x1] N=128 Re=1000 float32 matmul_algorithm=x1 on "
+          f"{torch.cuda.get_device_name(0)}: {it} iterations in "
+          f"{solver.metrics.wall_time_seconds:.3f}s (call {wall:.3f}s), "
+          f"first_chunk_seconds {first:.3f}, steps/s net of the first chunk "
+          f"{net:.1f} (phase 3, exact FMA: {SG_FMA.get('net', 0.0):.1f}); "
+          f"relative distance from phase 3's state at step {it}: "
+          + (", ".join(f"{k} {d:.3e}" for k, d in zip("uvp", dist))
+             if dist else "n/a (other step counts)")
+          + f"; launches {dict(sgk.LAUNCHES)}; converged="
+          f"{solver.metrics.converged}", flush=True)
+    check(all(bool(torch.isfinite(t).all()) for t in solver.state),
+          "SG x1 state is not finite")
+    check(it == 50_000 or solver.metrics.converged,
+          f"SG x1 stopped at {it} without converging")
+    check(sgk.LAUNCHES["sg_stage"] == 0 and sgk.LAUNCHES["sg_stage_x1"] > 0,
+          f"the x1 chunk did not run on the x1 stage kernel alone: "
+          f"{sgk.LAUNCHES}")
+    return net
+
+
+def phase_fsg_x1():
+    """The flagship under matmul_algorithm=x1, capped at 200,000 steps a
+    level: whether it converges, and its L2 (no bound: the JAX package
+    documents x1 as losing accuracy)."""
+    solver = FSGSolver(params=params(96, "float32", tolerance=1e-6,
+                                     max_iterations=200_000, multigrid="fsg",
+                                     n_levels=2, coarse_tolerance_factor=1.0,
+                                     matmul_algorithm="x1"))
+    solver.solve()
+    m = solver.metrics
+    levels = ", ".join(f"N={lv['n']}: {lv['iterations']} it "
+                       f"({lv['wall_time']:.2f}s)" for lv in solver.levels)
+    errs = solver.compute_validation_errors(base_dir=ROOT, save_plots=False)
+    print(f"[fsg x1] N=96 Re=1000 tol=1e-6 float32 matmul_algorithm=x1, "
+          f"cap 200,000 a level: {levels}; total {m.iterations} iterations, "
+          f"wall {m.wall_time_seconds:.3f}s, converged={m.converged}; L2 "
+          + " ".join(f"{k}={v:.5f}" for k, v in errs.items())
+          + f" (exact: {FSG_MARCH.get('iterations')} iterations); launches "
+          f"{dict(sgk.LAUNCHES)}", flush=True)
+    check(sgk.LAUNCHES["sg_stage"] == 0, f"an exact stage ran on the x1 "
+          f"flagship: {sgk.LAUNCHES}")
 
 
 def ghia_u_error(solver, re=1000) -> float:
@@ -1830,7 +2177,8 @@ def phase_cli_fsg():
               f"{m['wall_time_seconds']:.3f}, first_chunk_seconds "
               f"{m['first_chunk_seconds']:.3f}, L2 u {m['u_L2_error']:.5f} v "
               f"{m['v_L2_error']:.5f}, Ghia u-centerline max err {ghia:.4f} "
-              f"(from the stored solution.vts); the driver's call "
+              f"(from the stored solution.vts, written and read by the "
+              f"{VTS.codec_name()} VTS codec); the CLI call "
               f"{wall:.3f}s", flush=True)
     check(levels == FSG_MARCH.get("levels")
           and int(m["iterations"]) == FSG_MARCH.get("iterations"),
@@ -2741,16 +3089,21 @@ def flagship_vmg() -> int:
 
 # the main paths: (name, phase, the kernels it must launch)
 SG_NO_CONTROL = ("sg_stage", "sg_diag")
+SG_EXACT = sgk.EXACT_KERNELS
+# an x1 chunk: the x1 stage and tail, dt (sg_diag) and control
+SG_X1 = ("sg_stage_x1", "sg_diag", "sg_diag_x1", "sg_control")
 MAIN_PATHS = (
-    ("sg N=128", phase_sg, sgk.KERNELS),
-    ("fsg N=96", phase_fsg, sgk.KERNELS),
+    ("sg N=128", phase_sg, SG_EXACT),
+    ("sg N=128 x1", phase_sg_x1, SG_X1),
+    ("fsg N=96", phase_fsg, SG_EXACT),
+    ("fsg N=96 x1", phase_fsg_x1, SG_X1),
     # the flagship again with the float64 Newton polish (after phase 4,
     # whose march it repeats)
-    ("fsg N=96 polished", phase_fsg_polished, sgk.KERNELS + nkk.KERNELS),
+    ("fsg N=96 polished", phase_fsg_polished, SG_EXACT + nkk.KERNELS),
     # the port's CLI (python -m anap3_tpu_torch): the flagship, then one
     # round of the corner-smoothing optimization as one batch on the SG
     # lane kernels
-    ("cli fsg N=96", phase_cli_fsg, sgk.KERNELS),
+    ("cli fsg N=96", phase_cli_fsg, SG_EXACT),
     ("cli optimization N=40", phase_cli_optimization, sgl.KERNELS),
     # the Newton iteration: each GMRES vector replays one CUDA graph of
     # the matvec, whose Schur BiCGSTAB is the nk kernel (no pallas_call in
@@ -2760,7 +3113,7 @@ MAIN_PATHS = (
     # the Schur kernel's streamed geometry on a real system
     ("newton N=256 warm", phase_newton_warm256, nkk.KERNELS),
     ("newton prelude N=128", phase_newton_prelude, SG_NO_CONTROL),
-    ("sg resume N=128", phase_sg_resume, sgk.KERNELS),
+    ("sg resume N=128", phase_sg_resume, SG_EXACT),
     ("fv resume N=128", phase_fv_resume, fvk.KERNELS),
     ("fv Re=100", lambda: phase_fv_solve(100.0), fvk.KERNELS),
     ("fv Re=1000", lambda: phase_fv_solve(1000.0), fvk.KERNELS),
@@ -2784,6 +3137,8 @@ MAIN_PATHS = (
 # every module that counts kernel launches or plain calls
 COUNTERS = (sgk, fvk, sgl, fvl, TS, nkk)
 # the paths of --newton, in order
+# the paths of --x1, in order
+X1_PATHS = ("sg N=128", "sg N=128 x1", "fsg N=96", "fsg N=96 x1")
 NEWTON_PATHS = ("fsg N=96", "fsg N=96 polished", "newton N=128 cold",
                 "newton N=128 warm", "newton N=256 warm",
                 "newton prelude N=128")
@@ -2823,6 +3178,8 @@ def main() -> int:
                     help="run only the converged VMG [192, 96] Re=1000 solve")
     ap.add_argument("--newton", action="store_true",
                     help="run only the Newton phases (1, 2f, 4, 4b, 13-15, 14b)")
+    ap.add_argument("--x1", action="store_true",
+                    help="run only the x1 phases (1, 2g, 3, 3b, 4, 4x1)")
     args = ap.parse_args()
     if args.flagship_vmg:
         return flagship_vmg()
@@ -2833,6 +3190,12 @@ def main() -> int:
                    "source": SOURCES.get(k, f"anap3_tpu_torch/csrc/{k}.cu"),
                    "replaces": REPLACES[k], "launches": 0} for k in names}
     phase_device()
+    if args.x1:
+        phase_x1_kernels(summary)
+        run_main_paths([m for m in MAIN_PATHS if m[0] in X1_PATHS], names,
+                       summary)
+        print(f"[chip_smoke] --x1 {time.time() - t_start:.1f}s", flush=True)
+        return 0
     if args.newton:
         phase_nk_kernel(summary)
         run_main_paths([m for m in MAIN_PATHS if m[0] in NEWTON_PATHS],
@@ -2841,6 +3204,7 @@ def main() -> int:
               flush=True)
         return 0
     phase_kernels(summary)
+    phase_x1_kernels(summary)
     phase_fv_kernels(summary)
     phase_fv_flags()
     phase_smoother()

@@ -24,7 +24,7 @@ checkout, also appended to chiprun_out/sg_tail_ab.jsonl:
   N=128 one lane and N=20, N=128 8 lanes, float32;
 - ``sg_steps_per_s``: SG N=128 Re=1000 float32 through ``SGSolver.solve``,
   50,000 steps in chunks of 5,000, net of the first chunk (as phase 3 of
-  chip_smoke.py);
+  chip_smoke.py), and the SHA-256 of its final u, v, p in ``sha256``;
 - ``fsg``: the FSG N=96 Re=1000 tol 1e-6 float32 flagship (as phase 4 of
   chip_smoke.py): iterations and wall.
 
@@ -172,6 +172,9 @@ def worker(root: Path, index: int) -> dict:
     it, first = solver.metrics.iterations, solver.first_chunk_time
     out["sg_steps_per_s"] = (it - 5000) / max(
         solver.metrics.wall_time_seconds - first, 1e-9)
+    u, v, p = solver.state
+    out["sha256"]["SG N=128 float32 solve, 50,000 steps"] = {
+        "u": digest(u), "v": digest(v), "p": digest(p)}
     fsg = FSGSolver(params=params(96, tolerance=1e-6, max_iterations=400_000,
                                   multigrid="fsg", n_levels=2,
                                   coarse_tolerance_factor=1.0))

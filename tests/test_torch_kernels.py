@@ -406,7 +406,8 @@ class TestOnCard:
         sgk.make_sg_step(ops)(st)
         # dt, one stage launch per RK stage, and the tail kernel (the
         # quadratures and the metrics)
-        assert sgk.LAUNCHES == {"sg_stage": 4, "sg_diag": 2, "sg_control": 0}
+        assert sgk.LAUNCHES == {"sg_stage": 4, "sg_diag": 2, "sg_control": 0,
+                                "sg_stage_x1": 0, "sg_diag_x1": 0}
         sgk.reset_counts()
         sgk.make_sg_chunk_runner(ops, 20, 1e-30, 10, "rel_iter", 16)(
             st, 0, np.inf)
@@ -414,14 +415,16 @@ class TestOnCard:
         # (i=0, idx=16) take the tail kernel, the 18 others control; dt
         # once, at the chunk's first step
         assert sgk.LAUNCHES == {"sg_stage": 80, "sg_diag": 3,
-                                "sg_control": 18}
+                                "sg_control": 18, "sg_stage_x1": 0,
+                                "sg_diag_x1": 0}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
         sgk.reset_counts()
         sgk.make_sg_smoother(ops)(st, None, 5)
         # 5 launches a step (dt, 4 stages) and the tail kernel at the end
         assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 6,
-                                "sg_control": 0}
+                                "sg_control": 0, "sg_stage_x1": 0,
+                                "sg_diag_x1": 0}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
 
@@ -459,6 +462,24 @@ class TestOnCard:
             assert x.data_ptr() != z.data_ptr()
         for x, y in zip(a, b):
             assert torch.equal(x, y) and x.data_ptr() != y.data_ptr()
+
+    @pytest.mark.parametrize("x1", [False, True])
+    def test_capped_solve_stops_at_its_cap(self, cuda, x1):
+        """A cap that is no multiple of the chunk: the kernel chunk of the
+        remainder runs, and the state is the state at the cap (chunk 200
+        gives the bits of chunk 100 at cap 300)."""
+        ops = cuda_ops(32, torch.float32, Re=100.0)
+        out = []
+        for chunk in (200, 100):
+            out.append(TR.run_fixed_point(
+                None, lambda s: (s.u, s.v), T.initial_state(ops),
+                tolerance=1e-30, max_iterations=300, chunk=chunk,
+                chunk_runner=lambda c, t, m: sgk.make_sg_chunk_runner(
+                    ops, c, t, 10, m, 16, x1=x1)))
+        a, b = out
+        assert a.iterations == b.iterations == 300
+        for x, y in zip(a.state, b.state):
+            assert torch.equal(x, y)
 
     def test_state_on_another_device_raises(self, cuda):
         ops = cuda_ops(20, torch.float32)

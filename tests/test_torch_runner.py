@@ -185,3 +185,79 @@ class TestRunFixedPoint:
             state, _ = T.rk4_step(tops, state)
         for a, b in zip(res.state, state):
             assert torch.equal(a, b)
+
+
+class TestIterationCap:
+    """A cap that is not a multiple of the chunk: the last chunk runs only
+    the steps left below it (the JAX runner runs it whole and reports the
+    cap). Cap 300 with chunk 200 must give the bits of chunk 100."""
+
+    @staticmethod
+    def sg_solve(tops, chunk, factory=None, cap=300):
+        return TR.run_fixed_point(lambda s: T.sg_step(tops, s),
+                                  lambda s: (s.u, s.v), T.initial_state(tops),
+                                  tolerance=1e-30, max_iterations=cap,
+                                  chunk=chunk, chunk_runner=factory)
+
+    @pytest.mark.parametrize("path", ["generic", "sg_chunk_runner"])
+    def test_sg_stops_at_its_cap(self, path):
+        _, tops = both(n=12)
+        lengths = []
+
+        def factory(chunk, tol_, metric_):
+            lengths.append(chunk)
+            return sgk.make_sg_chunk_runner(tops, chunk, tol_, 10, metric_)
+
+        fac = factory if path == "sg_chunk_runner" else None
+        a = self.sg_solve(tops, 200, fac)
+        b = self.sg_solve(tops, 100, fac)
+        assert a.iterations == b.iterations == 300
+        assert not a.converged and not a.diverged
+        for x, y in zip(a.state, b.state):
+            assert torch.equal(x, y)
+        np.testing.assert_array_equal(a.history_iters, b.history_iters)
+        state = T.initial_state(tops)
+        for _ in range(300):
+            state, _ = T.rk4_step(tops, state)
+        for x, y in zip(a.state, state):
+            assert torch.equal(x, y)
+        if fac is not None:
+            assert lengths == [200, 100, 100]
+
+    def test_fv_stops_at_its_cap(self):
+        from anap3_tpu_torch.models import fv as TFV
+        from anap3_tpu_torch.models.params import FVParameters
+
+        out = []
+        for chunk in (20, 10):
+            solver = TFV.FVSolver(params=FVParameters(
+                device="cpu", Re=100.0, nx=16, ny=16, dtype="float64",
+                tolerance=1e-30, max_iterations=30, chunk_size=chunk))
+            solver.solve()
+            out.append(solver)
+        a, b = out
+        assert a.metrics.iterations == b.metrics.iterations == 30
+        for name in ("u", "v", "p"):
+            assert torch.equal(getattr(a.state, name), getattr(b.state, name))
+
+    def test_sweep_stops_at_its_cap(self):
+        from anap3_tpu_torch.parallel import sweep as TS
+
+        tops = [both(n=12, Re=Re)[1] for Re in (100.0, 400.0)]
+        out = []
+        for chunk in (200, 100):
+            states = TS.stack_states([T.initial_state(o) for o in tops])
+            out.append(TS.run_batched_sweep(
+                T.sg_step, lambda s: (s.u, s.v), TS.stack_ops(tops), states,
+                tolerance=1e-30, max_iterations=300, chunk=chunk))
+        a, b = out
+        np.testing.assert_array_equal(a.iterations, [300, 300])
+        np.testing.assert_array_equal(b.iterations, [300, 300])
+        for x, y in zip(a.states, b.states):
+            assert torch.equal(x, y)
+        for k, o in enumerate(tops):
+            state = T.initial_state(o)
+            for _ in range(300):
+                state, _ = T.rk4_step(o, state)
+            for x, y in zip(a.states, state):
+                assert torch.equal(x[k], y)

@@ -79,11 +79,12 @@ class TestSG:
             assert out[4].shape == (3, 7) and out[4].dtype == torch.float64
 
     def test_unported_options_raise(self):
-        """x1 has no CUDA kernel and raises. checkpoint_dir and
-        newton_polish are ported (tests/test_torch_checkpoint.py,
-        tests/test_torch_polish.py)."""
+        """x1 under float64 has no kernel (the bf16 kernels are float32
+        only, as the Pallas kernel is) and raises. x1 in float32
+        (tests/test_torch_x1.py), checkpoint_dir and newton_polish are
+        ported (tests/test_torch_checkpoint.py, tests/test_torch_polish.py)."""
         kw = dict(BASE, nx=12, ny=12, device="cpu")
-        with pytest.raises(NotImplementedError, match="x1"):
+        with pytest.raises(ValueError, match="x1 runs in float32"):
             SGSolver(matmul_algorithm="x1", use_pallas="true", **kw).solve()
 
 
