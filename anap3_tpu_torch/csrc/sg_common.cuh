@@ -17,6 +17,7 @@
 // The single solves (step, chunk, smoother) are the B = 1 case.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -49,6 +50,8 @@ enum Ptr {
   P_CU, P_CV, P_CP,  // smoother: second output ping-pong (scratch)
   P_LSC,      // (lanes, H_COUNT) per-lane scalars in the working type
   P_X1B,      // x1 chunk: (lanes, 8, nf) border-strip constants (X1B_*)
+  P_X1OPS,    // x1 chunk: the bf16 operator table (x1_op_offset)
+  P_X1S,      // x1 chunk: (3, lanes, x1_state_elems) bf16 state copies
   P_COUNT
 };
 
@@ -107,10 +110,49 @@ struct StageGeo {
 };
 
 // The x1 stage's bf16 bands: k rounded up to whole mma k steps (16) plus 8,
-// so a band row is 4 (mod 8) words long and the 8 rows a fragment load
+// so a band row is 4 (mod 8) words long and the 8 rows an ldmatrix
 // touches fall in 8 different bank quads.
 __host__ __device__ constexpr int x1_k16(int k) { return (k + 15) & ~15; }
 __host__ __device__ constexpr int x1_kp(int k) { return x1_k16(k) + 8; }
+
+// The x1 operands in device memory, all bf16 with k contiguous in rows of
+// whole 16-byte chunks, zero past the operand (ops/sg_kernels.py writes
+// them): the operator table, once a run (P_X1OPS), the velocity operators'
+// hi halves over k < N, Dx, Dxx as (nf, x1_k16(N)) and DyT, DyyT
+// transposed, then the pressure operators' over k < ni, Gx, Ix as (nf,
+// x1_k16(ni)) and IyT, GyT transposed; and a lane's state copy (P_X1S), u
+// and v rounded on [0, N)^2 in (x1_sld, x1_sld) row-major arrays and p in
+// an (x1_pld, x1_pld) one, zero elsewhere (the border row and column N
+// are the unrounded term's).
+enum X1Op { X_DX, X_DXX, X_DY, X_DYY, X_GX, X_IX, X_IY, X_GY, X_COUNT };
+__host__ __device__ inline size_t x1_op_offset(int q, int nf) {
+  const size_t v = (size_t)nf * x1_k16(nf - 1), p = (size_t)nf * x1_k16(nf - 2);
+  return q < X_GX ? q * v : 4 * v + (q - X_GX) * p;
+}
+__host__ __device__ constexpr int x1_sld(int nf) { return x1_k16(nf); }
+__host__ __device__ constexpr int x1_pld(int nf) { return x1_k16(nf - 2); }
+__host__ __device__ inline size_t x1_state_elems(int nf) {
+  return 2 * (size_t)x1_sld(nf) * x1_sld(nf) +
+         (size_t)x1_pld(nf) * x1_pld(nf);
+}
+
+// One lane's state (u, v, p float32) into its bf16 copy xs, by thread t of
+// nt: each element rounded to nearest even, the padding left as it is.
+__device__ __forceinline__ void x1_round_lane(const float* u, const float* v,
+                                              const float* p,
+                                              __nv_bfloat16* xs, int nf,
+                                              int t, int nt) {
+  const int n = nf - 1, ni = nf - 2, S = x1_sld(nf), Sp = x1_pld(nf);
+  for (int e = t; e < n * n; e += nt) {
+    const int i = e / n, j = e - i * n;
+    xs[i * S + j] = __float2bfloat16_rn(u[i * nf + j]);
+    xs[S * S + i * S + j] = __float2bfloat16_rn(v[i * nf + j]);
+  }
+  for (int e = t; e < ni * ni; e += nt) {
+    const int i = e / ni, j = e - i * ni;
+    xs[2 * S * S + i * Sp + j] = __float2bfloat16_rn(p[e]);
+  }
+}
 
 // Threads of one k group, and the most threads a block may have (the
 // kernel's launch bound, which leaves each thread the registers it needs
@@ -145,6 +187,7 @@ struct Ops {
   // strip, per run (rows X1B_*): Dx u, Dxx u, Dx v, Dxx v at column N,
   // u DyT, u DyyT, v DyT, v DyyT at row N
   const T* x1b;
+  const __nv_bfloat16* x1ops;  // x1 only: the operator table (X1Op)
   // lane b's scalars, set by at_lane
   T nu, beta_sq, cfl, lid, inv_dx, inv_dy;
 };
@@ -161,6 +204,7 @@ Ops<T> make_ops(const void* const* P) {
   o.sdwx = c(P_SDWX); o.sdwy = c(P_SDWY);
   o.lsc = c(P_LSC);
   o.x1b = c(P_X1B);
+  o.x1ops = static_cast<const __nv_bfloat16*>(P[P_X1OPS]);
   o.nu = o.beta_sq = o.cfl = o.lid = o.inv_dx = o.inv_dy = T(0);
   return o;
 }
@@ -199,6 +243,10 @@ struct StageArgs {
   // of the base the stage leaves.
   const int* flags;
   T* dpart;
+  // x1 only: the bf16 copy of the stage input that the products read, and
+  // where the copy of the stage output goes (lane 0's x1_state_elems)
+  const __nv_bfloat16* x1_in;
+  __nv_bfloat16* x1_out;
 };
 
 // max that propagates NaN from either side (jnp.maximum / torch.maximum)
@@ -480,9 +528,17 @@ cudaError_t stage_geometry(const int* geo, int nf, int elem, int x1,
 template <typename T>
 cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
                          int lanes, const StageGeo& g, cudaStream_t s);
+// With x1s (float32 only), dt_kernel also rounds each lane's (u, v, p)
+// into its bf16 copy x1s (lane 0's; x1_round_lane).
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
-                      int nf, int lanes, cudaStream_t s);
+                      int nf, int lanes, cudaStream_t s,
+                      const T* p = nullptr, __nv_bfloat16* x1s = nullptr);
+// (u, v, p) of each lane into its bf16 copy x1s, in one launch (the bench
+// entry's x1 stage input).
+cudaError_t launch_x1_round(const float* u, const float* v, const float* p,
+                            __nv_bfloat16* x1s, int nf, int lanes,
+                            cudaStream_t s);
 // A chunk step's unsampled tail: one block a lane.
 template <typename T>
 cudaError_t launch_control(const Tail<T>& t, int nf, int lanes,

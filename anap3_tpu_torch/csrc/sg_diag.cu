@@ -49,6 +49,14 @@
 //   ops/sg_kernels.py:x1_border_table); grad(omega) is unrounded at the
 //   corner (N, N) only (omega's border is not constant): two warp sums in
 //   the corner's tile.
+//   The x1 chunk's dt_kernel<float, true> also rounds the chunk's starting
+//   state into its bf16 copy (sg_common.cuh:x1_round_lane), which the x1
+//   stage kernel's products read; x1_round_kernel does the same for the
+//   bench entry's stage input. The bench needs a launch of its own: its
+//   stage reads set A, which the caller fills with any state (no solve
+//   launch writes A's copy there), and dt_kernel, the other launch that
+//   rounds, rounds the base and writes the chunk's dt from it, which the
+//   bench's stage must take as the caller's dt launch left it.
 // Lanes: dt_kernel runs one block per lane; tail_kernel's items carry their
 //   lane, whose operators, scalars and partials they use (see
 //   sg_common.cuh), and the finish of lane b reads only lane b's partials.
@@ -62,9 +70,9 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-template <typename T>
+template <typename T, bool X1>
 __global__ void dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal,
-                          int nf) {
+                          int nf, const T* p, __nv_bfloat16* x1s) {
   const int lane = blockIdx.x;
   const Ops<T> o = at_lane(o0, lane, nf);
   u += lane * lane_full(nf);
@@ -94,6 +102,19 @@ __global__ void dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal,
     scal[S_U0SQ] = usq;
     scal[S_V0SQ] = vsq;
   }
+  if constexpr (X1)  // the x1 chunk's base, rounded once at its start
+    x1_round_lane(u, v, p + lane * lane_inner(nf),
+                  x1s + lane * x1_state_elems(nf), nf, tid, RED_THREADS);
+}
+
+// The bench entry's x1 stage input: grid (blocks, lanes).
+__global__ void x1_round_kernel(const float* u, const float* v,
+                                const float* p, __nv_bfloat16* x1s, int nf) {
+  const int lane = blockIdx.y;
+  x1_round_lane(u + lane * lane_full(nf), v + lane * lane_full(nf),
+                p + lane * lane_inner(nf), x1s + lane * x1_state_elems(nf),
+                nf, blockIdx.x * blockDim.x + threadIdx.x,
+                gridDim.x * blockDim.x);
 }
 
 // k tiles of the operands a tile stages at once: one barrier and one
@@ -346,8 +367,29 @@ __global__ void __launch_bounds__(TILE * TILE, 2)
 
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
-                      int nf, int lanes, cudaStream_t s) {
-  dt_kernel<T><<<lanes, RED_THREADS, 0, s>>>(o, u, v, scal, nf);
+                      int nf, int lanes, cudaStream_t s, const T* p,
+                      __nv_bfloat16* x1s) {
+  if (x1s) {  // the x1 chunk's start (float32 only)
+    if constexpr (sizeof(T) == 4) {
+      if (!p) return cudaErrorInvalidValue;
+      dt_kernel<T, true><<<lanes, RED_THREADS, 0, s>>>(o, u, v, scal, nf, p,
+                                                        x1s);
+      return cudaGetLastError();
+    }
+    return cudaErrorInvalidValue;
+  }
+  dt_kernel<T, false><<<lanes, RED_THREADS, 0, s>>>(o, u, v, scal, nf,
+                                                     nullptr, nullptr);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_x1_round(const float* u, const float* v, const float* p,
+                            __nv_bfloat16* x1s, int nf, int lanes,
+                            cudaStream_t s) {
+  if (!u || !v || !p || !x1s) return cudaErrorInvalidValue;
+  const int threads = 256, n = (nf - 1) * (nf - 1);
+  x1_round_kernel<<<dim3((n + threads - 1) / threads, lanes), threads, 0,
+                    s>>>(u, v, p, x1s, nf);
   return cudaGetLastError();
 }
 
@@ -413,7 +455,8 @@ cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
 
 #define SG_INSTANTIATE(T)                                                   \
   template cudaError_t launch_dt<T>(const Ops<T>&, const T*, const T*, T*,  \
-                                    int, int, cudaStream_t);                \
+                                    int, int, cudaStream_t, const T*,       \
+                                    __nv_bfloat16*);                        \
   template cudaError_t tail_coresident<T>(int*, int);                       \
   template cudaError_t launch_tail<T>(const Ops<T>&, const T*, const T*,    \
                                       T*, const Tail<T>&, int, int, int,    \

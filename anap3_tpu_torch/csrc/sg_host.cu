@@ -33,7 +33,9 @@
 // With x1 = 1 (matmul_algorithm=x1, float32 only) a chunk runs the x1
 // instances of the stage and tail kernels (one bf16 tensor-core pass a
 // product; sg_stage.cu, sg_diag.cu), counted as C_STAGE_X1 and C_DIAG_X1;
-// dt and control are the exact chunk's. The step and the smoother take no
+// dt and control are the exact chunk's, dt also rounding the chunk's
+// starting state into its bf16 copy (P_X1S), which every x1 stage then
+// keeps beside the float32 state it writes. The step and the smoother take no
 // x1: the JAX package's per-step fallback keeps x3 and its V-cycle
 // smoother runs x6.
 //
@@ -61,6 +63,7 @@ struct Work {
   T *u, *v, *p, *au, *av, *ap, *bu, *bv, *bp, *omega, *part, *dpart, *qpart,
       *scal;
   const T *tau_u, *tau_v, *tau_p;
+  __nv_bfloat16* x1s;  // x1: the bf16 state copies, sets base, A, B
   int lanes;
   StageGeo g;
 };
@@ -78,6 +81,7 @@ Work<T> make_work(const void* const* P, int lanes) {
   w.part = m(P_PART); w.dpart = m(P_DPART); w.qpart = m(P_QPART);
   w.scal = m(P_SCAL);
   w.tau_u = m(P_TAUU); w.tau_v = m(P_TAUV); w.tau_p = m(P_TAUP);
+  w.x1s = static_cast<__nv_bfloat16*>(const_cast<void*>(P[P_X1S]));
   w.lanes = lanes;
   return w;
 }
@@ -116,18 +120,31 @@ Tail<T> chunk_tail(const Work<T>& w, const void* const* P, int i, int idx,
 
 const double kAlphas[4] = {0.25, 1.0 / 3.0, 0.5, 1.0};
 
+// Set k (0: the base, 1: A, 2: B) of the x1 state copies.
+template <typename T>
+__nv_bfloat16* x1_set(const Work<T>& w, int nf, int k) {
+  return w.x1s + (size_t)k * w.lanes * x1_state_elems(nf);
+}
+
 // The four RK stages from the base state (base -> A -> B -> A -> out),
 // after dt when `with_dt`; the last stage writes the partials. Without
 // `flags` the step lands in the B buffers. With the chunk's `flags` it
 // lands in the base itself, except where a lane began the step done, and
-// the last stage also writes the next base's partials (w.dpart).
+// the last stage also writes the next base's partials (w.dpart). The x1
+// stages read and write the bf16 copies of the same buffers; dt rounds the
+// base into its copy.
 template <typename T>
 int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
         const int* flags, int* counts, cudaStream_t s) {
+  const bool x1 = w.g.x1;
   if (with_dt) {
-    SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, w.lanes, s));
+    SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, w.lanes, s,
+                          x1 ? w.p : nullptr,
+                          x1 ? x1_set(w, nf, 0) : nullptr));
     counts[C_DIAG] += 1;
   }
+  const int x_in[4] = {0, 1, 2, 1};
+  const int x_out[4] = {1, 2, 1, flags ? 0 : 2};
   const T* in_u[4] = {w.u, w.au, w.bu, w.au};
   const T* in_v[4] = {w.v, w.av, w.bv, w.av};
   const T* in_p[4] = {w.p, w.ap, w.bp, w.ap};
@@ -147,6 +164,8 @@ int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
     a.part = st == 3 ? w.part : nullptr;
     a.flags = st == 3 ? flags : nullptr;
     a.dpart = st == 3 && flags ? w.dpart : nullptr;
+    a.x1_in = x1 ? x1_set(w, nf, x_in[st]) : nullptr;
+    a.x1_out = x1 ? x1_set(w, nf, x_out[st]) : nullptr;
     SG_CHECK(launch_stage<T>(w.o, a, nf, w.lanes, w.g, s));
     if (w.g.x1)
       counts[C_STAGE_X1] += 1;
@@ -203,7 +222,8 @@ int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
               int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, lanes);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), x1, &w.g));
-  if (x1 && !w.o.x1b) return (int)cudaErrorInvalidValue;
+  if (x1 && (!w.o.x1b || !w.o.x1ops || !w.x1s))
+    return (int)cudaErrorInvalidValue;
   const int* flags = static_cast<const int*>(P[P_FLAGS]);
   for (int i = 0; i < chunk; ++i) {
     const int idx = start_iter + i;
@@ -229,8 +249,9 @@ int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
 // Timing aid: `reps` launches of one kernel group on a chunk workspace of
 // `lanes` lanes (0: one last stage of a chunk step, out of place into the
 // B buffers, with the base's partials; 1: dt; 2: a sampled step's tail;
-// 3: an unsampled step's control), the x1 instances with x1. Not part of
-// any solve.
+// 3: an unsampled step's control), the x1 instances with x1; the x1 stage
+// reads the bf16 copy of the A buffers, which one launch rounds first.
+// Not part of any solve.
 template <typename T>
 int bench_run(const void* const* P, int nf, const int* geo, int lanes,
               int which, int reps, int x1, int tail_blocks, cudaStream_t s) {
@@ -239,6 +260,13 @@ int bench_run(const void* const* P, int nf, const int* geo, int lanes,
   if (x1 && !w.o.x1b) return (int)cudaErrorInvalidValue;
   Tail<T> t = chunk_tail(w, P, 0, 0, 1 << 30, 0.0, 0);
   t.x1 = x1;
+  if (which == 0 && x1) {
+    if constexpr (sizeof(T) == 4) {
+      if (!w.o.x1ops || !w.x1s) return (int)cudaErrorInvalidValue;
+      SG_CHECK(launch_x1_round(w.au, w.av, w.ap, x1_set(w, nf, 1), nf,
+                               lanes, s));
+    }
+  }
   for (int r = 0; r < reps; ++r) {
     if (which == 0) {
       StageArgs<T> a;
@@ -251,6 +279,8 @@ int bench_run(const void* const* P, int nf, const int* geo, int lanes,
       a.part = w.part;
       a.flags = t.flags;
       a.dpart = w.dpart;
+      a.x1_in = x1 ? x1_set(w, nf, 1) : nullptr;
+      a.x1_out = x1 ? x1_set(w, nf, 2) : nullptr;
       SG_CHECK(launch_stage<T>(w.o, a, nf, lanes, w.g, s));
     } else if (which == 1) {
       SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, lanes, s));

@@ -61,12 +61,12 @@
 //   - every sum runs in one fixed order (k ascending, then a fixed warp tree
 //     for the partials), so a run reproduces bit for bit.
 // x1 (matmul_algorithm=x1, float32 only): the instance stage_kernel<float,
-//   TN, true> runs the products as ONE bf16 tensor-core pass with float32
-//   sums, the semantics of the aligned kernel's x1 mode (anap3_tpu/ops/
+//   TN, true> replaces the aligned kernel's x1 mode (anap3_tpu/ops/
 //   pallas_aligned.py make_aligned_chunk_runner with algorithm="x1",
-//   _DotEngine's x1 branches in pallas_tiled.py), which works on the
-//   bordered core: index N = nf - 1 of each axis is the border, whose state
-//   values are per-run constants. So:
+//   _DotEngine's x1 branches in pallas_tiled.py): the products as ONE bf16
+//   tensor-core pass with float32 sums, on the bordered core, whose index
+//   N = nf - 1 of each axis is the border, with per-run constant state
+//   values there. So:
 //   - a velocity product contracts k < N in bf16 (the operator's hi half
 //     and the stage state, each rounded to nearest even) and adds the
 //     border term k = N unrounded; on the constant border strip (output
@@ -80,16 +80,40 @@
 //   (ops/sg_kernels.py:x1_border_table, pointer slot P_X1B).
 //   Each product is mma.sync.m16n8k16 (bf16 in, f32 sums) on the
 //   transposed tile: m = the block's tn columns (1-3 tiles of 16), n = its
-//   8 rows, k in steps of 16. The bands are staged whole (ks = nf), as bf16
-//   with k contiguous ([row][k] and [column][k], rows padded to 4 (mod 8)
-//   words: no bank conflict on a fragment load), rounded once per staged
-//   element while staging (a global load, a conversion, a shared store; no
-//   cp.async: the operands are float32 in device memory). Each warp takes
-//   whole (product, m tile) items over all k and leaves its fragment in a
-//   float32 stash, from which the threads of k group 0 read their 2 x 2
-//   outputs, add the border terms, and run the same epilogue as the exact
-//   kernel. Bound: as the exact kernel's, latency; the bf16 products are
-//   ~45 MFLOP a stage at N=128 against 989 TFLOP/s.
+//   8 rows, k from 0 in steps of 16.
+// Bound of the x1 stage: as the exact kernel's, latency (its bf16 products
+//   are ~45 MFLOP at N=128 against 989 TFLOP/s; its operands, ~0.6 MB,
+//   sit in L2). What a block waits on is its operand bands: ~20K bf16
+//   elements a block at N=128 for phase 2 alone, the operators the same
+//   for every block and every stage of the run.
+// Design: no operand is converted while it is staged.
+//   - The operators' hi halves are rounded once a run by the wrapper
+//     (ops/sg_kernels.py:x1_operator_table, P_X1OPS), k contiguous, the
+//     column-side ones (DyT, DyyT, IyT, GyT) transposed. The stage state
+//     comes as a bf16 copy written by the launch that wrote the state: the
+//     epilogue of each x1 stage writes it beside the float32 output (the
+//     lane that began the step done keeps both), and the chunk's dt_kernel
+//     rounds the chunk's starting state (P_X1S: sets base, A, B, as the
+//     float32 ping-pong).
+//   - Every band reaches shared memory by 16-byte cp.async (zero-filled
+//     past the operand), in four copy groups: phase 1's (Gx, Ix rows, p
+//     columns), phase 2's left products' (Dx, Dxx rows, u, v columns), its
+//     right products' (DyT, DyyT columns, u, v rows), phase 3's (IyT, GyT
+//     columns). The geometry's depth (4, 3 or 2, the most that fits) is
+//     the number of group regions: with 4 (N <= 248) every copy is issued
+//     at the kernel's start, so phase 2's and phase 3's bands arrive while
+//     phase 1 multiplies and while the cluster gathers the Gx p / Ix p
+//     band; with fewer, group g + depth reuses group g's region and is
+//     issued as soon as group g's products are done.
+//   - Fragments come from ldmatrix: .x4 for the A operand (.trans where
+//     the band is the state's row-major [k][column] slab), .x2 for B.
+//   - Phase 1 also leaves each Gx p / Ix p slice rounded to bf16 (zero past
+//     the inner grid), so the gather is 16-byte DSMEM loads of bf16 rows;
+//     the corner reads the float32 slices.
+//   - Each warp takes whole (product, m tile) items over all k and leaves
+//     its fragment in a float32 stash, from which the threads of k group 0
+//     read their 2 x 2 outputs, add the border terms, and run the same
+//     epilogue as the exact kernel.
 // Lanes: the lane is the grid's z axis, so one launch advances every lane of
 //   a sweep by one stage (anap3_tpu/ops/pallas_lanes.py
 //   make_lane_chunk_runner, pallas_lanes_aligned.py
@@ -125,22 +149,48 @@ __host__ __device__ inline size_t stage_smem_elems(int nf, int tn, int ks,
   return (size_t)2 * STAGE_TM * tn + (size_t)2 * STAGE_TM * stage_nip(nf) +
          red_elems(tn, ksplit) + (size_t)depth * slab_elems(4, 4, ks, tn);
 }
-// The x1 stage's shared memory in bytes: the float32 part of the exact
-// layout up to the ring, then the stash of its ten products (8 rows by tn),
-// then the largest phase's bf16 bands (phase 1: Gx, Ix rows and p columns;
-// 2: Dx, Dxx, u, v rows and u, v, DyT, DyyT columns; 3: the gathered rows
-// and IyT, GyT columns).
+// The x1 stage's shared memory: float32 first, its own Gx p and Ix p
+// slices ([2][TM][tn]), the warps' partial sums, the stash of its ten
+// products ([10][TM][tn]) and the pressure corner (4); then bf16, its
+// rounded slices ([2][TM][tn]), the gathered rows ([2][TM][x1_kp(ni)]) and
+// `depth` regions of copy groups, group g in region g % depth, each region
+// as large as its largest group (X1_GROUPS, x1_group_elems).
+constexpr int X1_GROUPS = 4;
+__host__ __device__ inline int x1_red_elems(int tn, int ksplit) {
+  return (ksplit * stage_group_threads(tn) / 32 * (NPART + NDPART) + 3) & ~3;
+}
+__host__ __device__ inline size_t x1_f32_elems(int tn, int ksplit) {
+  return (size_t)12 * STAGE_TM * tn + x1_red_elems(tn, ksplit) + 4;
+}
+// Elements of copy group g: 0, Gx and Ix rows [TM][kp1] and the p column
+// slab [k1][tn + 8]; 1, Dx and Dxx rows [TM][kp2] and the u and v column
+// slabs [k2][tn + 8]; 2, DyT and DyyT columns [tn][kp2] and u and v rows
+// [TM][kp2]; 3, IyT and GyT columns [tn][kp1] (k1 = x1_k16(ni), k2 =
+// x1_k16(N), kp = k + 8).
+__host__ __device__ inline size_t x1_group_elems(int g, int nf, int tn) {
+  const size_t k1 = x1_k16(nf - 2), k2 = x1_k16(nf - 1), tm = STAGE_TM;
+  const size_t kp1 = k1 + 8, kp2 = k2 + 8, tp = tn + 8;
+  switch (g) {
+    case 0: return 2 * tm * kp1 + k1 * tp;
+    case 1: return 2 * tm * kp2 + 2 * k2 * tp;
+    case 2: return 2 * tn * kp2 + 2 * tm * kp2;
+    default: return 2 * tn * kp1;
+  }
+}
+__host__ __device__ inline size_t x1_region_elems(int r, int depth, int nf,
+                                                  int tn) {
+  size_t most = 0;
+  for (int g = r; g < X1_GROUPS; g += depth) {
+    const size_t e = x1_group_elems(g, nf, tn);
+    if (e > most) most = e;
+  }
+  return most;
+}
 __host__ __device__ inline size_t stage_x1_smem_bytes(int nf, int tn,
-                                                      int ksplit) {
-  const int ni = nf - 2, kp1 = x1_kp(ni), kp2 = x1_kp(nf - 1);
-  const size_t f32 =
-      stage_smem_elems(nf, tn, 0, 0, ksplit) + (size_t)10 * STAGE_TM * tn;
-  size_t b16 = (size_t)(4 * STAGE_TM + 4 * tn) * kp2;
-  const size_t p1 = (size_t)(2 * STAGE_TM + tn) * kp1;
-  const size_t p3 = (size_t)(2 * STAGE_TM + 2 * tn) * kp1;
-  if (p1 > b16) b16 = p1;
-  if (p3 > b16) b16 = p3;
-  return 4 * f32 + 2 * b16;
+                                                      int ksplit, int depth) {
+  size_t b16 = (size_t)2 * STAGE_TM * tn + (size_t)2 * STAGE_TM * x1_kp(nf - 2);
+  for (int r = 0; r < depth; ++r) b16 += x1_region_elems(r, depth, nf, tn);
+  return 4 * x1_f32_elems(tn, ksplit) + 2 * b16;
 }
 
 cudaError_t stage_geometry(const int* geo, int nf, int elem, int x1,
@@ -159,13 +209,16 @@ cudaError_t stage_geometry(const int* geo, int nf, int elem, int x1,
   const bool groups =
       (s.ksplit == 1 || s.ksplit == 2 || s.ksplit == 4 || s.ksplit == 8) &&
       s.ksplit * stage_group_threads(s.tn) <= stage_max_threads(elem, s.tn);
-  const bool staging = s.depth >= 1 && s.depth <= 3 && s.ks >= 1 &&
-                       (s.ks >= nf || s.ks % s.ksplit == 0);
+  // x1: whole bands (ks = nf), depth the copy groups' regions
+  const bool staging =
+      x1 ? s.ks >= nf && s.depth >= 2 && s.depth <= X1_GROUPS
+         : s.depth >= 1 && s.depth <= 3 && s.ks >= 1 &&
+               (s.ks >= nf || s.ks % s.ksplit == 0);
   const size_t smem =
-      x1 ? stage_x1_smem_bytes(nf, s.tn, s.ksplit)
+      x1 ? stage_x1_smem_bytes(nf, s.tn, s.ksplit, s.depth)
          : stage_smem_elems(nf, s.tn, s.ks, s.depth, s.ksplit) * elem;
   if (!tile || !groups || !staging || s.smem > MAX_SMEM ||
-      (size_t)s.smem != smem || (x1 && (s.ks < nf || s.depth != 1)))
+      (size_t)s.smem != smem)
     return cudaErrorInvalidValue;
   *g = s;
   return cudaSuccess;
@@ -404,97 +457,124 @@ __device__ __forceinline__ void gather_bands(cg::cluster_group& cluster,
 
 using bf16 = __nv_bfloat16;
 
-// Elements a thread stages per round: its loads of a round are all issued
-// before the first conversion, so their latencies overlap.
-constexpr int X1_UNROLL = 4;
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
 
-// Rows [row0, row0 + TM) of the NB operands X[b] (leading dim ld, rows < m)
-// over k < K as bf16 rows dst[(b * TM + r) * kp + k], zero past the
-// operand up to x1_k16(K).
-template <int NB>
-__device__ __forceinline__ void x1_rows(bf16* dst, const float* const* X,
-                                        int ld, int m, int row0, int K,
-                                        int kp) {
-  const int k16 = x1_k16(K), total = STAGE_TM * k16, nt = blockDim.x;
-  for (int e0 = threadIdx.x; e0 < total; e0 += X1_UNROLL * nt) {
-    float val[NB][X1_UNROLL];
-#pragma unroll
-    for (int q = 0; q < X1_UNROLL; ++q) {
-      const int e = e0 + q * nt, r = e / k16, k = e - r * k16;
-      const bool ok = e < total && row0 + r < m && k < K;
-      const size_t off = ok ? (size_t)(row0 + r) * ld + k : 0;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) val[b][q] = ok ? __ldg(X[b] + off) : 0.f;
+// 16 bytes global -> shared by cp.async (L2 only); `valid` false reads
+// nothing and writes zeros.
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait_upto(int pending) {
+  if constexpr (N > 0) {
+    if (pending >= N) {
+      cp_wait<N>();
+      return;
     }
-#pragma unroll
-    for (int q = 0; q < X1_UNROLL; ++q) {
-      const int e = e0 + q * nt, r = e / k16, k = e - r * k16;
-      if (e < total) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-          dst[(b * STAGE_TM + r) * kp + k] = __float2bfloat16_rn(val[b][q]);
-      }
-    }
+    cp_wait_upto<N - 1>(pending);
+  } else {
+    cp_wait<0>();
   }
 }
 
-// Columns [col0, col0 + TN) of the NB operands Y[b] (leading dim ld,
-// columns < n) over k < K as bf16 rows dst[(b * TN + c) * kp + k]
-// (transposed: k contiguous), zero past the operand up to x1_k16(K).
-// Global reads run along the columns.
-template <int TN, int NB>
-__device__ __forceinline__ void x1_cols(bf16* dst, const float* const* Y,
-                                        int ld, int n, int col0, int K,
-                                        int kp) {
-  const int k16 = x1_k16(K), total = k16 * TN, nt = blockDim.x;
-  for (int e0 = threadIdx.x; e0 < total; e0 += X1_UNROLL * nt) {
-    float val[NB][X1_UNROLL];
-#pragma unroll
-    for (int q = 0; q < X1_UNROLL; ++q) {
-      const int e = e0 + q * nt, k = e / TN, c = e - k * TN;
-      const bool ok = e < total && col0 + c < n && k < K;
-      const size_t off = ok ? (size_t)k * ld + col0 + c : 0;
-#pragma unroll
-      for (int b = 0; b < NB; ++b) val[b][q] = ok ? __ldg(Y[b] + off) : 0.f;
-    }
-#pragma unroll
-    for (int q = 0; q < X1_UNROLL; ++q) {
-      const int e = e0 + q * nt, k = e / TN, c = e - k * TN;
-      if (e < total) {
-#pragma unroll
-        for (int b = 0; b < NB; ++b)
-          dst[(b * TN + c) * kp + k] = __float2bfloat16_rn(val[b][q]);
-      }
-    }
+// Rows [r0, r0 + R) of a bf16 array of `nrows` rows (leading dim ld) over
+// k < k16 into dst[r * kp + k]; rows past the array are zeros.
+__device__ __forceinline__ void x1_copy_rows(bf16* dst, const bf16* src,
+                                             int ld, int nrows, int r0,
+                                             int R, int k16, int kp) {
+  const int per = k16 / 8, total = R * per;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int r = e / per, c = e - r * per;
+    const bool ok = r0 + r < nrows;
+    cp16(dst + r * kp + 8 * c,
+         ok ? src + (size_t)(r0 + r) * ld + 8 * c : src, ok);
   }
 }
 
-__device__ __forceinline__ unsigned ld_pair(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
+// The column slab [col0, col0 + TN) of the rows k < k16 of a row-major bf16
+// array (leading dim ld) into dst[k * (TN + 8) + c]; columns past ld are
+// zeros.
+template <int TN>
+__device__ __forceinline__ void x1_copy_cols(bf16* dst, const bf16* src,
+                                             int ld, int col0, int k16) {
+  constexpr int per = TN / 8;
+  const int total = k16 * per;
+  for (int e = threadIdx.x; e < total; e += blockDim.x) {
+    const int k = e / per, c = e - k * per;
+    const bool ok = col0 + 8 * c < ld;
+    cp16(dst + k * (TN + 8) + 8 * c,
+         ok ? src + (size_t)k * ld + col0 + 8 * c : src, ok);
+  }
 }
 
-// d += A B^T over k < k16 for one warp: A the 16 rows a[m * kp + k] (the
-// output's columns), B the 8 rows b[n * kp + k] (its rows); the fragment
-// layouts of mma.m16n8k16 .row.col (g = lane / 4, tig = lane % 4): A rows
-// g and g + 8, B row g, k pairs 2 tig and 2 tig + 8; D[m][n] in d as
-// (g, 2 tig), (g, 2 tig + 1), (g + 8, 2 tig), (g + 8, 2 tig + 1).
-__device__ __forceinline__ void x1_mma(float (&d)[4], const bf16* a,
-                                       const bf16* b, int kp, int k16,
-                                       int g, int tig) {
-  const bf16* a0 = a + g * kp + 2 * tig;
-  const bf16* a1 = a0 + 8 * kp;
-  const bf16* b0 = b + g * kp + 2 * tig;
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4],
+                                              unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += A B^T over k < k16 for one warp (l: its lane), on the fragments of
+// mma.m16n8k16 .row.col: A the 16 rows m (the output's columns), either
+// a[m * lda + k] or, with TA, a slab a[k * lda + m]; B the 8 rows n (its
+// rows) b[n * ldb + k]. D[m][n] in d as (g, 2 tig), (g, 2 tig + 1),
+// (g + 8, 2 tig), (g + 8, 2 tig + 1) (g = l / 4, tig = l % 4).
+template <bool TA>
+__device__ __forceinline__ void x1_mma(float (&d)[4], const bf16* a, int lda,
+                                       const bf16* b, int ldb, int k16,
+                                       int l) {
+  // matrices of the A load: (m 0-7, k 0-7), (m 8-15, k 0-7), (m 0-7,
+  // k 8-15), (m 8-15, k 8-15), lanes 8 j .. 8 j + 7 addressing matrix j
+  const int j = l / 8, i = l % 8;
+  unsigned pa, sa;
+  if constexpr (TA) {
+    pa = smem_addr(a + (i + (j / 2) * 8) * lda + (j % 2) * 8);
+    sa = 32 * lda;  // bytes a k step
+  } else {
+    pa = smem_addr(a + (i + (j % 2) * 8) * lda + (j / 2) * 8);
+    sa = 32;
+  }
+  // the B load: (n 0-7, k 0-7), (n 0-7, k 8-15), lanes 0-15
+  unsigned pb = smem_addr(b + i * ldb + (j % 2) * 8);
 #pragma unroll 2
-  for (int k0 = 0; k0 < k16; k0 += 16) {
-    const unsigned fa0 = ld_pair(a0 + k0), fa1 = ld_pair(a1 + k0);
-    const unsigned fa2 = ld_pair(a0 + k0 + 8), fa3 = ld_pair(a1 + k0 + 8);
-    const unsigned fb0 = ld_pair(b0 + k0), fb1 = ld_pair(b0 + k0 + 8);
+  for (int k0 = 0; k0 < k16; k0 += 16, pa += sa, pb += 32) {
+    unsigned fa[4], fb[2];
+    if constexpr (TA)
+      ldsm_x4_trans(fa, pa);
+    else
+      ldsm_x4(fa, pa);
+    ldsm_x2(fb, pb);
     asm volatile(
         "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
         "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
         "{%0, %1, %2, %3};\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(fa0), "r"(fa1), "r"(fa2), "r"(fa3), "r"(fb0), "r"(fb1));
+        : "r"(fa[0]), "r"(fa[1]), "r"(fa[2]), "r"(fa[3]), "r"(fb[0]),
+          "r"(fb[1]));
   }
 }
 
@@ -508,6 +588,20 @@ __device__ __forceinline__ void x1_store(float* out, const float (&d)[4],
   out[(i + 1) * TN + j] = d[1];
   out[i * TN + j + 8] = d[2];
   out[(i + 1) * TN + j + 8] = d[3];
+}
+
+// The same rounded to bf16, zero where the block's column col0 + j lies
+// past the inner grid (ni): a row of the band phase 3 contracts over k.
+template <int TN>
+__device__ __forceinline__ void x1_store_bf16(bf16* out, const float (&d)[4],
+                                              int mt, int g, int tig,
+                                              int col0, int ni) {
+  const int j = mt * 16 + g, i = 2 * tig;
+  const bool in0 = col0 + j < ni, in8 = col0 + j + 8 < ni;
+  out[i * TN + j] = __float2bfloat16_rn(in0 ? d[0] : 0.f);
+  out[(i + 1) * TN + j] = __float2bfloat16_rn(in0 ? d[1] : 0.f);
+  out[i * TN + j + 8] = __float2bfloat16_rn(in8 ? d[2] : 0.f);
+  out[(i + 1) * TN + j + 8] = __float2bfloat16_rn(in8 ? d[3] : 0.f);
 }
 
 // The border terms of output a = 2 rho + t, at (i, j), of the x1 products
@@ -551,108 +645,169 @@ __device__ __forceinline__ void x1_border(const Ops<float>& o, const float* u,
 // (k group 0; zeros in the others), with the same cluster barriers as the
 // exact kernel's phases (arrive after the Gx p / Ix p slices, wait before
 // the gather, arrive after it). `work` is the shared memory past the
-// reduction space: the stash, then the bf16 bands.
+// warps' partial sums: the stash, the corner, then the bf16 part
+// (stage_x1_smem_bytes); `depth` the copy groups' regions.
 template <int TN>
 __device__ __forceinline__ void x1_products(
     const Ops<float>& o0, const StageArgs<float>& a0, int nf, size_t lf,
-    size_t lq, int row0, int col0, cg::cluster_group& cluster,
-    float* gp_own, float* ip_own, float* gp_band, float* ip_band,
-    float* work, int kg, int r0, int c, float (&acc)[32], float (&dp)[8]) {
-  constexpr int TM = STAGE_TM, MT = TN / 16;  // m tiles of the columns
+    int row0, int col0, int depth, cg::cluster_group& cluster,
+    float* gp_own, float* ip_own, float* work, int kg, int r0, int c,
+    float (&acc)[32], float (&dp)[8]) {
+  constexpr int TM = STAGE_TM, MT = TN / 16, TP = TN + 8;
   const int tid = threadIdx.x, warp = tid / 32, nwarps = blockDim.x / 32;
-  const int g = (tid % 32) / 4, tig = tid % 4;
+  const int l = tid % 32, g = l / 4, tig = l % 4;
   const int ni = nf - 2, n = nf - 1;
-  const int kp1 = x1_kp(ni), k1 = x1_k16(ni);
-  const int kp2 = x1_kp(n), k2 = x1_k16(n);
+  const int k1 = x1_k16(ni), kp1 = k1 + 8, k2 = x1_k16(n), kp2 = k2 + 8;
+  const int S = x1_sld(nf), Sp = x1_pld(nf);
   float* stash = work;  // [10][TM][TN]: the 8 velocity products, dp/dx, dp/dy
-  bf16* hb = reinterpret_cast<bf16*>(stash + 10 * TM * TN);
-  const float* u = a0.u_in + lf;
-  const float* v = a0.v_in + lf;
+  float* corner = stash + 10 * TM * TN;
+  bf16* own = reinterpret_cast<bf16*>(corner + 4);  // rounded slices
+  bf16* rows3 = own + 2 * TM * TN;  // the gathered Gx p, Ix p rows
+  // the copy groups' regions (no array: it would live in local memory)
+  bf16* const reg0 = rows3 + 2 * TM * kp1;
+  bf16* const reg1 = reg0 + x1_region_elems(0, depth, nf, TN);
+  bf16* const reg2 = reg1 + x1_region_elems(1, depth, nf, TN);
+  bf16* const reg3 = reg2 + x1_region_elems(2, depth, nf, TN);
+  // group gi's region
+  auto region = [&](int gi) {
+    const int r = gi % depth;
+    return r == 0 ? reg0 : r == 1 ? reg1 : r == 2 ? reg2 : reg3;
+  };
+  const bf16* op = o0.x1ops;
+  const bf16* xs = a0.x1_in + blockIdx.z * x1_state_elems(nf);
+  const bf16 *ub = xs, *vb = xs + S * S, *pb = xs + 2 * S * S;
+
+  auto issue = [&](int gi) {
+    bf16* d = region(gi);
+    if (gi == 0) {
+      x1_copy_rows(d, op + x1_op_offset(X_GX, nf), k1, nf, row0, TM, k1, kp1);
+      x1_copy_rows(d + TM * kp1, op + x1_op_offset(X_IX, nf), k1, nf, row0,
+                   TM, k1, kp1);
+      x1_copy_cols<TN>(d + 2 * TM * kp1, pb, Sp, col0, k1);
+    } else if (gi == 1) {
+      x1_copy_rows(d, op + x1_op_offset(X_DX, nf), k2, nf, row0, TM, k2, kp2);
+      x1_copy_rows(d + TM * kp2, op + x1_op_offset(X_DXX, nf), k2, nf, row0,
+                   TM, k2, kp2);
+      x1_copy_cols<TN>(d + 2 * TM * kp2, ub, S, col0, k2);
+      x1_copy_cols<TN>(d + 2 * TM * kp2 + k2 * TP, vb, S, col0, k2);
+    } else if (gi == 2) {
+      x1_copy_rows(d, op + x1_op_offset(X_DY, nf), k2, nf, col0, TN, k2, kp2);
+      x1_copy_rows(d + TN * kp2, op + x1_op_offset(X_DYY, nf), k2, nf, col0,
+                   TN, k2, kp2);
+      x1_copy_rows(d + 2 * TN * kp2, ub, S, S, row0, TM, k2, kp2);
+      x1_copy_rows(d + 2 * TN * kp2 + TM * kp2, vb, S, S, row0, TM, k2, kp2);
+    } else {
+      x1_copy_rows(d, op + x1_op_offset(X_IY, nf), k1, nf, col0, TN, k1, kp1);
+      x1_copy_rows(d + TN * kp1, op + x1_op_offset(X_GY, nf), k1, nf, col0,
+                   TN, k1, kp1);
+    }
+    cp_commit();
+  };
+  // group gi has landed (in every thread's view): the groups after it
+  // that are in flight may stay so
+  auto land = [&](int gi) {
+    cp_wait_upto<X1_GROUPS - 1>(min(X1_GROUPS - 1 - gi, depth - 1));
+    __syncthreads();
+  };
+  // group gi's products are done: its region takes group gi + depth
+  auto done = [&](int gi) {
+    __syncthreads();
+    if (gi + depth < X1_GROUPS) issue(gi + depth);
+  };
+  for (int gi = 0; gi < depth; ++gi) issue(gi);
 
   // 1. this block's column slice of Gx p and Ix p over the inner grid
+  land(0);
   {
-    bf16 *gx = hb, *ix = hb + TM * kp1, *pc = hb + 2 * TM * kp1;
-    const float* rows[2] = {o0.Gx, o0.Ix};
-    const float* cols[1] = {a0.p_in + lq};
-    x1_rows<2>(gx, rows, ni, nf, row0, ni, kp1);
-    x1_cols<TN, 1>(pc, cols, ni, ni, col0, ni, kp1);
-    __syncthreads();
+    const bf16* d = region(0);
     for (int it = warp; it < 2 * MT; it += nwarps) {
       const int q = it / MT, mt = it % MT;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      x1_mma(d, pc + mt * 16 * kp1, q ? ix : gx, kp1, k1, g, tig);
-      x1_store<TN>(q ? ip_own : gp_own, d, mt, g, tig);
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma<true>(f, d + 2 * TM * kp1 + mt * 16, TP, d + q * TM * kp1, kp1,
+                   k1, l);
+      x1_store<TN>(q ? ip_own : gp_own, f, mt, g, tig);
+      x1_store_bf16<TN>(own + q * TM * TN, f, mt, g, tig, col0, ni);
     }
   }
   cluster_arrive();
-  __syncthreads();  // every warp is done with phase 1's bands
+  done(0);
 
-  // 2. the eight velocity products over k < N: product q contracts column
-  // band cq = (u, u, v, v, DyT, DyyT, DyT, DyyT)[q] with row band
-  // rq = (Dx, Dxx, Dx, Dxx, u, u, v, v)[q]
+  // 2. the eight velocity products over k < N: Dx u, Dxx u, Dx v, Dxx v
+  // (columns of u, v by the rows of Dx, Dxx), then u DyT, u DyyT, v DyT,
+  // v DyyT (columns of DyT, DyyT by the rows of u, v)
+  land(1);
   {
-    bf16* rb = hb;                 // Dx, Dxx, u, v rows [q][TM][kp2]
-    bf16* cb = hb + 4 * TM * kp2;  // u, v, DyT, DyyT columns [q][TN][kp2]
-    const float* rows[4] = {o0.Dx, o0.Dxx, u, v};
-    const float* cols[4] = {u, v, o0.DyT, o0.DyyT};
-    x1_rows<4>(rb, rows, nf, nf, row0, n, kp2);
-    x1_cols<TN, 4>(cb, cols, nf, nf, col0, n, kp2);
-    __syncthreads();
-    for (int it = warp; it < 8 * MT; it += nwarps) {
+    const bf16* d = region(1);
+    for (int it = warp; it < 4 * MT; it += nwarps) {
       const int q = it / MT, mt = it % MT;
-      const int cq = q < 4 ? q / 2 : 2 + (q & 1);
-      const int rq = q < 4 ? (q & 1) : 2 + (q - 4) / 2;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      x1_mma(d, cb + (cq * TN + mt * 16) * kp2, rb + rq * TM * kp2, kp2, k2,
-             g, tig);
-      x1_store<TN>(stash + q * TM * TN, d, mt, g, tig);
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma<true>(f, d + 2 * TM * kp2 + (q / 2) * k2 * TP + mt * 16, TP,
+                   d + (q & 1) * TM * kp2, kp2, k2, l);
+      x1_store<TN>(stash + q * TM * TN, f, mt, g, tig);
     }
   }
+  done(1);
+  land(2);
+  {
+    const bf16* d = region(2);
+    for (int it = warp; it < 4 * MT; it += nwarps) {
+      const int q = it / MT, mt = it % MT;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma<false>(f, d + (q & 1) * TN * kp2 + mt * 16 * kp2, kp2,
+                    d + 2 * TN * kp2 + (q / 2) * TM * kp2, kp2, k2, l);
+      x1_store<TN>(stash + (4 + q) * TM * TN, f, mt, g, tig);
+    }
+  }
+  done(2);
 
-  // 3. the row bands of Gx p and Ix p from the cluster (float32), rounded
-  // to bf16 and contracted with the IyT and GyT columns over the inner grid
+  // 3. the bf16 rows of Gx p and Ix p from the cluster's slices (16 bytes
+  // a load), contracted with the IyT and GyT columns over the inner grid
   cluster_wait();  // every slice of the band is written
-  gather_bands<float, TN>(cluster, gp_own, ip_own, gp_band, ip_band, ni);
-  cluster_arrive();  // this block is done with its peers' slices
-  __syncthreads();   // the gathered bands are whole; phase 2 is done
   {
-    bf16 *a5 = hb, *a6 = hb + TM * kp1, *iy = hb + 2 * TM * kp1;
-    bf16* gy = iy + TN * kp1;
-    for (int e = tid; e < TM * k1; e += blockDim.x) {
-      const int r = e / k1, k = e - r * k1;
-      a5[r * kp1 + k] = __float2bfloat16_rn(k < ni ? gp_band[k * TM + r]
-                                                   : 0.f);
-      a6[r * kp1 + k] = __float2bfloat16_rn(k < ni ? ip_band[k * TM + r]
-                                                   : 0.f);
+    const int per = k1 / 8;
+    for (int e = tid; e < 2 * TM * per; e += blockDim.x) {
+      const int q = e / (TM * per), r = e / per % TM, k = 8 * (e % per);
+      const int peer = k / TN;
+      const bf16* src = cluster.map_shared_rank(
+          own + q * TM * TN + r * TN + k - peer * TN, peer);
+      *reinterpret_cast<uint4*>(rows3 + (q * TM + r) * kp1 + k) =
+          *reinterpret_cast<const uint4*>(src);
     }
-    const float* cols[2] = {o0.IyT, o0.GyT};
-    x1_cols<TN, 2>(iy, cols, nf, nf, col0, ni, kp1);  // gy follows iy
-    __syncthreads();
-    for (int it = warp; it < 2 * MT; it += nwarps) {
-      const int q = it / MT, mt = it % MT;
-      float d[4] = {0.f, 0.f, 0.f, 0.f};
-      x1_mma(d, (q ? gy : iy) + mt * 16 * kp1, q ? a6 : a5, kp1, k1, g, tig);
-      x1_store<TN>(stash + (8 + q) * TM * TN, d, mt, g, tig);
-    }
-    __syncthreads();
   }
-  // the pressure chain's corner (N, N): the unrounded rows of the gathered
-  // bands against IyT's and GyT's border column, a warp each
-  float* corner = reinterpret_cast<float*>(hb);  // phase 3's bands are done
+  // the pressure chain's corner (N, N): the unrounded rows of the slices
+  // against IyT's and GyT's border column, a warp each
   if (row0 + TM > n && col0 <= n && n < col0 + TN && warp < 2) {
-    const float* band = warp ? ip_band : gp_band;
+    const float* mine = warp ? ip_own : gp_own;
     const float* opT = warp ? o0.GyT : o0.IyT;
     float sum = 0.f;
-    for (int k = tid % 32; k < ni; k += 32)
-      sum += band[k * TM + n - row0] * __ldg(opT + (size_t)k * nf + n);
+    for (int k = l; k < ni; k += 32) {
+      const int peer = k / TN;
+      sum += cluster.map_shared_rank(mine, peer)[(n - row0) * TN + k -
+                                                 peer * TN] *
+             __ldg(opT + (size_t)k * nf + n);
+    }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (tid % 32 == 0) corner[warp] = sum;
+    if (l == 0) corner[warp] = sum;
+  }
+  cluster_arrive();  // this block is done with its peers' slices
+  land(3);           // also publishes the gathered rows
+  {
+    const bf16* d = region(3);
+    for (int it = warp; it < 2 * MT; it += nwarps) {
+      const int q = it / MT, mt = it % MT;
+      float f[4] = {0.f, 0.f, 0.f, 0.f};
+      x1_mma<false>(f, d + q * TN * kp1 + mt * 16 * kp1, kp1,
+                    rows3 + q * TM * kp1, kp1, k1, l);
+      x1_store<TN>(stash + (8 + q) * TM * TN, f, mt, g, tig);
+    }
   }
   __syncthreads();
 
   // this thread's outputs from the stash, then the border terms
+  const float* u = a0.u_in + lf;
+  const float* v = a0.v_in + lf;
 #pragma unroll
   for (int q = 0; q < 32; ++q) acc[q] = 0.f;
 #pragma unroll
@@ -698,7 +853,9 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   T* ip_own = gp_own + TM * TN;                // (Ix p)[I, J]
   T* gp_band = ip_own + TM * TN;               // (Gx p)[I, :] [nip][TM]
   T* ip_band = gp_band + TM * nip;             // (Ix p)[I, :]
-  T* red = ip_band + TM * nip;
+  // x1: no gathered float32 bands; the warps' partial sums follow the
+  // slices (stage_x1_smem_bytes)
+  T* red = X1 ? gp_band : ip_band + TM * nip;
   T* ring = red + red_elems(TN, ksplit);
 
   Bands<T, 2, 1> d1;  // Gx, Ix row bands; this block's p columns
@@ -722,8 +879,9 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   T dp[8];    // dp/dx, dp/dy at (r0 + rho, c + t): dp[4 q + 2 rho + t]
   if constexpr (X1) {
     static_assert(sizeof(T) == 4, "x1 runs in float32");
-    x1_products<TN>(o0, a0, nf, lf, lq, row0, col0, cluster, gp_own, ip_own,
-                    gp_band, ip_band, ring, kg, r0, c, acc, dp);
+    x1_products<TN>(o0, a0, nf, lf, row0, col0, depth, cluster, gp_own,
+                    ip_own, red + x1_red_elems(TN, ksplit), kg, r0, c, acc,
+                    dp);
   } else {
   // 1. this block's column slice of Gx p and Ix p (k < ni), published to
   // the cluster; the barrier completes while phase 2 runs
@@ -888,11 +1046,26 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
         a0.u_out[kk] = u_new;
         a0.v_out[kk] = v_new;
       }
+      if constexpr (X1) {  // the bf16 copy the next stage's products read
+        if (!keep && i < nf - 1 && j < nf - 1) {
+          __nv_bfloat16* xo = a0.x1_out + lane * x1_state_elems(nf);
+          const int S = x1_sld(nf);
+          xo[i * S + j] = __float2bfloat16_rn(u_new);
+          xo[S * S + i * S + j] = __float2bfloat16_rn(v_new);
+        }
+      }
       if (in) {
         T R_p = -beta_sq * (du_dx + v_dy);
         if (a0.tau_p) R_p += tp[a];
-        if (!keep)
-          a0.p_out[lq + (size_t)(i - 1) * ni + (j - 1)] = p0[a] + adt * R_p;
+        if (!keep) {
+          const T p_new = p0[a] + adt * R_p;
+          a0.p_out[lq + (size_t)(i - 1) * ni + (j - 1)] = p_new;
+          if constexpr (X1) {
+            const int S = x1_sld(nf), Sp = x1_pld(nf);
+            a0.x1_out[lane * x1_state_elems(nf) + 2 * S * S +
+                      (i - 1) * Sp + (j - 1)] = __float2bfloat16_rn(p_new);
+          }
+        }
         sums[2] += R_p * R_p;
       }
       sums[0] += R_u * R_u;

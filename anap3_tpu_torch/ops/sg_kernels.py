@@ -66,7 +66,11 @@ matmul_algorithm=x1: ``make_sg_chunk_runner(..., x1=True)`` (float32
 only) runs the chunk with every product as one bf16 tensor-core pass, the
 semantics of ``anap3_tpu/ops/pallas_aligned.py:make_aligned_chunk_runner``
 with ``algorithm="x1"`` on its bordered core (the x1 instances of the
-stage and tail kernels; see the note in csrc/sg_stage.cu). Its plain
+stage and tail kernels; see the note in csrc/sg_stage.cu). The x1 stage
+reads bf16 operands only: the operator table of ``x1_operator_table``,
+made once a run, and a bf16 copy of the state (``x1_state_copy`` is its
+plain version) that the launch writing the state writes beside it
+(``x1_workspace`` holds the pointer-table entries). Its plain
 version is ``chunk_plain(..., hi=x1_operators(ops))``: the same roundings
 (``bf16_round``) with float32 matmuls of the rounded operands, which are
 exact products, so only the sum order differs from the kernel's.
@@ -98,6 +102,7 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "x1_supported", "MAX_X1_N", "bf16_round", "x1_residuals",
            "x1_rk4_step", "x1_conserved_quantities", "stage_x1_plain",
            "x1_border_table", "x1_step_stages", "tc_matmul",
+           "x1_operator_table", "x1_state_copy", "x1_workspace",
            "PLAIN_CALLS", "reset_counts", "ALIGNED_METRICS_EVERY", "KERNELS",
            "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body",
            "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
@@ -127,7 +132,8 @@ _PTR_NAMES = (
     "sing_dvdy", "sing_w", "sing_dwx", "sing_dwy",
     "u", "v", "p", "au", "av", "ap", "bu", "bv", "bp",
     "omega", "part", "dpart", "qpart", "scal", "tau_u", "tau_v", "tau_p",
-    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc", "x1b")
+    "metrics", "rows", "flags", "ref_norm", "cu", "cv", "cp", "lsc", "x1b",
+    "x1ops", "x1s")
 _OP_NAMES = _PTR_NAMES[:20]
 _STEP_KEYS = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
               "palinstrophy")
@@ -196,21 +202,44 @@ def _stage_smem_elems(nf: int, tn: int, ks: int, depth: int,
     return 2 * STAGE_TM * tn + 2 * STAGE_TM * nip + red + depth * slot
 
 
+def _x1_k16(k: int) -> int:
+    """k rounded up to whole mma k steps (csrc/sg_common.cuh:x1_k16)."""
+    return (k + 15) & ~15
+
+
 def _x1_kp(k: int) -> int:
     """A bf16 band row of the x1 stage (csrc/sg_common.cuh:x1_kp)."""
-    return ((k + 15) & ~15) + 8
+    return _x1_k16(k) + 8
 
 
-def _stage_x1_smem_bytes(nf: int, tn: int, ksplit: int) -> int:
+# copy groups of the x1 stage (csrc/sg_stage.cu:X1_GROUPS): phase 1's, the
+# left and right velocity products', phase 3's columns
+_X1_GROUPS = 4
+
+
+def _x1_group_elems(g: int, nf: int, tn: int) -> int:
+    """bf16 elements of x1 copy group ``g`` (csrc/sg_stage.cu:
+    x1_group_elems)."""
+    k1, k2, tm = _x1_k16(nf - 2), _x1_k16(nf - 1), STAGE_TM
+    kp1, kp2, tp = k1 + 8, k2 + 8, tn + 8
+    return (2 * tm * kp1 + k1 * tp, 2 * tm * kp2 + 2 * k2 * tp,
+            2 * tn * kp2 + 2 * tm * kp2, 2 * tn * kp1)[g]
+
+
+def _stage_x1_smem_bytes(nf: int, tn: int, ksplit: int, depth: int) -> int:
     """Shared memory of an x1 stage block in bytes, as
-    csrc/sg_stage.cu:stage_x1_smem_bytes lays it out: the float32 part of
-    the exact layout up to its ring, the stash of the ten products, then
-    the largest phase's bf16 bands."""
-    ni = nf - 2
-    f32 = _stage_smem_elems(nf, tn, 0, 0, ksplit) + 10 * STAGE_TM * tn
-    b16 = max((4 * STAGE_TM + 4 * tn) * _x1_kp(nf - 1),
-              (2 * STAGE_TM + tn) * _x1_kp(ni),
-              (2 * STAGE_TM + 2 * tn) * _x1_kp(ni))
+    csrc/sg_stage.cu:stage_x1_smem_bytes lays it out: float32, the block's
+    Gx p / Ix p slices, the warps' partial sums, the stash of the ten
+    products and the corner; bf16, the rounded slices, the gathered rows,
+    then ``depth`` regions of the four copy groups (group g in region
+    g % depth, each region its largest group's size)."""
+    red = (ksplit * stage_group_threads(tn) // 32 * (_NPART + _NDPART)
+           + 3) & ~3
+    f32 = 12 * STAGE_TM * tn + red + 4
+    b16 = 2 * STAGE_TM * tn + 2 * STAGE_TM * _x1_kp(nf - 2)
+    b16 += sum(max(_x1_group_elems(g, nf, tn)
+                   for g in range(r, _X1_GROUPS, depth))
+               for r in range(depth))
     return 4 * f32 + 2 * b16
 
 
@@ -250,8 +279,10 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
     several blocks share an SM; where that does not fit, a ring of 32- or
     16-wide slabs, 3 slots where they fit, else 2. ``tn``, ``ksplit``, ``ks`` and ``depth`` override the
     choice (scripts/sg_stage_tune.py sweeps them). ``x1``: the x1 stage's
-    geometry (float32), the same tile, cluster and k groups with the
-    bands whole (ks = nf, one slot) in bf16; raises where they do not fit.
+    geometry (float32): the same tile and cluster, as many k groups as
+    the launch bound takes, the bands whole (ks = nf) in bf16, and
+    ``depth`` the regions of its four copy groups, the most of 4, 3, 2
+    that fit; raises where they do not.
     Raises on an order, dtype or override the kernel cannot take."""
     elem = {torch.float32: 4, torch.float64: 8}.get(dtype)
     if elem is None:
@@ -272,7 +303,9 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
         raise ValueError(f"order {nf - 1}: no tile of {tn} columns")
     most = stage_max_threads(elem, tn) // stage_group_threads(tn)
     if ksplit is None:
-        ksplit = min(_KSPLIT_OF_TN[tn], most)
+        # x1: a warp runs a product's whole k, so its k groups only add
+        # warps, as many as the launch bound takes
+        ksplit = most if x1 else min(_KSPLIT_OF_TN[tn], most)
     if ksplit not in _KSPLITS or ksplit > most:
         raise ValueError(f"ksplit {ksplit} is not one of {_KSPLITS} up to "
                          f"{most}")
@@ -281,12 +314,17 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
         return elem * _stage_smem_elems(nf, tn, k, d, ksplit)
 
     if x1:
-        size = _stage_x1_smem_bytes(nf, tn, ksplit)
-        if size > MAX_SMEM:
-            raise ValueError(f"order {nf - 1}: the x1 stage's bands need "
-                             f"{size} bytes of shared memory")
+        if depth is None:
+            depth = next((d for d in range(_X1_GROUPS, 1, -1)
+                          if _stage_x1_smem_bytes(nf, tn, ksplit, d)
+                          <= MAX_SMEM), 2)
+        size = _stage_x1_smem_bytes(nf, tn, ksplit, depth)
+        if not 2 <= depth <= _X1_GROUPS or size > MAX_SMEM:
+            raise ValueError(f"order {nf - 1}: the x1 stage's bands in "
+                             f"{depth} regions need {size} bytes of shared "
+                             f"memory")
         return StageGeometry(
-            tn=tn, cluster=cluster, rows=rows, ks=nf, depth=1, smem=size,
+            tn=tn, cluster=cluster, rows=rows, ks=nf, depth=depth, smem=size,
             nparts=cluster * rows, ksplit=ksplit,
             threads=ksplit * stage_group_threads(tn), grid=(cluster, rows))
     if ks is None or depth is None:
@@ -704,6 +742,101 @@ def x1_border_table(ops: SpectralOps) -> torch.Tensor:
     return torch.stack(rows).to(ops.dtype).contiguous()
 
 
+# the x1 operator table's bands: the x1_operators field, whether it is
+# stored transposed. Mirrors csrc/sg_common.cuh: the order of X1Op and the
+# band sizes of x1_op_offset (velocity bands nf x k16(N), pressure bands
+# nf x k16(ni)); change both together.
+_X1_TABLE = (("Dx", False), ("Dxx", False), ("DyT", True), ("DyyT", True),
+             ("Gx", False), ("Ix", False), ("IyT", True), ("GyT", True))
+
+
+def x1_operator_table(ops: SpectralOps) -> torch.Tensor:
+    """The x1 stage kernel's operators (csrc/sg_common.cuh:X1Op, pointer
+    slot P_X1OPS), written once a run: the hi halves of
+    ``x1_operators(ops)`` as bf16 (torch's round to nearest even), in bands
+    of nf rows with k contiguous, each row zero from the contraction's end
+    (N for the velocity operators, ni for the pressure ones) up to whole
+    16-wide k steps: Dx, Dxx, then DyT, DyyT transposed (a row a column),
+    then Gx, Ix, then IyT, GyT transposed. One flat bf16 tensor; the bands
+    are ``_x1_table_views``."""
+    hi = x1_operators(ops)
+    bands = []
+    for name, transposed in _X1_TABLE:
+        t = getattr(hi, name)
+        t = t.T if transposed else t
+        band = torch.zeros((ops.nf, _x1_k16(t.shape[1])), dtype=torch.bfloat16,
+                           device=ops.device)
+        band[:, :t.shape[1]] = t.to(torch.bfloat16)
+        bands.append(band.reshape(-1))
+    return torch.cat(bands)
+
+
+def _x1_table_views(table: torch.Tensor, nf: int) -> dict:
+    """The eight (nf, k16) bands of ``x1_operator_table``'s table by
+    ``x1_operators`` field name (DyT, DyyT, IyT, GyT transposed)."""
+    views, at = {}, 0
+    for name, _ in _X1_TABLE:
+        k16 = _x1_k16(nf - 1 if name in ("Dx", "Dxx", "DyT", "DyyT")
+                      else nf - 2)
+        views[name] = table[at:at + nf * k16].view(nf, k16)
+        at += nf * k16
+    return views
+
+
+def _x1_state_lds(nf: int):
+    """(u and v, p) leading dims of the x1 state copy
+    (csrc/sg_common.cuh:x1_sld, x1_pld)."""
+    return _x1_k16(nf), _x1_k16(nf - 2)
+
+
+def _x1_state_elems(nf: int) -> int:
+    """bf16 elements of one lane's x1 state copy
+    (csrc/sg_common.cuh:x1_state_elems)."""
+    s, sp = _x1_state_lds(nf)
+    return 2 * s * s + sp * sp
+
+
+def _x1_state_views(xs: torch.Tensor, nf: int):
+    """(u, v, p) of one lane's flat x1 state copy: (S, S), (S, S) and
+    (Sp, Sp) views, S and Sp its leading dims."""
+    s, sp = _x1_state_lds(nf)
+    return (xs[:s * s].view(s, s), xs[s * s:2 * s * s].view(s, s),
+            xs[2 * s * s:].view(sp, sp))
+
+
+def x1_state_copy(state: SpectralState) -> torch.Tensor:
+    """The plain version of the x1 state copy that ``dt_kernel`` (a chunk's
+    start), every x1 stage (its output) and the bench entry (its input)
+    write: u and v rounded to bf16 on [0, N)^2, p on the inner grid, zero
+    elsewhere (the border row and column N enter the products unrounded),
+    flat in csrc/sg_common.cuh's layout."""
+    nf = state.u.shape[-1]
+    n = nf - 1
+    xs = torch.zeros(_x1_state_elems(nf), dtype=torch.bfloat16,
+                     device=state.u.device)
+    u, v, p = _x1_state_views(xs, nf)
+    u[:n, :n] = state.u[:n, :n].to(torch.bfloat16)
+    v[:n, :n] = state.v[:n, :n].to(torch.bfloat16)
+    p[:n - 1, :n - 1] = state.p.to(torch.bfloat16)
+    return xs
+
+
+def _x1_tables(ops: SpectralOps) -> dict:
+    """The x1 kernels' per-run pointer-table entries: the border constants
+    (x1b) and the operator table (x1ops)."""
+    return {"x1b": x1_border_table(ops), "x1ops": x1_operator_table(ops)}
+
+
+def x1_workspace(ops: SpectralOps, lanes: int = 1, tables=None) -> dict:
+    """The x1 entries of a pointer table: the per-run ones (``tables``
+    when made already, else made here) and the three zeroed sets (base,
+    A, B) of bf16 state copies (x1s) the chunk's launches write."""
+    tables = _x1_tables(ops) if tables is None else tables
+    xs = torch.zeros((3, lanes, _x1_state_elems(ops.nf)), dtype=torch.bfloat16,
+                     device=ops.device)
+    return dict(tables, x1s=xs)
+
+
 def x1_left(hi_op, op, w, exact_border_column: bool, tc: bool = False):
     """``op @ w`` as one bf16 pass of the aligned kernel's bordered core
     (``anap3_tpu/ops/pallas_aligned.py``, ``_DotEngine`` x1): the sum over
@@ -891,14 +1024,13 @@ def chunk_workspace(ops: SpectralOps, state: SpectralState, chunk: int,
         lsc=scalar_table([ops]) if lsc is None else lsc)
 
 
-def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
-                  use_residual, metrics_every, lsc, x1b=None):
+def _run_chunk(ops, ws, chunk, start_iter, warmup, metrics_every,
+               use_residual, tolerance, x1=False):
+    """One kernel chunk on the workspace ``ws`` (its state advanced in
+    place), with the launches counted and held to the plan."""
     from ._build import load_library
 
     lib = load_library("sg")
-    x1 = x1b is not None
-    ws = chunk_workspace(ops, state, chunk, ref_norm, lsc)
-    ws["x1b"] = x1b
     counts = (ctypes.c_int * len(KERNELS))()
     rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops, x1=x1),
                           _ptr_table(ws), int(chunk), int(start_iter),
@@ -908,6 +1040,16 @@ def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
     _count(counts)
     _raise_on(lib, rc, "sg_chunk_run")
     _check_launches(counts, chunk, start_iter, metrics_every, x1)
+
+
+def _chunk_kernel(ops, state, start_iter, ref_norm, chunk, tolerance, warmup,
+                  use_residual, metrics_every, lsc, x1_tables=None):
+    ws = chunk_workspace(ops, state, chunk, ref_norm, lsc)
+    x1 = x1_tables is not None
+    if x1:
+        ws.update(x1_workspace(ops, tables=x1_tables))
+    _run_chunk(ops, ws, chunk, start_iter, warmup, metrics_every,
+               use_residual, tolerance, x1)
     flags = ws["flags"]
     return (SpectralState(ws["u"], ws["v"], ws["p"]), flags[0] > 0,
             flags[1], flags[2] > 0, ws["rows"], ws["ref_norm"][0])
@@ -936,14 +1078,15 @@ def make_sg_chunk_runner(ops: SpectralOps, chunk: int, tolerance: float,
                 use_residual=convergence_metric == "residual",
                 metrics_every=max(1, int(metrics_every)))
     lsc = scalar_table([ops])
-    made = {}  # x1: the kernels' border table, the plain version's hi halves
+    # x1: the kernels' per-run tables, the plain version's hi halves
+    made = {}
 
     def chunk_fn(state, start_iter, ref_norm):
         if _on_cuda(ops, state):
-            if x1 and "x1b" not in made:
-                made["x1b"] = x1_border_table(ops)
+            if x1 and "tables" not in made:
+                made["tables"] = _x1_tables(ops)
             return _chunk_kernel(ops, state, start_iter, ref_norm, lsc=lsc,
-                                 x1b=made.get("x1b"), **args)
+                                 x1_tables=made.get("tables"), **args)
         if x1 and "hi" not in made:
             made["hi"] = x1_operators(ops)
         return chunk_plain(ops, state, start_iter, ref_norm, **args,
@@ -960,8 +1103,10 @@ def bench_kernel(ops: SpectralOps, ws: dict, which: str, reps: int,
     LAUNCHES): "sg_stage" is a chunk step's last stage (out of place, with
     the base's partials), "dt" the dt launch, "tail" a sampled step's tail
     launch, "sg_control" an unsampled step's control launch; with ``x1``
-    the x1 stage and tail. ``geometry`` (one of the same tile and cluster,
-    so the partial sums fit) replaces the stage geometry of ``ops``."""
+    the x1 stage and tail (the x1 stage needs ``x1_workspace``'s entries:
+    the entry rounds the A buffers into their bf16 copy first).
+    ``geometry`` (one of the same tile and cluster, so the partial sums
+    fit) replaces the stage geometry of ``ops``."""
     from ._build import load_library
 
     lib = load_library("sg")
@@ -981,7 +1126,7 @@ def x1_step_stages(ops: SpectralOps, state: SpectralState):
     so that each stage can be held against ``stage_x1_plain`` on the same
     inputs; the last output is the x1 chunk's step from ``state``."""
     ws = chunk_workspace(ops, state, 1, float("inf"))
-    ws["x1b"] = x1_border_table(ops)
+    ws.update(x1_workspace(ops))
     bench_kernel(ops, ws, "dt", 1)
     dt = ws["scal"][0, 0].clone()
     ins, outs, adts = [], [], []

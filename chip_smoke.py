@@ -266,6 +266,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import re
 import subprocess
@@ -747,9 +748,12 @@ def phase_kernels(summary):
                     # quadratures at i = 0 and every m_every-th step
                     b_ms, b_by = steps_bound(ops.nf, ops.dtype, chunk,
                                              chunk // m_every)
+                    lib = stage_library_ms(ops, st)
                     print(f"[kernels] N={n} {dt_name}: chunk ms/step kernel "
                           f"{t_k:.4f} plain {t_p:.4f} bound "
-                          f"{b_ms / chunk:.5f} ({b_by})", flush=True)
+                          f"{b_ms / chunk:.5f} ({b_by}); library (a stage's "
+                          f"12 products as torch.matmul, TF32 off) "
+                          f"{lib:.4f} ms", flush=True)
                 if n == 128 and dt_name == "float32" and corner == "smoothing":
                     # absolute errors on the main path's inputs: one step
                     # from the flow 64 steps after rest, and that chunk
@@ -844,33 +848,55 @@ def time_kernels(ops, st0, summary):
               f"({r['bound_by']})", flush=True)
 
 
-def stage_library_ms(ops, st, dtype=None):
+def stage_library_ms(ops, st, dtype=None, stages=1):
     """torch.matmul doing the stage's 12 products on stacked operands in
     the working dtype (or ``dtype``: bf16 for x1), TF32 off: [Dx, Dxx, Dx,
     Dxx] @ [u, u, v, v], [u, u, v, v] @ [DyT, DyyT, DyT, DyyT], and
-    ([Gx, Ix] @ p) @ [IyT, GyT]. A yardstick only; the port never calls
-    it."""
+    ([Gx, Ix] @ p) @ [IyT, GyT]; ``stages`` times in one timed call (4: a
+    step's). ``ops`` a list of lanes' operators and ``st`` their stacked
+    states: every lane's products in the same batched calls. A yardstick
+    only; the port never calls it."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     cast = (lambda t: t) if dtype is None else (lambda t: t.to(dtype))
-    u, v, p = (cast(t) for t in st)
-    left = cast(torch.stack([ops.Dx, ops.Dxx, ops.Dx, ops.Dxx]))
-    fields = torch.stack([u, u, v, v])
-    right = cast(torch.stack([ops.DyT, ops.DyyT, ops.DyT, ops.DyyT]))
-    grads = cast(torch.stack([ops.Gx, ops.Ix]))
-    interp = cast(torch.stack([ops.IyT, ops.GyT]))
+    lanes = ops if isinstance(ops, (list, tuple)) else [ops]
+    u, v, p = (cast(t if t.dim() == 3 else t[None]) for t in st)
+
+    def stack(*names):
+        return cast(torch.stack([torch.stack([getattr(o, k) for k in names])
+                                 for o in lanes]))
+
+    left = stack("Dx", "Dxx", "Dx", "Dxx")
+    fields = torch.stack([u, u, v, v], dim=1)
+    right = stack("DyT", "DyyT", "DyT", "DyyT")
+    grads = stack("Gx", "Ix")
+    interp = stack("IyT", "GyT")
+    p = p[:, None]
 
     def products():
-        return (torch.matmul(left, fields), torch.matmul(fields, right),
-                torch.matmul(torch.matmul(grads, p), interp))
+        for _ in range(stages):
+            out = (torch.matmul(left, fields), torch.matmul(fields, right),
+                   torch.matmul(torch.matmul(grads, p), interp))
+        return out
 
     return cuda_ms(products, 50)
 
 
 def x1_bound(nf, what):
     """(ms, what bounds it) of an x1 launch group: its products (counted as
-    sg_work counts them) at the dense bf16 tensor-core rate, its bytes (the
-    float32 operands, as the exact kernels') at the HBM rate."""
+    sg_work counts them) at the dense bf16 tensor-core rate, its bytes at
+    the HBM rate. The tail reads the exact kernels' float32 operands. The
+    stage must read the eight operators' hi halves, bf16 (the run's
+    operator table), and once each, as float32, its input state (u, v,
+    p), the base (u0, v0, p0) and the boundary values (bc_u, bc_v), and
+    write the float32 state. The bf16 state copy the kernel also reads
+    and writes is its own design's traffic, not the function's, and is
+    left out."""
     flops, nbytes = sg_work(nf, torch.float32)[what]
+    if what == "sg_stage":
+        ni, full = nf - 2, nf * nf
+        inner = ni * ni
+        nbytes = (2 * (4 * full + 4 * nf * ni) + 4 * (6 * full + 2 * inner)
+                  + 4 * (2 * full + inner))
     t_ops, t_bytes = flops / PEAK_BF16, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
@@ -881,7 +907,7 @@ def x1_stage(ops, hi, st_in, base):
     and plain: the bench entry's chunk-step stage into the B buffers, dt
     from dt_kernel on the base; the plain stage with that dt."""
     ws = sgk.chunk_workspace(ops, base, 16, float("inf"))
-    ws["x1b"] = sgk.x1_border_table(ops)
+    ws.update(sgk.x1_workspace(ops))
     for a, b in (("au", st_in.u), ("av", st_in.v), ("ap", st_in.p)):
         ws[a].copy_(b)
     sgk.bench_kernel(ops, ws, "dt", 1)
@@ -922,7 +948,7 @@ def x1_tail(ops, hi, st):
     """(kernel vs plain, plain vs exact) of one x1 tail launch's enstrophy
     and palinstrophy on ``st``."""
     ws = sgk.chunk_workspace(ops, st, 1, float("inf"))
-    ws["x1b"] = sgk.x1_border_table(ops)
+    ws.update(sgk.x1_workspace(ops))
     sgk.bench_kernel(ops, ws, "tail", 1, x1=True)
     got = ws["scal"][0, 3:6]  # S_E, S_Z, S_P
     want = sgk.x1_conserved_quantities(ops, hi, st.u, st.v)
@@ -1015,7 +1041,7 @@ def phase_x1_kernels(summary):
                     (tail_exact > 100 * e_tail, "x1 tail apart from exact")):
                 if not ok:
                     fails.append(f"{case}: {what}")
-            if corner == "smoothing" and n in (96, 128, 256):
+            if corner == "smoothing" and n in (96, 128, 256, 320):
                 x1_times(ops, hi, st, base, summary, n)
     spread = {}
     for _, what, _, y in traj:
@@ -1036,17 +1062,23 @@ def phase_x1_kernels(summary):
 def x1_times(ops, hi, st, base, summary, n):
     """ms of an x1 stage launch and of an x1 chunk step beside the exact
     ones, the plain versions, the bound and the bf16 library yardstick; at
-    N=128 the summary's x1 rows."""
+    N=128 the summary's x1 rows. A launch's ms is the median of 5 windows
+    of 200 launches."""
     reps, chunk = 200, 64
     _, _, ws = x1_stage(ops, hi, st, base)
-    t_x1 = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "sg_stage", reps,
-                                            x1=True), 1) / reps
-    t_ex = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "sg_stage", reps),
-                   1) / reps
-    t_tail = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "tail", reps,
-                                              x1=True), 1) / reps
-    t_tail_ex = cuda_ms(lambda: sgk.bench_kernel(ops, ws, "tail", reps),
-                        1) / reps
+
+    def launch_ms(which, x1=False):
+        # the median of 5 windows of ``reps`` launches: one window can
+        # catch a transient of the host or the card (a 2x reading once)
+        ms = sorted(cuda_ms(lambda: sgk.bench_kernel(ops, ws, which, reps,
+                                                     x1=x1), 1) / reps
+                    for _ in range(5))
+        return ms[2], ms
+
+    t_x1, x1_windows = launch_ms("sg_stage", True)
+    t_ex, _ = launch_ms("sg_stage")
+    t_tail, _ = launch_ms("tail", True)
+    t_tail_ex, _ = launch_ms("tail")
     dt = ws["scal"][0, 0].clone()
     t_plain = cuda_ms(lambda: sgk.stage_x1_plain(ops, hi, *st, *base, dt), 50)
     t_tail_plain = cuda_ms(
@@ -1060,7 +1092,8 @@ def x1_times(ops, hi, st, base, summary, n):
     bt_ms, bt_by = x1_bound(ops.nf, "tail")
     lib = stage_library_ms(ops, st, torch.bfloat16)
     card = torch.cuda.get_device_name(0)
-    print(f"[x1] N={n} float32 on {card}: stage launch x1 {t_x1:.4f} ms, "
+    print(f"[x1] N={n} float32 on {card}: stage launch x1 {t_x1:.4f} ms "
+          f"(windows {x1_windows[0]:.4f}-{x1_windows[-1]:.4f}), "
           f"exact {t_ex:.4f} ms, plain x1 {t_plain:.4f} ms, bound "
           f"{b_ms:.3g} ms ({b_by}), library (12 products as torch.matmul "
           f"on bf16) {lib:.4f} ms; tail launch x1 {t_tail:.4f} ms, exact "
@@ -1171,10 +1204,12 @@ def phase_smoother():
         t_steps = cuda_ms(steps, 3) / 30
         t_plain = cuda_ms(lambda: sgk.smooth_plain(ops, st, tau, 30), 1) / 30
         b_ms, b_by = steps_bound(ops.nf, ops.dtype, 30, 1)
+        lib = stage_library_ms(ops, st, stages=4)
         print(f"[smoother] N={n} float32, 30 forced steps: loop "
               f"{t_loop:.4f} ms/step, sg_step_run calls {t_steps:.4f}, plain "
-              f"{t_plain:.4f}; bound {b_ms / 30:.5f} ms/step ({b_by})",
-              flush=True)
+              f"{t_plain:.4f}; bound {b_ms / 30:.5f} ms/step ({b_by}); "
+              f"library (a step's 4 x 12 products as torch.matmul, TF32 "
+              f"off) {lib:.4f} ms/step", flush=True)
 
 
 def lane_ops(n, dtype, lanes, corner="smoothing"):
@@ -1341,15 +1376,19 @@ def phase_sg_lanes(summary):
         b_ms, b_by = steps_bound(o0.nf, o0.dtype, chunk,
                                  sampled_steps(16, chunk, m))
         bound_step = 8 * b_ms / chunk
+        # a step's 4 x 12 products of the 8 lanes, each batched over lanes
+        lib = stage_library_ms(ops_list, st, stages=4)
         summary[key].update(ms=t_lane, plain_ms=t_plain, bound_ms=bound_step,
-                            bound_by=b_by, library_ms=None)
+                            bound_by=b_by, library_ms=lib)
         profile_chunk(lambda: run(st, 16),
                       f"lanes profile SG N={n} float32 B=8 {chunk}-step chunk")
         print(f"[lanes] SG N={n} float32 B=8, quadratures every {m}: lane "
               f"chunk {t_lane:.4f} ms/step ({8 / t_lane * 1e3:.1f} "
               f"lane-steps/s), 8 one-lane chunks {t_ones:.4f} ms/step "
               f"({t_ones / t_lane:.2f}x), plain {t_plain:.4f} ms/step, "
-              f"bound {bound_step:.5f} ms/step ({b_by})", flush=True)
+              f"bound {bound_step:.5f} ms/step ({b_by}), library (a step's "
+              f"4 x 12 products of the 8 lanes as batched torch.matmul, TF32 "
+              f"off) {lib:.4f} ms/step", flush=True)
     print(f"[lanes] phase 2d: {time.time() - t0:.1f}s", flush=True)
 
 
@@ -1464,8 +1503,9 @@ def phase_fv_lanes(summary):
     work = fv_work(ops_list[0]).values()
     b_ms, b_by = bound(3 * sum(w[0] for w in work),
                        3 * sum(w[1] for w in work), torch.float32)
+    lib = dense_library_ms(ops_list[0], lanes=3)
     summary["fv_lanes"].update(ms=times[3], plain_ms=t_plain, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=None)
+                               bound_by=b_by, library_ms=lib)
     run3 = fvl.make_fv_lane_runner(ps[:3], ops_list[:3], chunk, 1e-30, 10,
                                    FV_K)
     profile_chunk(lambda: run3(st3, 0), "lanes profile FV 128x128 float32 "
@@ -1473,7 +1513,9 @@ def phase_fv_lanes(summary):
     print(f"[lanes] FV 128x128 float32, ms per SIMPLE iteration: B=1 "
           f"{t1:.4f}, B=3 {times[3]:.4f} ({times[3] / t1:.2f}x B=1), B=8 "
           f"{times[8]:.4f} ({times[8] / t1:.2f}x B=1); B=3 plain "
-          f"{t_plain:.4f}, bound {b_ms:.5f} ({b_by})", flush=True)
+          f"{t_plain:.4f}, bound {b_ms:.5f} ({b_by}), library (the pressure "
+          f"products of the 3 lanes as batched torch.matmul) {lib:.4f}",
+          flush=True)
     print(f"[lanes] phase 2e: {time.time() - t0:.1f}s", flush=True)
 
 
@@ -1775,21 +1817,23 @@ def fv_work(ops):
     }
 
 
-def dense_library_ms(ops):
+def dense_library_ms(ops, lanes=None):
     """torch.matmul doing fv_pressure's products: per solve, the two basis
     changes and their inverses (V1^T R, . V2, V1 ., . V2^T) on ny x nx
-    operands in the working dtype, TF32 off."""
+    operands in the working dtype, TF32 off; with ``lanes``, those of that
+    many lanes in batched calls."""
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     g = torch.Generator(device="cuda").manual_seed(0)
     kw = dict(dtype=ops.dtype, device="cuda", generator=g)
-    V1 = torch.randn(ops.ny, ops.ny, **kw)
-    V2 = torch.randn(ops.nx, ops.nx, **kw)
-    R = torch.randn(ops.ny, ops.nx, **kw)
+    batch = () if lanes is None else (lanes,)
+    V1 = torch.randn(*batch, ops.ny, ops.ny, **kw)
+    V2 = torch.randn(*batch, ops.nx, ops.nx, **kw)
+    R = torch.randn(*batch, ops.ny, ops.nx, **kw)
 
     def products():
         t = R
         for _ in range(1 + ops.n_refine):
-            t = V1 @ ((V1.T @ t) @ V2) @ V2.T
+            t = V1 @ ((V1.mT @ t) @ V2) @ V2.mT
         return t
 
     return cuda_ms(products, 50)
@@ -1869,6 +1913,14 @@ def phase_sg():
     return net
 
 
+def state_sha256(state) -> str:
+    """SHA-256 of a state's fields' bytes (u, v, p in order)."""
+    h = hashlib.sha256()
+    for t in state:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def phase_sg_x1():
     """3b: phase 3's solve under matmul_algorithm=x1: the chunk on the x1
     stage and tail kernels, none of the exact stage's launches."""
@@ -1893,7 +1945,8 @@ def phase_sg_x1():
           + (", ".join(f"{k} {d:.3e}" for k, d in zip("uvp", dist))
              if dist else "n/a (other step counts)")
           + f"; launches {dict(sgk.LAUNCHES)}; converged="
-          f"{solver.metrics.converged}", flush=True)
+          f"{solver.metrics.converged}; state SHA-256 "
+          f"{state_sha256(solver.state)}", flush=True)
     check(all(bool(torch.isfinite(t).all()) for t in solver.state),
           "SG x1 state is not finite")
     check(it == 50_000 or solver.metrics.converged,

@@ -25,10 +25,25 @@ checkout, also appended to chiprun_out/sg_stage_ab.jsonl:
 It uses only what every checkout since the lane kernels has:
 ``sg_kernels._workspace`` / ``bench_kernel``, ``sg_lane_kernels``'
 ``_lane_statics`` / ``make_lane_chunk_runner`` and ``SGSolver``.
+
+    python3 scripts/sg_stage_ab.py --x1 build/parent . . build/parent
+
+times ``matmul_algorithm=x1`` instead (every checkout since the x1 kernels,
+whose bench entry takes ``x1=True``), float32, one lane, smoothed lid:
+
+- ``x1_stage_ms`` / ``stage_ms``: one x1 / exact last-stage launch at
+  N = 96, 128, 256, 320 from a seeded state (200 launches by CUDA events);
+- ``x1_chunk_ms`` / ``chunk_ms``: ms per step of a 64-step x1 / exact chunk
+  from rest (quadratures every 16th step);
+- ``x1_steps_per_s`` / ``sg_steps_per_s``: SG N=128 Re=1000 through
+  ``SGSolver.solve`` under x1 / exact, 50,000 steps in chunks of 5,000,
+  net of the first chunk (chip_smoke.py phases 3b / 3), with the SHA-256
+  of each final state (u, v, p) in ``x1_state_sha256`` / ``state_sha256``.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -40,6 +55,7 @@ LANES = [(100.0, 0.15, 1.5, 5.0), (400.0, 0.10, 1.2, 4.0),
          (100.0, 0.08, 1.3, 5.5), (400.0, 0.12, 1.5, 4.5),
          (1000.0, 0.15, 1.1, 5.0), (200.0, 0.03, 1.4, 6.0)]
 SHAPES = ((48, 1), (96, 1), (128, 1), (20, 8), (128, 8))
+X1_ORDERS = (96, 128, 256, 320)
 
 
 def cuda_ms(torch, fn, reps):
@@ -70,7 +86,7 @@ def device_ms(torch, fn, groups):
     return sum(dev) / groups / 1e3 if dev else None
 
 
-def worker(root: Path) -> dict:
+def worker(root: Path, x1: bool = False) -> dict:
     sys.path.insert(0, str(root))
     import torch
 
@@ -92,6 +108,19 @@ def worker(root: Path) -> dict:
         base.update(kw)
         return SpectralParameters(**base)
 
+    def solve(**kw):  # SG N=128 Re=1000: steps/s net of the first chunk
+        solver = SGSolver(params=params(128, **kw))
+        solver.solve(max_iter=50_000)
+        torch.cuda.synchronize()
+        it, first = solver.metrics.iterations, solver.first_chunk_time
+        sha = hashlib.sha256()
+        for t in solver.state:
+            sha.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return ((it - 5000) / max(solver.metrics.wall_time_seconds - first,
+                                  1e-9), it, sha.hexdigest())
+
+    if x1:
+        return x1_times(root, torch, core, sgk, params, solve)
     out = {"root": str(root), "stage_ms": {}, "stage_device_ms": {},
            "chunk_ms": {}}
     for n, B in SHAPES:
@@ -121,19 +150,58 @@ def worker(root: Path) -> dict:
             1) / 200
         out["stage_device_ms"][key] = device_ms(
             torch, lambda: sgk.bench_kernel(o0, ws, "sg_stage", 50, B), 50)
-    solver = SGSolver(params=params(128))
-    solver.solve(max_iter=50_000)
-    torch.cuda.synchronize()
-    it, first = solver.metrics.iterations, solver.first_chunk_time
-    out["sg_steps_per_s"] = (it - 5000) / max(
-        solver.metrics.wall_time_seconds - first, 1e-9)
-    out["sg_iterations"] = it
+    out["sg_steps_per_s"], out["sg_iterations"], _ = solve()
+    return out
+
+
+def x1_times(root, torch, core, sgk, params, solve) -> dict:
+    """The x1 mode's readings (see the module docstring)."""
+    import numpy as np
+
+    out = {"root": str(root), "mode": "x1", "x1_stage_ms": {},
+           "stage_ms": {}, "x1_chunk_ms": {}, "chunk_ms": {}}
+    rng = np.random.default_rng(16)
+    inf = float("inf")
+    for n in X1_ORDERS:
+        ops = core.build_spectral_ops(params(n))[0]
+        nf, key = ops.nf, f"N={n}"
+
+        def seeded():
+            st = core.state_from_numpy(tuple(
+                0.05 * rng.standard_normal(s)
+                for s in ((nf, nf), (nf, nf), (nf - 2, nf - 2))),
+                ops.device, ops.dtype)
+            u, v = core.enforce_bc(ops, st.u, st.v)
+            return core.SpectralState(u.contiguous(), v.contiguous(), st.p)
+
+        st, base = seeded(), seeded()
+        ws = sgk.chunk_workspace(ops, base, 16, inf)
+        # the x1 entries of the pointer table: this tree's, or the border
+        # table alone of a checkout before the bf16 operand tables
+        ws.update(sgk.x1_workspace(ops) if hasattr(sgk, "x1_workspace")
+                  else {"x1b": sgk.x1_border_table(ops)})
+        for name, src in (("au", st.u), ("av", st.v), ("ap", st.p)):
+            ws[name].copy_(src)
+        sgk.bench_kernel(ops, ws, "dt", 1)
+        for x1, col in ((True, "x1_stage_ms"), (False, "stage_ms")):
+            out[col][key] = cuda_ms(torch, lambda: sgk.bench_kernel(
+                ops, ws, "sg_stage", 200, x1=x1), 1) / 200
+        st0 = core.initial_state(ops)
+        for x1, col in ((True, "x1_chunk_ms"), (False, "chunk_ms")):
+            run = sgk.make_sg_chunk_runner(ops, 64, 1e-30, 10, "rel_iter",
+                                           16, x1=x1)
+            out[col][key] = cuda_ms(torch, lambda: run(st0, 0, inf), 3) / 64
+    (out["x1_steps_per_s"], out["x1_iterations"],
+     out["x1_state_sha256"]) = solve(matmul_algorithm="x1")
+    out["sg_steps_per_s"], out["sg_iterations"], out["state_sha256"] = solve()
     return out
 
 
 def main(argv) -> int:
+    x1 = "--x1" in argv
+    argv = [a for a in argv if a != "--x1"]
     if len(argv) > 1 and argv[0] == "--worker":
-        print(json.dumps(worker(Path(argv[1]).resolve())), flush=True)
+        print(json.dumps(worker(Path(argv[1]).resolve(), x1)), flush=True)
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
@@ -146,8 +214,8 @@ def main(argv) -> int:
     log = Path(__file__).resolve().parents[1] / "chiprun_out"
     log.mkdir(exist_ok=True)
     for root in argv:
-        proc = subprocess.run([sys.executable, __file__, "--worker", root],
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, __file__, "--worker", root]
+                              + ["--x1"] * x1, capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode

@@ -20,7 +20,10 @@ norms between samples under rel_iter; the port's are exact every step).
 
 Also: x1 differs from the exact chunk at the bf16 level (~1e-3), and the
 dispatch of ``models/spectral.py`` routes x1 as
-``anap3_tpu/models/spectral.py:139-200`` does.
+``anap3_tpu/models/spectral.py:139-200`` does; the x1 stage kernel's bf16
+operands as the host makes them (the operator table, bf16_round of
+``x1_operators`` in the kernel's layout; the plain state copy) and its
+geometry at every x1 order (within the card's shared memory).
 
 On a CUDA card (marker ``gpu``): the x1 kernel chunk against the plain x1
 and its launches, like with like. Inside a step each stage state comes
@@ -33,11 +36,16 @@ from its own inputs (``sg_kernels.x1_step_stages``, bit-equal to the
 chunk's step) against the plain stage that sums as the tensor cores do
 (``x1_operators(ops, tc=True)``), the chunk's rows against the plain
 ones of the same stage states, and one tail launch against
-``x1_conserved_quantities``, all at 1e-5. Run them there with ``python -m
-pytest tests/test_torch_x1.py -m gpu --noconftest``.
+``x1_conserved_quantities``, all at 1e-5; the bench entry's x1 stage
+against ``stage_x1_plain`` (1e-5); and the bf16 state copies the kernels
+write, bit for bit ``x1_state_copy`` of the float32 state beside them,
+after a capped chunk and after one whose lane began done. Run them there
+with ``python -m pytest tests/test_torch_x1.py -m gpu --noconftest``.
 """
 
 import logging
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import numpy as np
@@ -294,6 +302,97 @@ class TestDispatch:
             assert torch.equal(a, b)
 
 
+class TestX1Operands:
+    """The bf16 operands of the x1 stage kernel, made on the host: the
+    operator table (once a run) and the plain version of the state copy
+    that the kernels write."""
+
+    @pytest.mark.parametrize("n", [32, 40])
+    @pytest.mark.parametrize("corner", ["smoothing", "singular"])
+    def test_operator_table(self, n, corner):
+        """Every band of x1_operator_table is bf16_round of x1_operators'
+        field (DyT, DyyT, IyT, GyT transposed), zero from the contraction's
+        end up to whole 16-wide k steps, the bands back to back."""
+        p = SpectralParameters(Re=1000.0, nx=n, ny=n, device="cpu",
+                               dtype="float32", basis_type="chebyshev",
+                               CFL=1.5, corner_treatment=corner)
+        ops = T.build_spectral_ops(p)[0]
+        hi = sgk.x1_operators(ops)
+        table = sgk.x1_operator_table(ops)
+        nf, ni = ops.nf, ops.nf - 2
+        k2, k1 = -(-(nf - 1) // 16) * 16, -(-ni // 16) * 16
+        assert table.dtype == torch.bfloat16 and table.dim() == 1
+        assert table.numel() == 4 * nf * (k1 + k2)
+        views = sgk._x1_table_views(table, nf)
+        at = 0
+        for name in ("Dx", "Dxx", "DyT", "DyyT", "Gx", "Ix", "IyT", "GyT"):
+            want = getattr(hi, name)
+            if name in ("DyT", "DyyT", "IyT", "GyT"):
+                want = want.T
+            band = views[name]
+            k = want.shape[1]
+            assert band.shape == (nf, k2 if name in ("Dx", "Dxx", "DyT",
+                                                     "DyyT") else k1)
+            assert band.data_ptr() == table.data_ptr() + 2 * at
+            assert torch.equal(band[:, :k].float(), sgk.bf16_round(want))
+            assert torch.equal(band[:, k:].float(),
+                               torch.zeros_like(band[:, k:].float()))
+            at += band.numel()
+        assert at == table.numel()
+
+    def test_operator_table_matches_the_header(self):
+        """The table's band order is csrc/sg_common.cuh's X1Op."""
+        header = (Path(sgk.__file__).parents[1] / "csrc" /
+                  "sg_common.cuh").read_text()
+        body = header.split("enum X1Op {", 1)[1].split("};", 1)[0]
+        names = re.findall(r"\bX_(\w+)", body)
+        assert names[-1] == "COUNT"
+        by_enum = {"DX": "Dx", "DXX": "Dxx", "DY": "DyT", "DYY": "DyyT",
+                   "GX": "Gx", "IX": "Ix", "IY": "IyT", "GY": "GyT"}
+        assert [by_enum[n] for n in names[:-1]] == [
+            name for name, _ in sgk._X1_TABLE]
+
+    @pytest.mark.parametrize("n", [32, 40])
+    def test_state_copy_is_the_rounded_state(self, n):
+        """x1_state_copy: u and v rounded to bf16 on [0, N)^2, p on the
+        inner grid, zeros elsewhere (the border row and column N enter
+        the products unrounded), in (S, S) and (Sp, Sp) arrays."""
+        p = SpectralParameters(Re=100.0, nx=n, ny=n, device="cpu",
+                               dtype="float32", basis_type="chebyshev")
+        ops = T.build_spectral_ops(p)[0]
+        rng = np.random.default_rng(n)
+        nf = ops.nf
+        st = T.state_from_numpy(tuple(rng.standard_normal(s) for s in (
+            (nf, nf), (nf, nf), (nf - 2, nf - 2))), "cpu", torch.float32)
+        xs = sgk.x1_state_copy(st)
+        assert xs.dtype == torch.bfloat16
+        assert xs.numel() == sgk._x1_state_elems(nf)
+        u, v, pp = (t.float() for t in sgk._x1_state_views(xs, nf))
+        N = nf - 1
+        for got, want, m in ((u, st.u, N), (v, st.v, N), (pp, st.p, N - 1)):
+            assert torch.equal(got[:m, :m], sgk.bf16_round(want[:m, :m]))
+            rest = got.clone()
+            rest[:m, :m] = 0
+            assert not rest.any()
+
+    @pytest.mark.parametrize("n", [n for n in range(32, 321, 8)])
+    def test_geometry_fits(self, n):
+        """The x1 stage's geometry at every x1_supported order: its shared
+        memory (the copy groups in 4, 3 or 2 regions, the most that fit)
+        within MAX_SMEM, the exact stage's tile and cluster."""
+        assert sgk.x1_supported(n)
+        nf = n + 1
+        g = sgk.stage_geometry(nf, torch.float32, x1=True)
+        ex = sgk.stage_geometry(nf, torch.float32)
+        assert (g.tn, g.cluster, g.rows) == (ex.tn, ex.cluster, ex.rows)
+        assert g.ks == nf and 2 <= g.depth <= 4
+        assert g.smem == sgk._stage_x1_smem_bytes(nf, g.tn, g.ksplit,
+                                                  g.depth) <= sgk.MAX_SMEM
+        if g.depth < 4:  # the most regions that fit
+            assert sgk._stage_x1_smem_bytes(nf, g.tn, g.ksplit,
+                                            g.depth + 1) > sgk.MAX_SMEM
+
+
 # ------------------------------------------------------------ on the card
 
 
@@ -374,3 +473,54 @@ class TestOnCard:
                                 "sg_control": 18, "sg_stage_x1": 80,
                                 "sg_diag_x1": 2}
         assert sgk.PLAIN_CALLS["sg_chunk"] == 0
+
+    @pytest.mark.parametrize("n", [32, 128])
+    @pytest.mark.parametrize("done", [False, True])
+    def test_state_copies_follow_the_state(self, cuda, n, done):
+        """After a capped chunk (7 steps), and after one whose lane began
+        done (the stages keep the base), every bf16 state copy the kernels
+        wrote is x1_state_copy of the float32 state beside it: the base's
+        (dt rounded it, each step's last stage rewrote it) and the A
+        buffers' (the third stage's output)."""
+        ops, st = card_case(n, "smoothing", n + 2)
+        ws = sgk.chunk_workspace(ops, st, 7, INF)
+        ws.update(sgk.x1_workspace(ops))
+        if done:
+            ws["flags"][0] = 1
+        sgk._run_chunk(ops, ws, 7, 0, 10, 16, False, 1e-30, x1=True)
+        torch.cuda.synchronize()
+        base = T.SpectralState(ws["u"], ws["v"], ws["p"])
+        for got, state in ((ws["x1s"][0, 0], base),
+                           (ws["x1s"][1, 0], T.SpectralState(
+                               ws["au"][0], ws["av"][0], ws["ap"][0]))):
+            want = sgk.x1_state_copy(state)
+            assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+        if done:
+            for a, b in zip(base, st):
+                assert torch.equal(a, b)
+
+    # 248 / 256, 288 / 296: each side of the orders where the stage's
+    # copy-group regions drop from 4 to 3 and from 3 to 2 (the C geometry
+    # check and its Python mirror must agree there, or the launch fails)
+    @pytest.mark.parametrize("n", [32, 96, 128, 248, 256, 288, 296, 320])
+    @pytest.mark.parametrize("corner", ["smoothing", "singular"])
+    def test_bench_stage_matches_plain(self, cuda, n, corner):
+        """The bench entry's x1 stage (its input rounded by its own launch
+        first) against stage_x1_plain on the same inputs, within 1e-5,
+        its bf16 input copy x1_state_copy of the input."""
+        ops, st = card_case(n, corner, n + 3)
+        _, base = card_case(n, corner, n + 4)
+        ws = sgk.chunk_workspace(ops, base, 1, INF)
+        ws.update(sgk.x1_workspace(ops))
+        for name, t in zip(("au", "av", "ap"), st):
+            ws[name].copy_(t)
+        sgk.bench_kernel(ops, ws, "dt", 1)
+        sgk.bench_kernel(ops, ws, "sg_stage", 1, x1=True)
+        torch.cuda.synchronize()
+        dt = ws["scal"][0, 0].clone()
+        want, _ = sgk.stage_x1_plain(ops, sgk.x1_operators(ops), *st, *base,
+                                     dt)
+        for a, b in zip((ws["bu"], ws["bv"], ws["bp"]), want):
+            assert rel(a.cpu(), b.cpu()) <= TOL
+        assert torch.equal(ws["x1s"][1, 0].view(torch.int16),
+                           sgk.x1_state_copy(st).view(torch.int16))
