@@ -75,8 +75,20 @@ constexpr int NQPART = 3;
 
 // Kernel counts reported to the wrapper's launch counters: the stage, the
 // dt and sampled tails, the unsampled control, and the x1 stage and x1
-// sampled tail (matmul_algorithm=x1, float32; dt stays in C_DIAG).
-enum Count { C_STAGE, C_DIAG, C_CONTROL, C_STAGE_X1, C_DIAG_X1, C_COUNT };
+// sampled tail (matmul_algorithm=x1, float32; dt stays in C_DIAG); then
+// dt_kernel's launches alone (C_DT, also counted in C_DIAG).
+enum Count { C_STAGE, C_DIAG, C_CONTROL, C_STAGE_X1, C_DIAG_X1, C_DT,
+             C_COUNT };
+
+// dt_kernel's launch: a thread-block cluster of DT_CLUSTER blocks a lane
+// (the portable size), DT_THREADS threads a block, so the lane's
+// RED_THREADS slots of the reduction tree are spread over the cluster;
+// DT_ILP elements of each field in flight a thread (at N=128 a slot folds
+// 17 elements: 3 rounds of loads; 16 in flight took longer to N=128 and
+// gained 3% at N=320, scripts/sg_tail_ab.py on an H100).
+constexpr int DT_CLUSTER = 8;
+constexpr int DT_THREADS = RED_THREADS / DT_CLUSTER;
+constexpr int DT_ILP = 8;
 
 // Launch geometry of the stage kernel (sg_stage.cu), chosen on the host by
 // anap3_tpu_torch/ops/sg_kernels.py:stage_geometry and handed to every C
@@ -138,19 +150,43 @@ __host__ __device__ inline size_t x1_state_elems(int nf) {
 
 // One lane's state (u, v, p float32) into its bf16 copy xs, by thread t of
 // nt: each element rounded to nearest even, the padding left as it is.
+// X1_ILP elements of each field are loaded before any is stored (a store
+// may alias the next loads, so one at a time each would wait for memory).
+constexpr int X1_ILP = 8;
 __device__ __forceinline__ void x1_round_lane(const float* u, const float* v,
                                               const float* p,
                                               __nv_bfloat16* xs, int nf,
                                               int t, int nt) {
   const int n = nf - 1, ni = nf - 2, S = x1_sld(nf), Sp = x1_pld(nf);
-  for (int e = t; e < n * n; e += nt) {
-    const int i = e / n, j = e - i * n;
-    xs[i * S + j] = __float2bfloat16_rn(u[i * nf + j]);
-    xs[S * S + i * S + j] = __float2bfloat16_rn(v[i * nf + j]);
+  for (int e0 = t; e0 < n * n; e0 += X1_ILP * nt) {
+    float a[X1_ILP], b[X1_ILP];
+#pragma unroll
+    for (int q = 0; q < X1_ILP; ++q) {
+      const int e = e0 + q * nt, i = e / n, j = e - i * n;
+      a[q] = e < n * n ? u[i * nf + j] : 0.f;
+      b[q] = e < n * n ? v[i * nf + j] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < X1_ILP; ++q) {
+      const int e = e0 + q * nt, i = e / n, j = e - i * n;
+      if (e < n * n) {
+        xs[i * S + j] = __float2bfloat16_rn(a[q]);
+        xs[S * S + i * S + j] = __float2bfloat16_rn(b[q]);
+      }
+    }
   }
-  for (int e = t; e < ni * ni; e += nt) {
-    const int i = e / ni, j = e - i * ni;
-    xs[2 * S * S + i * Sp + j] = __float2bfloat16_rn(p[e]);
+  for (int e0 = t; e0 < ni * ni; e0 += X1_ILP * nt) {
+    float a[X1_ILP];
+#pragma unroll
+    for (int q = 0; q < X1_ILP; ++q) {
+      const int e = e0 + q * nt;
+      a[q] = e < ni * ni ? p[e] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < X1_ILP; ++q) {
+      const int e = e0 + q * nt, i = e / ni, j = e - i * ni;
+      if (e < ni * ni) xs[2 * S * S + i * Sp + j] = __float2bfloat16_rn(a[q]);
+    }
   }
 }
 
@@ -234,14 +270,22 @@ struct StageArgs {
   const T *u0, *v0, *p0;
   T *u_out, *v_out, *p_out;
   const T *tau_u, *tau_v, *tau_p;
-  const T* scal;  // reads scal[S_DT]
+  T* scal;  // reads scal[S_DT]; writes it with dt_part
   T alpha;
+  // Set on the first stage of a smoother step after the first: the
+  // partials (lanes, nparts, NDPART) of the base, which the previous
+  // step's last stage wrote. The stage takes dt from their maxima
+  // (dt_of) in place of scal[S_DT], and block (0, 0) of each lane writes
+  // it to scal[S_DT] for the step's later stages.
+  const T* dt_part;
   T* part;        // non-null on the last stage
-  // Both set on the last stage of a chunk step, which writes the base in
-  // place (u_out == u0, ...): a lane whose flags (lanes, 3) say done at the
-  // step's start stores nothing (the freeze), and dpart gets the partials
-  // of the base the stage leaves.
+  // Set on the last stage of a chunk step, which writes the base in place
+  // (u_out == u0, ...): a lane whose flags (lanes, 3) say done at the
+  // step's start stores nothing (the freeze).
   const int* flags;
+  // Set on the last stage of a chunk step and of every smoother step but
+  // the last: the partials of the base the stage leaves (its output, read
+  // back), from which the next step's dt comes.
   T* dpart;
   // x1 only: the bf16 copy of the stage input that the products read, and
   // where the copy of the stage output goes (lane 0's x1_state_elems)
@@ -253,6 +297,22 @@ struct StageArgs {
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
   return (a > b || a != a) ? a : b;
+}
+
+// The split cluster barrier: arrive publishes this thread's writes (shared
+// memory included) to the cluster; wait returns once every thread of the
+// cluster has arrived, and makes their writes visible. The relaxed arrive
+// publishes nothing: a block arrives so that its peers may know it runs.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // Correctly rounded operations that the compiler may not contract or
@@ -304,6 +364,26 @@ __device__ __forceinline__ T dt_of(T umax, T vmax, const T* s) {
   return div_rn(s[H_CFL], add_rn(lam_x, lam_y));
 }
 
+// dt_of on the largest of columns 0 and 1 of a lane's nparts partials of a
+// base (dl: the lane's (nparts, NDPART) table), in every lane of the
+// calling warp: a maximum is exact in any order, so this is dt_kernel's dt
+// of that base, bit for bit.
+template <typename T>
+__device__ __forceinline__ T warp_dt(const T* dl, int nparts, const T* lsc) {
+  T um = T(0), vm = T(0);
+#pragma unroll 4
+  for (int b = threadIdx.x % 32; b < nparts; b += 32) {
+    um = nan_max(um, dl[(size_t)b * NDPART]);
+    vm = nan_max(vm, dl[(size_t)b * NDPART + 1]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    um = nan_max(um, __shfl_xor_sync(0xffffffffu, um, off));
+    vm = nan_max(vm, __shfl_xor_sync(0xffffffffu, vm, off));
+  }
+  return dt_of(um, vm, lsc);
+}
+
 // Shared-memory k-tile of A (M x K, leading dim lda; row `row` of this
 // thread) and of B (K x N, leading dim ldb; column `col`), zero-masked on
 // the ragged edges of every extent. Thread (ty, tx) loads one element of
@@ -317,33 +397,6 @@ __device__ __forceinline__ void load_tiles(
                                         : T(0);
   Bs[ty][tx] = (k0 + ty < K && col < N) ? B[(size_t)(k0 + ty) * ldb + col]
                                         : T(0);
-}
-
-// Fixed-order tree sum over the block (deterministic; sh holds nthreads).
-template <typename T>
-__device__ T block_sum(T v, T* sh, int tid, int nthreads) {
-  sh[tid] = v;
-  __syncthreads();
-  for (int s = nthreads / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] += sh[tid + s];
-    __syncthreads();
-  }
-  T r = sh[0];
-  __syncthreads();
-  return r;
-}
-
-template <typename T>
-__device__ T block_max(T v, T* sh, int tid, int nthreads) {
-  sh[tid] = v;
-  __syncthreads();
-  for (int s = nthreads / 2; s > 0; s >>= 1) {
-    if (tid < s) sh[tid] = nan_max(sh[tid], sh[tid + s]);
-    __syncthreads();
-  }
-  T r = sh[0];
-  __syncthreads();
-  return r;
 }
 
 // What a step's tail finishes (every pointer lane 0's): the partial sums
@@ -378,9 +431,12 @@ __device__ __forceinline__ T fold(T a, T b) {
   else return a + b;
 }
 
-// Lane 0 of the calling warp (l: the thread's lane) gets what block_sum
-// (or block_max) over RED_THREADS threads gives when thread t first folds
-// col[b * stride] for b = t, t + RED_THREADS, ... < nb: lane l holds the
+// The fixed-order tree of the SG reductions over RED_THREADS slots: slot t
+// first folds col[b * stride] for b = t, t + RED_THREADS, ... < nb, then
+// level s = RED_THREADS / 2, ..., 1 folds slot t + s into slot t for t < s
+// (the one-block dt kernel's shared-memory tree, whose bits the sums have
+// kept). Lane 0 of the calling warp (l: the thread's lane) gets slot 0:
+// lane l holds the
 // slots l + 32 m, runs the tree's levels 512 .. 32 on them (they pair slot
 // m with m + s / 32 of the same lane), then levels 16 .. 1 by shuffles,
 // which pair lane l with l + s as the tree does. Slots past nb hold zeros,

@@ -15,8 +15,8 @@
 //   (5 of the last stage, 4 of the base it left; one value per stage block,
 //   128 at N=128) are a few KB, L2-resident; a launch costs ~3 us of floor.
 // Design: one block a lane, one warp a column, all columns at once; each
-//   warp reproduces the fixed-order 1024-slot tree of block_sum (warp_tree
-//   in sg_common.cuh), so the sums keep their bits, and the maxima are exact
+//   warp reproduces the fixed-order 1024-slot tree (warp_tree in
+//   sg_common.cuh), so the sums keep their bits, and the maxima are exact
 //   in any order. Thread 0 runs the state machine (finish_lane), then writes dt
 //   and the base norms for the next step from the columns of the base, so
 //   dt_kernel runs once a chunk. No state moves here: the last stage wrote

@@ -9,20 +9,32 @@
 //   adaptive_dt and conserved_quantities.
 //
 // Bound on the card: latency. dt_kernel reads two (nf, nf) fields (133 KB
-//   at N=128, L2-resident) with one block. The quadratures need two dense
+//   at N=128, L2-resident): its time is the launch and the chain of
+//   dependent load rounds of a slot (17 at N=128, 101 at N=320, of 1024
+//   slots). The quadratures need two dense
 //   products in a row (omega depends on a whole product, and grad(omega) on
 //   the whole of omega: 8 nf^3 operations, 17 MFLOP at N=128), then a
 //   reduction of their per-tile partials: three dependent steps, each a
 //   few microseconds of work, against a launch floor of ~3 us and a grid
 //   barrier of ~1.2-1.7 us (scripts/launch_floor.cu, H100).
 // Design:
-//   - dt_kernel is ONE block a lane, so max|u_tot|, max|v_tot| and the base
-//     norms |u0|^2, |v0|^2 reduce in a fixed-order tree; it writes dt into a
-//     device scalar that every stage reads, so no host sync enters the
-//     step. A chunk runs it at its first step only: the last stage of every
-//     step sums the base it leaves, and the step's finish sets the next dt
-//     from those sums (sg_control.cu, finish in sg_common.cuh). The step
-//     and the smoother run it every step.
+//   - dt_kernel reduces max|u_tot|, max|v_tot| and the base norms |u0|^2,
+//     |v0|^2 of a lane in the fixed-order tree of RED_THREADS slots (slot t
+//     folds k = t, t + RED_THREADS, ...; then the tree of sg_common.cuh:
+//     warp_tree over the slots) and writes dt into a device scalar that
+//     every stage reads, so no host sync enters the step. A lane is a thread-block
+//     cluster of DT_CLUSTER blocks of DT_THREADS threads, so the slots of
+//     one lane are spread over 8 SMs, each thread with DT_ILP loads of each
+//     field in flight (the one-block kernel it replaces had one); each
+//     block pushes its slots into the leader block's shared memory over
+//     DSMEM, and the leader runs the tree (warp_tree, one warp a value), so
+//     dt and the norms keep the one-block kernel's bits. A card or grid
+//     that cannot take the cluster is refused with an error. A chunk runs
+//     it at its first step only: the last stage of every step sums the base
+//     it leaves, and the step's finish sets the next dt from those sums
+//     (sg_control.cu, finish in sg_common.cuh); the smoother at its first
+//     step only (its stages carry the next dt, sg_host.cu); the step every
+//     step.
 //   - tail_kernel is the sampled tail in one persistent cooperative launch
 //     (cudaLaunchAttributeCooperative) of min(tiles^2 x lanes, co-resident)
 //     blocks of 16 x 16 threads: omega = Dx v - u DyT tile by tile with the
@@ -31,7 +43,7 @@
 //     (a chunk step's row, state machine and next dt, or a step's six
 //     metrics), having reduced the stage's partial columns before the
 //     tiles. Block b takes the (tile, lane) items b, b + grid, ... in
-//     both tile phases. Each tile's partial is the 256-slot block_sum of its
+//     both tile phases. Each tile's partial is the 256-slot tree sum of its
 //     cells and each lane sum the 1024-slot tree over the tiles, as the
 //     three launches it replaces summed them, so E, Z and P keep their bits.
 //   - No fallback: a card without cooperative launch, a grid above the
@@ -50,14 +62,15 @@
 //   corner (N, N) only (omega's border is not constant): two warp sums in
 //   the corner's tile.
 //   The x1 chunk's dt_kernel<float, true> also rounds the chunk's starting
-//   state into its bf16 copy (sg_common.cuh:x1_round_lane), which the x1
+//   state into its bf16 copy (sg_common.cuh:x1_round_lane, spread over the
+//   cluster's threads, between the two cluster barriers), which the x1
 //   stage kernel's products read; x1_round_kernel does the same for the
 //   bench entry's stage input. The bench needs a launch of its own: its
 //   stage reads set A, which the caller fills with any state (no solve
 //   launch writes A's copy there), and dt_kernel, the other launch that
 //   rounds, rounds the base and writes the chunk's dt from it, which the
 //   bench's stage must take as the caller's dt launch left it.
-// Lanes: dt_kernel runs one block per lane; tail_kernel's items carry their
+// Lanes: dt_kernel runs one cluster per lane; tail_kernel's items carry their
 //   lane, whose operators, scalars and partials they use (see
 //   sg_common.cuh), and the finish of lane b reads only lane b's partials.
 #include <cooperative_groups.h>
@@ -70,41 +83,78 @@ namespace {
 
 namespace cg = cooperative_groups;
 
+// Grid (DT_CLUSTER, lanes), clusters of DT_CLUSTER blocks along x: block
+// rank r of lane b's cluster holds the slots r DT_THREADS + threadIdx.x.
 template <typename T, bool X1>
-__global__ void dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal,
-                          int nf, const T* p, __nv_bfloat16* x1s) {
-  const int lane = blockIdx.x;
+__global__ void __launch_bounds__(DT_THREADS)
+    dt_kernel(Ops<T> o0, const T* u, const T* v, T* scal, int nf,
+              const T* p, __nv_bfloat16* x1s) {
+  cg::cluster_group cluster = cg::this_cluster();
+  // this block runs: its peers may push into the leader once all arrived
+  cluster_arrive_relaxed();
+  const int lane = blockIdx.y;
   const Ops<T> o = at_lane(o0, lane, nf);
   u += lane * lane_full(nf);
   v += lane * lane_full(nf);
   scal += (size_t)lane * S_COUNT;
-  __shared__ T sh[RED_THREADS];
-  const int tid = threadIdx.x;
+  // the leader's table of the lane's slots: umax, vmax, usq, vsq
+  __shared__ T slots[4][RED_THREADS];
+  __shared__ T res[4];
+  const int tid = threadIdx.x, rank = (int)cluster.block_rank();
+  const int t = rank * DT_THREADS + tid;
   const int n = nf * nf;
   T umax = 0, vmax = 0, usq = 0, vsq = 0;
-  for (int k = tid; k < n; k += RED_THREADS) {
-    T uu = u[k], vv = v[k];
-    usq += uu * uu;
-    vsq += vv * vv;
-    if (o.su) {  // wave speeds belong to the TOTAL velocity
-      uu += o.su[k];
-      vv += o.sv[k];
+  for (int k0 = t; k0 < n; k0 += DT_ILP * RED_THREADS) {
+    // DT_ILP elements of the slot loaded at once, then folded in k order
+    T uu[DT_ILP], vv[DT_ILP], su[DT_ILP], sv[DT_ILP];
+#pragma unroll
+    for (int j = 0; j < DT_ILP; ++j) {
+      const int k = k0 + j * RED_THREADS;
+      const bool in = k < n;
+      uu[j] = in ? u[k] : T(0);
+      vv[j] = in ? v[k] : T(0);
+      su[j] = in && o.su ? o.su[k] : T(0);
+      sv[j] = in && o.su ? o.sv[k] : T(0);
     }
-    umax = nan_max(umax, (T)fabs(uu));
-    vmax = nan_max(vmax, (T)fabs(vv));
+#pragma unroll
+    for (int j = 0; j < DT_ILP; ++j) {
+      if (k0 + j * RED_THREADS < n) {
+        T a = uu[j], b = vv[j];
+        usq += a * a;
+        vsq += b * b;
+        if (o.su) {  // wave speeds belong to the TOTAL velocity
+          a += su[j];
+          b += sv[j];
+        }
+        umax = nan_max(umax, (T)fabs(a));
+        vmax = nan_max(vmax, (T)fabs(b));
+      }
+    }
   }
-  umax = block_max(umax, sh, tid, RED_THREADS);
-  vmax = block_max(vmax, sh, tid, RED_THREADS);
-  usq = block_sum(usq, sh, tid, RED_THREADS);
-  vsq = block_sum(vsq, sh, tid, RED_THREADS);
-  if (tid == 0) {
-    scal[S_DT] = dt_of(umax, vmax, o.lsc + (size_t)lane * H_COUNT);
-    scal[S_U0SQ] = usq;
-    scal[S_V0SQ] = vsq;
-  }
+  cluster_wait();  // every block of the cluster runs
+  T* lead = cluster.map_shared_rank(&slots[0][0], 0);
+  lead[t] = umax;
+  lead[RED_THREADS + t] = vmax;
+  lead[2 * RED_THREADS + t] = usq;
+  lead[3 * RED_THREADS + t] = vsq;
+  cluster_arrive();  // publishes the pushes
   if constexpr (X1)  // the x1 chunk's base, rounded once at its start
     x1_round_lane(u, v, p + lane * lane_inner(nf),
-                  x1s + lane * x1_state_elems(nf), nf, tid, RED_THREADS);
+                  x1s + lane * x1_state_elems(nf), nf, t, RED_THREADS);
+  cluster_wait();  // every slot is in the leader's table
+  if (rank != 0) return;
+  const int w = tid / 32, l = tid % 32;
+  if (w < 4) {
+    const T r = w < 2 ? warp_tree<true>(slots[w], 1, RED_THREADS, l)
+                      : warp_tree<false>(slots[w], 1, RED_THREADS, l);
+    if (l == 0) res[w] = r;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    scal[S_DT] = dt_of(res[0], res[1], o.lsc + (size_t)lane * H_COUNT);
+    scal[S_U0SQ] = res[2];
+    scal[S_V0SQ] = res[3];
+  }
 }
 
 // The bench entry's x1 stage input: grid (blocks, lanes).
@@ -130,10 +180,11 @@ struct TileSmem {
   T vals[2][TILE * TILE];
 };
 
-// A tile's cell values col[0, 256) summed as block_sum over 256 threads
-// sums them: lane l takes the tree's first three levels from its eight
-// slots l + 32 j in the tree's pair order, then the last five by shuffles
-// (lane l with l + s). Valid in lane 0.
+// A tile's cell values col[0, 256) summed in the fixed 256-slot tree
+// (level s = 128, ..., 1 folds slot t + s into slot t): lane l takes the
+// tree's first three levels from its eight slots l + 32 j in the tree's
+// pair order, then the last five by shuffles (lane l with l + s). Valid in
+// lane 0.
 template <typename T>
 __device__ __forceinline__ T tile_sum(const T* col, int l) {
   T x = ((col[l] + col[l + 128]) + (col[l + 64] + col[l + 192])) +
@@ -363,24 +414,55 @@ __global__ void __launch_bounds__(TILE * TILE, 2)
   }
 }
 
+// One dt launch of `lanes` clusters; the first launch of each instance
+// asks whether the card can schedule such a cluster, and refuses it if not.
+template <typename T, bool X1>
+cudaError_t launch_dt_clusters(const Ops<T>& o, const T* u, const T* v,
+                               T* scal, int nf, int lanes, cudaStream_t s,
+                               const T* p, __nv_bfloat16* x1s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(DT_CLUSTER, lanes);
+  cfg.blockDim = dim3(DT_THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = DT_CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static bool checked = false;
+  if (!checked) {
+    int n = 0;
+    cudaError_t err =
+        cudaOccupancyMaxActiveClusters(&n, dt_kernel<T, X1>, &cfg);
+    if (err == cudaSuccess && n < 1) err = cudaErrorInvalidClusterSize;
+    if (err != cudaSuccess) return err;
+    checked = true;
+  }
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, dt_kernel<T, X1>, o, u, v,
+                                             scal, nf, p, x1s);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 }  // namespace
 
 template <typename T>
 cudaError_t launch_dt(const Ops<T>& o, const T* u, const T* v, T* scal,
                       int nf, int lanes, cudaStream_t s, const T* p,
                       __nv_bfloat16* x1s) {
+  if (lanes < 1 || lanes > 65535) return cudaErrorInvalidValue;
   if (x1s) {  // the x1 chunk's start (float32 only)
     if constexpr (sizeof(T) == 4) {
       if (!p) return cudaErrorInvalidValue;
-      dt_kernel<T, true><<<lanes, RED_THREADS, 0, s>>>(o, u, v, scal, nf, p,
-                                                        x1s);
-      return cudaGetLastError();
+      return launch_dt_clusters<T, true>(o, u, v, scal, nf, lanes, s, p,
+                                         x1s);
     }
     return cudaErrorInvalidValue;
   }
-  dt_kernel<T, false><<<lanes, RED_THREADS, 0, s>>>(o, u, v, scal, nf,
-                                                     nullptr, nullptr);
-  return cudaGetLastError();
+  return launch_dt_clusters<T, false>(o, u, v, scal, nf, lanes, s, nullptr,
+                                      nullptr);
 }
 
 cudaError_t launch_x1_round(const float* u, const float* v, const float* p,

@@ -26,9 +26,14 @@
 // of each step being the previous step's output buffer (two buffers taken
 // in turn, arranged so the last step lands in the output: no copy), and
 // computes the metrics of the last step only, as the V-cycle keeps only
-// those: 5 launches per step (dt and four stages) plus 1, against 6 per
-// step for n_steps calls of sg_step_run. Bound: like the step, by the launches' latency at the
-// V-cycle's sizes (a step's products are ~0.2 GFLOP at N=192).
+// those. dt_kernel runs at the first step only: the last stage of every
+// other step also writes the partials of the state it leaves (out of
+// place, P_DPART), and the first stage of the next step takes its dt from
+// their maxima (sg_stage.cu). So a call is 4 launches a step plus 2 (dt
+// and the tail kernel), against 6 a step for n_steps calls of sg_step_run,
+// with the same bits: a maximum is exact in any order and dt_of is the dt
+// kernel's arithmetic. Bound: like the step, by the launches' latency at
+// the V-cycle's sizes (a step's products are ~0.2 GFLOP at N=192).
 //
 // With x1 = 1 (matmul_algorithm=x1, float32 only) a chunk runs the x1
 // instances of the stage and tail kernels (one bf16 tensor-core pass a
@@ -126,22 +131,28 @@ __nv_bfloat16* x1_set(const Work<T>& w, int nf, int k) {
   return w.x1s + (size_t)k * w.lanes * x1_state_elems(nf);
 }
 
+// Where a step's dt comes from: dt_kernel on the base; scal[S_DT] as the
+// previous step's tail left it (a chunk); the partials of the base that
+// the previous step's last stage left in w.dpart (a smoother).
+enum class Dt { KERNEL, SCAL, PARTS };
+
 // The four RK stages from the base state (base -> A -> B -> A -> out),
-// after dt when `with_dt`; the last stage writes the partials. Without
-// `flags` the step lands in the B buffers. With the chunk's `flags` it
-// lands in the base itself, except where a lane began the step done, and
-// the last stage also writes the next base's partials (w.dpart). The x1
-// stages read and write the bf16 copies of the same buffers; dt rounds the
-// base into its copy.
+// with dt from `dt`; the last stage writes the partials, and with
+// `leave_parts` also the partials of the state it leaves (w.dpart).
+// Without `flags` the step lands in the B buffers. With the chunk's
+// `flags` it lands in the base itself, except where a lane began the step
+// done. The x1 stages read and write the bf16 copies of the same buffers;
+// dt rounds the base into its copy.
 template <typename T>
-int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
+int rk4(const Work<T>& w, int nf, bool with_tau, Dt dt, bool leave_parts,
         const int* flags, int* counts, cudaStream_t s) {
   const bool x1 = w.g.x1;
-  if (with_dt) {
+  if (dt == Dt::KERNEL) {
     SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, w.lanes, s,
                           x1 ? w.p : nullptr,
                           x1 ? x1_set(w, nf, 0) : nullptr));
     counts[C_DIAG] += 1;
+    counts[C_DT] += 1;
   }
   const int x_in[4] = {0, 1, 2, 1};
   const int x_out[4] = {1, 2, 1, flags ? 0 : 2};
@@ -152,7 +163,7 @@ int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
   T* out_v[4] = {w.av, w.bv, w.av, flags ? w.v : w.bv};
   T* out_p[4] = {w.ap, w.bp, w.ap, flags ? w.p : w.bp};
   for (int st = 0; st < 4; ++st) {
-    StageArgs<T> a;
+    StageArgs<T> a = {};
     a.u_in = in_u[st]; a.v_in = in_v[st]; a.p_in = in_p[st];
     a.u0 = w.u; a.v0 = w.v; a.p0 = w.p;
     a.u_out = out_u[st]; a.v_out = out_v[st]; a.p_out = out_p[st];
@@ -163,7 +174,8 @@ int rk4(const Work<T>& w, int nf, bool with_tau, bool with_dt,
     a.alpha = T(kAlphas[st]);
     a.part = st == 3 ? w.part : nullptr;
     a.flags = st == 3 ? flags : nullptr;
-    a.dpart = st == 3 && flags ? w.dpart : nullptr;
+    a.dpart = st == 3 && leave_parts ? w.dpart : nullptr;
+    a.dt_part = st == 0 && dt == Dt::PARTS ? w.dpart : nullptr;
     a.x1_in = x1 ? x1_set(w, nf, x_in[st]) : nullptr;
     a.x1_out = x1 ? x1_set(w, nf, x_out[st]) : nullptr;
     SG_CHECK(launch_stage<T>(w.o, a, nf, w.lanes, w.g, s));
@@ -192,7 +204,8 @@ int step_run(const void* const* P, int nf, const int* geo, int with_tau,
              int tail_blocks, int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, 1);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), 0, &w.g));
-  int rc = rk4<T>(w, nf, with_tau != 0, true, nullptr, counts, s);
+  int rc = rk4<T>(w, nf, with_tau != 0, Dt::KERNEL, false, nullptr, counts,
+                  s);
   if (rc) return rc;
   return metrics_tail(w, P, nf, tail_blocks, counts, s);
 }
@@ -202,13 +215,18 @@ int smooth_run(const void* const* P, int nf, const int* geo, int n_steps,
                int with_tau, int tail_blocks, int* counts, cudaStream_t s) {
   Work<T> w = make_work<T>(P, 1);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), 0, &w.g));
+  // the tree that reduces the partials (warp_tree) takes this many
+  if (w.g.nparts > TREE_PASSES * RED_THREADS)
+    return (int)cudaErrorInvalidValue;
   auto m = [&](int k) { return static_cast<T*>(const_cast<void*>(P[k])); };
   T* const outs[2][3] = {{w.bu, w.bv, w.bp}, {m(P_CU), m(P_CV), m(P_CP)}};
   Work<T> wi = w;  // step i: base = step i-1's output (the input for i = 0)
   for (int i = 0; i < n_steps; ++i) {
     T* const* o = outs[(n_steps - 1 - i) % 2];
     wi.bu = o[0]; wi.bv = o[1]; wi.bp = o[2];
-    int rc = rk4<T>(wi, nf, with_tau != 0, true, nullptr, counts, s);
+    // dt: the kernel at the first step, then the previous step's partials
+    int rc = rk4<T>(wi, nf, with_tau != 0, i == 0 ? Dt::KERNEL : Dt::PARTS,
+                    i + 1 < n_steps, nullptr, counts, s);
     if (rc) return rc;
     wi.u = wi.bu; wi.v = wi.bv; wi.p = wi.bp;
   }
@@ -228,7 +246,8 @@ int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
   for (int i = 0; i < chunk; ++i) {
     const int idx = start_iter + i;
     // dt at the chunk's first step; later steps take it from the tail
-    int rc = rk4<T>(w, nf, false, i == 0, flags, counts, s);
+    int rc = rk4<T>(w, nf, false, i == 0 ? Dt::KERNEL : Dt::SCAL, true,
+                    flags, counts, s);
     if (rc) return rc;
     Tail<T> t = chunk_tail(w, P, i, idx, warmup, tol, use_residual);
     t.x1 = x1;
@@ -250,14 +269,16 @@ int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
 // `lanes` lanes (0: one last stage of a chunk step, out of place into the
 // B buffers, with the base's partials; 1: dt; 2: a sampled step's tail;
 // 3: an unsampled step's control), the x1 instances with x1; the x1 stage
-// reads the bf16 copy of the A buffers, which one launch rounds first.
+// reads the bf16 copy of the A buffers, which one launch rounds first, and
+// the x1 dt rounds the base into its copy (the x1 chunk's first launch).
 // Not part of any solve.
 template <typename T>
 int bench_run(const void* const* P, int nf, const int* geo, int lanes,
               int which, int reps, int x1, int tail_blocks, cudaStream_t s) {
   Work<T> w = make_work<T>(P, lanes);
   SG_CHECK(stage_geometry(geo, nf, sizeof(T), x1, &w.g));
-  if (x1 && !w.o.x1b) return (int)cudaErrorInvalidValue;
+  if (x1 && (!w.o.x1b || (which == 1 && !w.x1s)))
+    return (int)cudaErrorInvalidValue;
   Tail<T> t = chunk_tail(w, P, 0, 0, 1 << 30, 0.0, 0);
   t.x1 = x1;
   if (which == 0 && x1) {
@@ -269,7 +290,7 @@ int bench_run(const void* const* P, int nf, const int* geo, int lanes,
   }
   for (int r = 0; r < reps; ++r) {
     if (which == 0) {
-      StageArgs<T> a;
+      StageArgs<T> a = {};
       a.u_in = w.au; a.v_in = w.av; a.p_in = w.ap;
       a.u0 = w.u; a.v0 = w.v; a.p0 = w.p;
       a.u_out = w.bu; a.v_out = w.bv; a.p_out = w.bp;
@@ -282,8 +303,10 @@ int bench_run(const void* const* P, int nf, const int* geo, int lanes,
       a.x1_in = x1 ? x1_set(w, nf, 1) : nullptr;
       a.x1_out = x1 ? x1_set(w, nf, 2) : nullptr;
       SG_CHECK(launch_stage<T>(w.o, a, nf, lanes, w.g, s));
-    } else if (which == 1) {
-      SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, lanes, s));
+    } else if (which == 1) {  // with x1, rounding the base into its copy
+      SG_CHECK(launch_dt<T>(w.o, w.u, w.v, w.scal, nf, lanes, s,
+                            x1 ? w.p : nullptr,
+                            x1 ? x1_set(w, nf, 0) : nullptr));
     } else if (which == 2) {
       SG_CHECK(launch_tail<T>(w.o, w.u, w.v, w.omega, t, nf, lanes,
                               tail_blocks, s));

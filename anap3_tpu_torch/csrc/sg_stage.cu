@@ -27,8 +27,14 @@
 //     by the same thread; the products read only the stage input), skips
 //     the stores of a lane that began the step done, and also sums the base
 //     it leaves (max|u + su|, max|v + sv|, |u|^2, |v|^2: the next step's dt
-//     and rel), so no state copy and no dt pass follow it. No scratch
-//     round trip: the velocity products
+//     and rel), so no state copy and no dt pass follow it. The last stage
+//     of a smoother step (out of place) sums the state it leaves the same
+//     way, and the first stage of the next step reduces the maxima of
+//     those partials to its dt in every block (dt_of, the dt kernel's
+//     arithmetic), the loads in flight with the epilogue's own, so no dt
+//     pass precedes that step either; that stage is an instance of its
+//     own (DT), so every other stage runs the code it ran before. No
+//     scratch round trip: the velocity products
 //     Dx u, Dxx u, Dx v, Dxx v of a tile take only the Dx/Dxx row band and
 //     the u/v column band of the tile, so the block computes them itself
 //     beside u DyT, u DyyT, v DyT, v DyyT.
@@ -61,7 +67,7 @@
 //   - every sum runs in one fixed order (k ascending, then a fixed warp tree
 //     for the partials), so a run reproduces bit for bit.
 // x1 (matmul_algorithm=x1, float32 only): the instance stage_kernel<float,
-//   TN, true> replaces the aligned kernel's x1 mode (anap3_tpu/ops/
+//   TN, true, false> replaces the aligned kernel's x1 mode (anap3_tpu/ops/
 //   pallas_aligned.py make_aligned_chunk_runner with algorithm="x1",
 //   _DotEngine's x1 branches in pallas_tiled.py): the products as ONE bf16
 //   tensor-core pass with float32 sums, on the bordered core, whose index
@@ -272,17 +278,6 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// The split cluster barrier: arrive publishes this thread's writes (shared
-// memory included) to the cluster; wait returns once every thread of the
-// cluster has arrived, and makes their writes visible.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The operands of one contraction over k < K: NA row bands a[q][row0 + r][k]
@@ -829,9 +824,13 @@ __device__ __forceinline__ void x1_products(
   }
 }
 
-template <typename T, int TN, bool X1>
+// DT: the instance that takes dt from a0.dt_part (the first stage of a
+// smoother step after the first), so that every other stage runs the code
+// it ran before the smoother took dt from its partials.
+template <typename T, int TN, bool X1, bool DT>
 __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
     stage_kernel(Ops<T> o0, StageArgs<T> a0, int nf, StageGeo g) {
+  static_assert(!(X1 && DT), "the smoother runs no x1");
   constexpr int TM = STAGE_TM, NT0 = stage_group_threads(TN);
   static_assert(STAGE_RM == 2 && STAGE_RN == 2 && NT0 % 32 == 0,
                 "2 x 2 outputs a thread, whole warps a group");
@@ -989,7 +988,22 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
               p0);
   const T* lsc = o0.lsc + (size_t)lane * H_COUNT;
   const T nu = lsc[H_NU], beta_sq = lsc[H_BETA];
-  const T adt = a0.alpha * a0.scal[(size_t)lane * S_COUNT + S_DT];
+  // dt: the device scalar; in the DT instance, from the partials of the
+  // base, which every warp of k group 0 reduces, their loads in flight
+  // with the inputs' (reduced before the products and held through them,
+  // dt cost the f64 instances a stack frame)
+  T dt = T(0);
+  if constexpr (DT) {
+    if (kg == 0) {
+      dt = warp_dt(a0.dt_part + (size_t)lane * g.nparts * NDPART, g.nparts,
+                   lsc);
+      if (tid == 0 && blockIdx.x == 0 && blockIdx.y == 0)
+        a0.scal[(size_t)lane * S_COUNT + S_DT] = dt;  // for stages 2-4
+    }
+  } else {
+    dt = a0.scal[(size_t)lane * S_COUNT + S_DT];
+  }
+  const T adt = a0.alpha * dt;
   T sums[NPART] = {T(0), T(0), T(0), T(0), T(0)};
   if (kg == 0) {
     // the optional fields (FAS forcing, sampled singular derivatives),
@@ -1146,7 +1160,7 @@ __global__ void __launch_bounds__(stage_max_threads(sizeof(T), TN))
   cluster_wait();  // no block leaves while a peer may read its slices
 }
 
-template <typename T, int TN, bool X1>
+template <typename T, int TN, bool X1, bool DT>
 cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
                       int lanes, const StageGeo& g, cudaStream_t s) {
   // shared memory above 48 KB, and for 48-wide tiles clusters above the
@@ -1154,11 +1168,11 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
-        stage_kernel<T, TN, X1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        MAX_SMEM);
+        stage_kernel<T, TN, X1, DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
     if (err == cudaSuccess && TN == 48)
       err = cudaFuncSetAttribute(
-          stage_kernel<T, TN, X1>,
+          stage_kernel<T, TN, X1, DT>,
           cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     opted_in = true;
@@ -1183,7 +1197,7 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
        checked[2] != g.ksplit)) {
     int n = 0;
     cudaError_t err =
-        cudaOccupancyMaxActiveClusters(&n, stage_kernel<T, TN, X1>, &cfg);
+        cudaOccupancyMaxActiveClusters(&n, stage_kernel<T, TN, X1, DT>, &cfg);
     if (err == cudaSuccess && n < 1) err = cudaErrorInvalidClusterSize;
     if (err != cudaSuccess) return err;
     checked[0] = g.cluster;
@@ -1191,7 +1205,7 @@ cudaError_t launch_tn(const Ops<T>& o, const StageArgs<T>& a, int nf,
     checked[2] = g.ksplit;
   }
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, stage_kernel<T, TN, X1>, o, a, nf, g);
+      cudaLaunchKernelEx(&cfg, stage_kernel<T, TN, X1, DT>, o, a, nf, g);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -1202,19 +1216,28 @@ cudaError_t launch_stage(const Ops<T>& o, const StageArgs<T>& a, int nf,
                          int lanes, const StageGeo& g, cudaStream_t s) {
   if (g.x1) {  // the bf16 tensor-core instance, float32 only
     if constexpr (sizeof(T) == 4) {
+      if (a.dt_part) return cudaErrorInvalidValue;
       switch (g.tn) {
-        case 16: return launch_tn<T, 16, true>(o, a, nf, lanes, g, s);
-        case 32: return launch_tn<T, 32, true>(o, a, nf, lanes, g, s);
-        case 48: return launch_tn<T, 48, true>(o, a, nf, lanes, g, s);
+        case 16: return launch_tn<T, 16, true, false>(o, a, nf, lanes, g, s);
+        case 32: return launch_tn<T, 32, true, false>(o, a, nf, lanes, g, s);
+        case 48: return launch_tn<T, 48, true, false>(o, a, nf, lanes, g, s);
         default: return cudaErrorInvalidValue;
       }
     }
     return cudaErrorInvalidValue;
   }
+  if (a.dt_part) {  // dt from the base's partials
+    switch (g.tn) {
+      case 16: return launch_tn<T, 16, false, true>(o, a, nf, lanes, g, s);
+      case 32: return launch_tn<T, 32, false, true>(o, a, nf, lanes, g, s);
+      case 48: return launch_tn<T, 48, false, true>(o, a, nf, lanes, g, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
   switch (g.tn) {
-    case 16: return launch_tn<T, 16, false>(o, a, nf, lanes, g, s);
-    case 32: return launch_tn<T, 32, false>(o, a, nf, lanes, g, s);
-    case 48: return launch_tn<T, 48, false>(o, a, nf, lanes, g, s);
+    case 16: return launch_tn<T, 16, false, false>(o, a, nf, lanes, g, s);
+    case 32: return launch_tn<T, 32, false, false>(o, a, nf, lanes, g, s);
+    case 48: return launch_tn<T, 48, false, false>(o, a, nf, lanes, g, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -34,7 +34,8 @@ from .params import SpectralParameters
 
 __all__ = ["SpectralOps", "SpectralState", "build_spectral_ops", "ops_from_jax",
            "state_from_numpy", "state_to_numpy", "initial_state", "enforce_bc",
-           "residuals", "adaptive_dt", "rk4_step", "sg_step",
+           "residuals", "adaptive_dt", "dt_of_maxima", "rk4_step",
+           "sg_step",
            "conserved_quantities", "vorticity", "extrapolate_inner_to_full"]
 
 RK4_ALPHAS = (0.25, 1.0 / 3.0, 0.5, 1.0)
@@ -282,8 +283,14 @@ def adaptive_dt(ops: SpectralOps, u, v) -> torch.Tensor:
     if ops.singular:
         u = u + ops.sing_u
         v = v + ops.sing_v
-    u_max = torch.clamp_min(torch.max(torch.abs(u)), ops.lid_velocity)
-    v_max = torch.clamp_min(torch.max(torch.abs(v)), 1e-10)
+    return dt_of_maxima(ops, torch.max(torch.abs(u)), torch.max(torch.abs(v)))
+
+
+def dt_of_maxima(ops: SpectralOps, u_abs_max, v_abs_max) -> torch.Tensor:
+    """``adaptive_dt`` from the largest |u| and |v| of the total velocity
+    (0-d tensors)."""
+    u_max = torch.clamp_min(u_abs_max, ops.lid_velocity)
+    v_max = torch.clamp_min(v_abs_max, 1e-10)
     lam_x = (u_max + torch.sqrt(u_max ** 2 + ops.beta_sq)) * ops.inv_dx_min \
         + ops.nu * ops.inv_dx_min ** 2
     lam_y = (v_max + torch.sqrt(v_max ** 2 + ops.beta_sq)) * ops.inv_dy_min \

@@ -59,8 +59,13 @@ base it leaves; then one launch finishes the step: ``control_kernel``
 of ``tail_grid(nf, lanes, co-resident blocks)`` blocks. The finish sets the
 next step's dt, so ``dt_kernel`` runs at a chunk's first step only. A
 chunk is ``chunk_launches(chunk, start_iter, metrics_every)`` launches; a
-step is dt, four stages and the tail kernel; the smoother dt and four
-stages a step, then the tail kernel.
+step is dt, four stages and the tail kernel; the smoother dt, four stages
+a step, then the tail kernel: its last stage of a step leaves the
+partials of the next step's base, and the next step's first stage takes
+dt from their maxima, so ``smoother_launches(n)`` is 4 n + 2.
+``dt_kernel`` is one thread-block cluster a lane (csrc/sg_diag.cu);
+``base_parts`` and ``dt_from_parts`` are the plain versions of the
+partials and of dt from them.
 
 matmul_algorithm=x1: ``make_sg_chunk_runner(..., x1=True)`` (float32
 only) runs the chunk with every product as one bf16 tensor-core pass, the
@@ -80,16 +85,19 @@ applies; the step and the smoother have no x1 mode.
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
 by kernel (sg_stage: one per RK stage; sg_diag: dt and the tail kernel;
 sg_control: the unsampled control; sg_stage_x1 and sg_diag_x1: the x1
-stage and x1 tail launches); ``PLAIN_CALLS`` counts calls of the plain
-versions. ``reset_counts()`` zeroes both.
+stage and x1 tail launches); ``PART_LAUNCHES`` counts dt_kernel's alone
+(also in sg_diag's); ``PLAIN_CALLS`` counts calls of the plain versions.
+``reset_counts()`` zeroes all three.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from fractions import Fraction
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..models import spectral_sg as core
@@ -107,7 +115,8 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "bench_kernel", "chunk_workspace", "scalar_table", "chunk_body",
            "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
            "tail_block_items", "MAX_TAIL_ITEMS", "chunk_launches",
-           "BENCH_GROUPS"]
+           "smoother_launches", "BENCH_GROUPS", "PARTS", "PART_LAUNCHES",
+           "base_parts", "dt_from_parts"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
@@ -123,6 +132,10 @@ MAX_X1_N = 320
 # the timed launch groups of bench_kernel (csrc/sg_host.cu:bench_run)
 BENCH_GROUPS = ("sg_stage", "dt", "tail", "sg_control")
 LAUNCHES = {k: 0 for k in KERNELS}
+# a kernel's launches counted apart from its counter's
+# (csrc/sg_common.cuh:C_DT, after the KERNELS counts)
+PARTS = ("dt_kernel",)
+PART_LAUNCHES = {k: 0 for k in PARTS}
 PLAIN_CALLS = {"sg_step": 0, "sg_chunk": 0, "sg_smooth": 0}
 
 # pointer-table order of csrc/sg_common.cuh:Ptr
@@ -416,21 +429,35 @@ def chunk_launches(chunk: int, start_iter: int, metrics_every: int,
             "sg_control": chunk - sampled}
 
 
+def smoother_launches(n_steps: int) -> dict:
+    """The launches of one smoother call of ``n_steps`` steps by kernel:
+    four stages a step, dt at the first step and the tail kernel at the
+    end (sg_diag), 4 n + 2 in all."""
+    return {"sg_stage": 4 * n_steps, "sg_diag": 2}
+
+
 def _check_launches(counts, chunk, start_iter, metrics_every, x1=False):
-    """Raise where the C entry's counts differ from the chunk's plan."""
+    """Raise where the C entry's counts (KERNELS', then PARTS' where
+    given) differ from the chunk's plan: dt_kernel once, at the first step."""
     got = {k: 0 for k in KERNELS}
-    got.update(zip(KERNELS, (int(n) for n in counts)))
+    got.update(zip(KERNELS + PARTS, (int(n) for n in counts)))
     plan = chunk_launches(chunk, start_iter, metrics_every, x1)
     want = {k: plan.get(k, 0) for k in KERNELS}
+    if "dt_kernel" in got:
+        want["dt_kernel"] = int(chunk > 0)
     if got != want:
         raise RuntimeError(f"chunk launches {got}, planned {want}")
 
 
+def _new_counts():
+    """The C entries' launch counts (csrc/sg_common.cuh:Count), zeroed."""
+    return (ctypes.c_int * (len(KERNELS) + len(PARTS)))()
+
+
 def reset_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    for k in PLAIN_CALLS:
-        PLAIN_CALLS[k] = 0
+    for table in (LAUNCHES, PART_LAUNCHES, PLAIN_CALLS):
+        for k in table:
+            table[k] = 0
 
 
 def scalar_table(ops_list) -> torch.Tensor:
@@ -533,6 +560,8 @@ def _geo(ops: SpectralOps, lanes: int = 1, x1: bool = False):
 def _count(counts):
     for k, n in zip(KERNELS, counts):
         LAUNCHES[k] += int(n)
+    for k, n in zip(PARTS, counts[len(KERNELS):]):
+        PART_LAUNCHES[k] += int(n)
 
 
 def _on_cuda(ops: SpectralOps, state: SpectralState) -> bool:
@@ -575,7 +604,7 @@ def _step_kernel(ops, state, tau, lsc):
     metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
     ws = _workspace(ops, u=state.u, v=state.v, p=state.p, bu=out.u,
                     bv=out.v, bp=out.p, metrics=metrics, lsc=lsc, **taus)
-    counts = (ctypes.c_int * len(KERNELS))()
+    counts = _new_counts()
     rc = lib.sg_step_run(_dtype_code(ops.dtype), nf, _geo(ops),
                          _ptr_table(ws), int(tau is not None),
                          _tail_blocks(ops, 1, lib), counts, _stream())
@@ -641,12 +670,17 @@ def make_sg_smoother(ops: SpectralOps):
         metrics = torch.empty(6, dtype=ops.dtype, device=ops.device)
         ws = dict(scratch, u=state.u, v=state.v, p=state.p, bu=out.u,
                   bv=out.v, bp=out.p, metrics=metrics, **taus)
-        counts = (ctypes.c_int * len(KERNELS))()
+        counts = _new_counts()
         rc = lib.sg_smooth_run(_dtype_code(ops.dtype), ops.nf, _geo(ops),
                                _ptr_table(ws), int(n_steps), int(bool(taus)),
                                _tail_blocks(ops, 1, lib), counts, _stream())
         _count(counts)
         _raise_on(lib, rc, "sg_smooth_run")
+        got = dict(zip(KERNELS + PARTS, (int(n) for n in counts)))
+        want = dict({k: 0 for k in got}, dt_kernel=1,
+                    **smoother_launches(int(n_steps)))
+        if got != want:
+            raise RuntimeError(f"smoother launches {got}, planned {want}")
         return out, dict(zip(_STEP_KEYS, metrics.unbind()))
 
     def run(state, tau, n_steps):
@@ -659,6 +693,85 @@ def make_sg_smoother(ops: SpectralOps):
         return smooth_plain(ops, state, tau, int(n_steps))
 
     return run
+
+
+# ---------------------------------------------------------------- dt
+
+
+def base_parts(ops: SpectralOps, u: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+    """The partials of a base (u, v) as the last stage writes them for the
+    next step (csrc/sg_stage.cu's epilogue, P_DPART): an (nparts, 4) table,
+    one row a block of ``stage_geometry(ops.nf, ops.dtype)`` in the
+    kernel's order (row band y, column block x at y * cluster + x; the
+    block covers rows [8 y, 8 y + 8) and columns [tn x, tn x + tn)), with
+    max|u + su|, max|v + sv|, sum u^2, sum v^2 over the block (the sums in
+    torch's order, not the kernel's)."""
+    g = stage_geometry(ops.nf, ops.dtype)
+    ut, vt = (u + ops.sing_u, v + ops.sing_v) if ops.singular else (u, v)
+    rows, nf = g.rows * STAGE_TM, ops.nf
+
+    def blocks(x):  # zero padding changes neither a max of |x| nor a sum
+        x = torch.nn.functional.pad(x, (0, g.cluster * g.tn - nf,
+                                        0, rows - nf))
+        return x.reshape(g.rows, STAGE_TM, g.cluster, g.tn).transpose(
+            1, 2).reshape(g.nparts, -1)
+
+    return torch.stack([blocks(ut.abs()).amax(1), blocks(vt.abs()).amax(1),
+                        blocks(u * u).sum(1), blocks(v * v).sum(1)], dim=1)
+
+
+def _round_exact(q: Fraction, dtype):
+    """The rational q rounded to the numpy float type ``dtype`` (to
+    nearest, ties to even)."""
+    x = dtype(float(q))  # within an ulp of q (float64: q rounded)
+    if dtype is np.float64 or not np.isfinite(x):
+        return x
+    bits = np.dtype(dtype).itemsize * 8
+    as_int = getattr(np, f"uint{bits}")
+    cands = (np.nextafter(x, dtype(-np.inf)), x,
+             np.nextafter(x, dtype(np.inf)))
+    return min(cands, key=lambda c: (abs(Fraction(float(c)) - q),
+                                     int(np.array(c).view(as_int)) & 1))
+
+
+def _fma(a, b, c, dtype):
+    """a * b + c rounded once, as the card's fused multiply-add."""
+    if not all(np.isfinite((a, b, c))):
+        return dtype(a * b + c)
+    return _round_exact(Fraction(float(a)) * Fraction(float(b))
+                        + Fraction(float(c)), dtype)
+
+
+def _nan_max(a, b):
+    """csrc/sg_common.cuh:nan_max."""
+    return a if (a > b or a != a) else b
+
+
+def dt_from_parts(ops: SpectralOps, parts: torch.Tensor,
+                  kernel: bool = False) -> torch.Tensor:
+    """The step's dt from the partials of its base (``base_parts``, or the
+    P_DPART table a last stage wrote), as the first stage of a smoother step
+    takes it: the largest of columns 0 and 1 over the blocks (a maximum is
+    exact in any order), then the CFL dt of ``models/spectral_sg.
+    adaptive_dt``, whose bits it has; ``kernel`` computes dt as the card
+    does instead (csrc/sg_common.cuh:dt_of, the arithmetic of dt_kernel and
+    of the smoother's stages: each fused multiply-add rounded once, on the
+    lane scalars of ``scalar_table``), exactly, on the host."""
+    umax, vmax = parts[:, 0].max(), parts[:, 1].max()
+    if not kernel:
+        return core.dt_of_maxima(ops, umax, vmax)
+    dt = np.float32 if ops.dtype == torch.float32 else np.float64
+    nu, beta, cfl, lid, idx, idy = (dt(x) for x in (
+        ops.nu, ops.beta_sq, ops.CFL, ops.lid_velocity, ops.inv_dx_min,
+        ops.inv_dy_min))
+    u_max = _nan_max(dt(umax.item()), lid)
+    v_max = _nan_max(dt(vmax.item()), dt(1e-10))
+    wx = u_max + np.sqrt(_fma(u_max, u_max, beta, dt))
+    wy = v_max + np.sqrt(_fma(v_max, v_max, beta, dt))
+    lam_x = _fma(nu, idx * idx, idx * wx, dt)
+    lam_y = _fma(nu, idy * idy, idy * wy, dt)
+    return torch.tensor(cfl / (lam_x + lam_y), dtype=ops.dtype)
 
 
 # ---------------------------------------------------------------- x1
@@ -1031,7 +1144,7 @@ def _run_chunk(ops, ws, chunk, start_iter, warmup, metrics_every,
     from ._build import load_library
 
     lib = load_library("sg")
-    counts = (ctypes.c_int * len(KERNELS))()
+    counts = _new_counts()
     rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops, x1=x1),
                           _ptr_table(ws), int(chunk), int(start_iter),
                           int(warmup), int(metrics_every), int(use_residual),

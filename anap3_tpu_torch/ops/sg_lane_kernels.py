@@ -46,7 +46,6 @@ TPU kernel they stand for ("sg_lanes_tiled": #9, "sg_lanes_aligned": #10);
 
 from __future__ import annotations
 
-import ctypes
 import logging
 
 import torch
@@ -189,7 +188,7 @@ def _lanes_kernel(ops_list, statics, states, start_iter, carry, chunk,
         bp=torch.empty_like(states.p),
         rows=torch.empty((chunk, B, 7), dtype=ops0.dtype, device=ops0.device),
         flags=carry.flags.clone(), ref_norm=carry.ref_norm.clone())
-    counts = (ctypes.c_int * len(sgk.KERNELS))()
+    counts = sgk._new_counts()
     # sweeps pass no matmul algorithm (exact products: x1 = 0)
     rc = lib.sg_lanes_chunk_run(sgk._dtype_code(ops0.dtype), ops0.nf,
                                 sgk._geo(ops0, B), B, sgk._ptr_table(ws),
@@ -199,7 +198,7 @@ def _lanes_kernel(ops_list, statics, states, start_iter, carry, chunk,
                                 sgk._tail_blocks(ops0, B, lib), counts,
                                 sgk._stream())
     key = "sg_lanes_tiled" if metrics_every == 1 else "sg_lanes_aligned"
-    LAUNCHES[key] += sum(int(n) for n in counts)
+    LAUNCHES[key] += sum(int(n) for n in counts[:len(sgk.KERNELS)])
     sgk._raise_on(lib, rc, "sg_lanes_chunk_run")
     sgk._check_launches(counts, chunk, start_iter, metrics_every)
     return (SpectralState(ws["u"], ws["v"], ws["p"]),

@@ -27,7 +27,10 @@ when it fails:
    quadratures and finish) and control_kernel (an unsampled step's
    finish), each beside its plain version and bound, the stage's library
    yardstick (its 12 products as torch.matmul) and a torch.profiler idle
-   share and kernel shares of a one-lane chunk;
+   share and kernel shares of a one-lane chunk; dt_kernel alone at N = 48,
+   96, 128, 192, 320 and with 8 lanes at N=128, float32, beside its bound
+   and its plain version, its dt bit-equal to sg_kernels.dt_from_parts
+   (the card's arithmetic, done exactly on the host);
 2b. FV kernels: a 32-iteration chunk from rest and one step from the flow
    it reaches, kernel against plain, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64 (float64 with n_refine 0 and 1), TVD and upwind;
@@ -84,12 +87,14 @@ when it fails:
    its iterations and L2 (no bound: the JAX package documents x1 as losing
    accuracy), no exact stage launch;
 2c. the SG smoothing loop (sg_smooth_run, the VMG/FMG smoother) with 2 and
-   30 steps against its plain version at N = 48, 96, 192, float32 and
+   30 steps against its plain version at N = 24, 48, 96, 192, float32 and
    float64, smoothed and singular lids, forced by a tau that is random
    inside the velocity boundary ring and zero on it (the same bounds as
-   phase 2); the x6 chunk (quadratures every step) at N=96 against its
-   plain version; ms per step of the loop, of as many sg_step_run calls
-   and of the plain loop, at N=96 and N=192 float32;
+   phase 2), each call 4 n + 2 launches (dt_kernel once), and the 30-step
+   loop bit for bit against 30 sg_step_run steps; the x6 chunk
+   (quadratures every step) at N=96 against its plain version; ms per
+   step of the loop, of as many sg_step_run calls and of the plain loop,
+   at N=96 and N=192 float32;
 5. FV N=128 Re=100 tol=1e-6 float32 with the numerics of
    conf/solver/fv.yaml and chunk 1000, through FVSolver.solve(): converged,
    iterations within 20% of the JAX record (11,497), L2 against
@@ -830,12 +835,13 @@ def time_kernels(ops, st0, summary):
                           bound_ms=b_ms, bound_by=b_by)
     for name in sgk.EXACT_KERNELS:
         summary[name].update(rows[name], library_ms=None)
-    summary["sg_diag"]["parts"] = {"dt_kernel": rows["dt"],
-                                   "tail_kernel": rows["tail"]}
+    summary["sg_diag"]["parts"]["dt_kernel"].update(rows["dt"])
+    summary["sg_diag"]["parts"]["tail_kernel"] = rows["tail"]
     summary["sg_stage"]["library_ms"] = stage_library_ms(ops, st)
     print(f"[kernels] sg_stage library yardstick (12 products as "
           f"torch.matmul, TF32 off): {summary['sg_stage']['library_ms']:.4f}"
           f" ms", flush=True)
+    summary["sg_diag"]["parts"]["dt_kernel"]["by_order"] = time_dt()
     profile_chunk(lambda: run(st, 16, float("inf")),
                   "profile SG N=128 float32 one lane, 16-step chunk")
     for name, what in (("sg_stage", "sg_stage (last stage)"),
@@ -846,6 +852,61 @@ def time_kernels(ops, st0, summary):
         print(f"[kernels] {what} at N=128 float32: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.3g} ms "
               f"({r['bound_by']})", flush=True)
+
+
+# dt_kernel alone: (N, lanes), float32
+DT_ORDERS = ((48, 1), (96, 1), (128, 1), (192, 1), (320, 1), (128, 8))
+
+
+def time_dt():
+    """dt_kernel alone (the bench entry, CUDA events over 200 launches)
+    at DT_ORDERS, float32, on a developing-flow-sized random state, each
+    beside its bound and its plain version (adaptive_dt and the two norms,
+    one lane at a time); every lane's dt bit-equal to dt_from_parts with
+    the card's arithmetic. Returns {"N=n B=b": row}."""
+    rng = np.random.default_rng(5)
+    out = {}
+    for n, lanes in DT_ORDERS:
+        ops_list = lane_ops(n, "float32", SG_LANES[:lanes])
+        states = [random_state(o, rng) for o in ops_list]
+        u, v, p = (torch.stack(t).contiguous() for t in zip(*states))
+        o0 = ops_list[0]
+        ws = sgk._workspace(
+            o0, lanes=lanes, **sgl._lane_statics(ops_list), u=u, v=v, p=p,
+            bu=u.clone(), bv=v.clone(), bp=p.clone(),
+            rows=torch.empty((1, lanes, 7), dtype=o0.dtype, device=o0.device),
+            flags=torch.zeros((lanes, 3), dtype=torch.int32,
+                              device=o0.device),
+            ref_norm=torch.full((lanes,), float("inf"), dtype=o0.dtype,
+                                device=o0.device))
+        reps = 200
+        ms = cuda_ms(lambda: sgk.bench_kernel(o0, ws, "dt", reps, lanes),
+                     1) / reps
+        torch.cuda.synchronize()
+        for b, (o, st) in enumerate(zip(ops_list, states)):
+            want = sgk.dt_from_parts(o, sgk.base_parts(o, st.u, st.v).cpu(),
+                                     kernel=True)
+            got = ws["scal"][b, 0].cpu()
+            check(bool(got.view(torch.int32) == want.view(torch.int32)),
+                  f"dt_kernel N={n} lane {b}: dt {float(got)!r}, the card's "
+                  f"arithmetic on the partials {float(want)!r}")
+
+        def plain():
+            for o, st in zip(ops_list, states):
+                core.adaptive_dt(o, st.u, st.v)
+                (st.u * st.u).sum()
+                (st.v * st.v).sum()
+
+        b_ms, b_by = bound(0, lanes * sg_work(o0.nf, o0.dtype)["dt"][1],
+                           o0.dtype)
+        row = dict(ms=ms, plain_ms=cuda_ms(plain, 20), bound_ms=b_ms,
+                   bound_by=b_by)
+        out[f"N={n} B={lanes}"] = row
+        print(f"[kernels] dt_kernel N={n} B={lanes} float32: kernel "
+              f"{ms:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+              f"{b_ms:.3g} ms ({b_by}); dt bit-equal to dt_from_parts",
+              flush=True)
+    return out
 
 
 def stage_library_ms(ops, st, dtype=None, stages=1):
@@ -1146,16 +1207,32 @@ def phase_smoother():
                 tau = ring_zero_tau(ops, rng)
                 errs = []
                 for n_steps in (2, 30):
+                    sgk.reset_counts()
                     s_k, m_k = smooth(st, tau, n_steps)
                     torch.cuda.synchronize()  # a fault shows where it happened
+                    launches = sum(sgk.LAUNCHES.values())
+                    check(launches == 4 * n_steps + 2
+                          and sgk.PART_LAUNCHES["dt_kernel"] == 1,
+                          f"smoother N={n}, {n_steps} steps: {sgk.LAUNCHES} "
+                          f"{sgk.PART_LAUNCHES}, not 4 n + 2 with one dt")
                     s_p, m_p = sgk.smooth_plain(ops, st, tau, n_steps)
                     errs.append(max([rel_err(a, b) for a, b in zip(s_k, s_p)]
                                     + [rel_err(m_k[k], m_p[k]) for k in m_p]))
+                # the loop against as many steps (dt_kernel every step)
+                step = sgk.make_sg_step(ops, with_tau=True)
+                s_s = st
+                for _ in range(30):
+                    s_s, m_s = step(s_s, tau)
+                same = all(same_bits(a, b) for a, b in zip(s_k, s_s)) and all(
+                    same_bits(m_k[k], m_s[k]) for k in m_s)
                 print(f"[smoother] N={n} {dt_name} {corner}: 2 steps "
-                      f"{errs[0]:.2e}, 30 steps {errs[1]:.2e} (tol {tol:.0e})",
-                      flush=True)
+                      f"{errs[0]:.2e}, 30 steps {errs[1]:.2e} (tol "
+                      f"{tol:.0e}); 4 n + 2 launches; 30 steps bit-equal to "
+                      f"30 sg_step_run: {same}", flush=True)
                 check(max(errs) <= tol, f"smoother N={n} {dt_name} {corner}: "
                       f"relative error {max(errs):.3e} > {tol:.0e}")
+                check(same, f"smoother N={n} {dt_name} {corner}: 30 steps "
+                      f"differ from 30 sg_step_run steps")
     # the x6 route: the chunk kernel with quadratures every step, at N=24
     # (FMG's coarsest stage, where the main path runs it) and at N=96
     for n in (24, 96):
@@ -2961,14 +3038,15 @@ def in_nccl_world(phase):
 def uncounted():
     """Kernel launches and plain calls made to hold a path against a
     yardstick count for no main path: the counters are restored."""
-    saved = [(dict(getattr(c, "LAUNCHES", {})), dict(c.PLAIN_CALLS))
-             for c in COUNTERS]
+    tables = [getattr(c, name) for c in COUNTERS
+              for name in ("LAUNCHES", "PART_LAUNCHES", "PLAIN_CALLS")
+              if hasattr(c, name)]
+    saved = [dict(t) for t in tables]
     try:
         yield
     finally:
-        for c, (launches, plain) in zip(COUNTERS, saved):
-            getattr(c, "LAUNCHES", {}).update(launches)
-            c.PLAIN_CALLS.update(plain)
+        for t, kept in zip(tables, saved):
+            t.update(kept)
 
 
 def kinetic_energy(ops, u, v) -> float:
@@ -3210,12 +3288,16 @@ def run_main_paths(paths, names, summary):
                     for k, v in getattr(c, "LAUNCHES", {}).items()}
         plain = {k: v for c in COUNTERS for k, v in c.PLAIN_CALLS.items()}
         print(f"[main path] {path} ({time.time() - t0:.1f}s): kernel launches "
-              f"{launches}; plain calls {plain}", flush=True)
+              f"{launches} (of sg_diag's, dt_kernel "
+              f"{sgk.PART_LAUNCHES['dt_kernel']}); plain calls {plain}",
+              flush=True)
         for k in kernels:
             check(launches[k] > 0, f"kernel {k} was not launched on {path}")
         check(not any(plain.values()), f"plain versions ran on {path}: {plain}")
         for k in names:
             summary[k]["launches"] += launches[k]
+        summary["sg_diag"]["parts"]["dt_kernel"]["launches"] += (
+            sgk.PART_LAUNCHES["dt_kernel"])
         if phase is phase_vmg_wide:
             profile_vmg_chunk(out)
         if phase is phase_newton_cold:
@@ -3242,6 +3324,9 @@ def main() -> int:
     summary = {k: {"name": k, "route": "cuda",
                    "source": SOURCES.get(k, f"anap3_tpu_torch/csrc/{k}.cu"),
                    "replaces": REPLACES[k], "launches": 0} for k in names}
+    # sg_diag's two kernels alone: dt_kernel's launches on the main paths
+    # (sg_kernels.PART_LAUNCHES), both kernels' times (time_kernels)
+    summary["sg_diag"]["parts"] = {"dt_kernel": {"launches": 0}}
     phase_device()
     if args.x1:
         phase_x1_kernels(summary)
@@ -3270,7 +3355,8 @@ def main() -> int:
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
         for k in names]
-    # sg_diag's two kernels (dt_kernel, tail_kernel) alone
+    # sg_diag's two kernels (dt_kernel, tail_kernel) alone, dt_kernel's
+    # launches beside sg_diag's
     kernels[names.index("sg_diag")]["parts"] = summary["sg_diag"]["parts"]
     print(f"[chip_smoke] {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -26,7 +26,23 @@ checkout, also appended to chiprun_out/sg_tail_ab.jsonl:
   50,000 steps in chunks of 5,000, net of the first chunk (as phase 3 of
   chip_smoke.py), and the SHA-256 of its final u, v, p in ``sha256``;
 - ``fsg``: the FSG N=96 Re=1000 tol 1e-6 float32 flagship (as phase 4 of
-  chip_smoke.py): iterations and wall.
+  chip_smoke.py): iterations and wall;
+- the smoother (``sg_smooth_run``): in ``sha256``, u, v, p and the six
+  metrics of 2 and 30 forced steps from rest at N = 24, 48, 96, 192,
+  float32 and float64, smoothed and singular lids (the forcing random
+  inside the velocity boundary ring, zero on it, from a seeded numpy
+  generator); in ``smooth_ms``, ms per step of 30 forced steps at N=96 and
+  N=192 float32 (CUDA events over 10 calls);
+- ``vmg``: 2,000 V-cycles of VMG [192, 96] Re=1000 float32 from rest (as
+  phase 7 of chip_smoke.py), three times: cycles/s net of the first chunk
+  of each (the host sets the rate, which varies from run to run), and in
+  ``sha256`` the SHA-256 of the final u, v, p (the same every time);
+- ``dt_ms``: dt_kernel alone through the bench entry (CUDA events over 200
+  launches) at N = 48, 96, 128, 192, 320 one lane and N=128 8 lanes,
+  float32; ``dt_us_device``: its mean kernel time by torch.profiler at the
+  same orders, and of the x1 instance (``dt_kernel<float, true>``, which
+  also rounds the state into its bf16 copy) in 16-step x1 chunks at
+  N=320.
 
 Rows column 0 (rel) is written per checkout to
 chiprun_out/sg_tail_ab/<n>.npz, and the last line gives, for every
@@ -34,10 +50,12 @@ checkout after the first, the largest relative difference of an element of
 that column from the first checkout's, and whether each hash equals the
 first's.
 
-It uses only what every checkout since the lane kernels has:
+It uses only what every checkout since the x1 mode has:
 ``sg_kernels.make_sg_chunk_runner`` / ``chunk_workspace`` /
-``bench_kernel``, ``sg_lane_kernels.make_lane_chunk_runner`` /
-``lane_metrics_every``, ``SGSolver`` and ``FSGSolver``.
+``bench_kernel`` / ``make_sg_smoother``, ``sg_lane_kernels.
+make_lane_chunk_runner`` / ``lane_metrics_every``, ``SGSolver``,
+``FSGSolver``, ``spectral_vmg.VMGSolver`` and ``utils.profiling.
+trace_device``.
 """
 
 from __future__ import annotations
@@ -80,11 +98,13 @@ def worker(root: Path, index: int) -> dict:
     import torch
 
     from anap3_tpu_torch.models import spectral_sg as core
+    from anap3_tpu_torch.models import spectral_vmg as vmg
     from anap3_tpu_torch.models.params import SpectralParameters
     from anap3_tpu_torch.models.spectral import FSGSolver, SGSolver
     from anap3_tpu_torch.ops import sg_kernels as sgk
     from anap3_tpu_torch.ops import sg_lane_kernels as sgl
     from anap3_tpu_torch.parallel.sweep import stack_states
+    from anap3_tpu_torch.utils.profiling import trace_device
 
     if not Path(sgk.__file__).resolve().is_relative_to(root):
         raise RuntimeError(f"imported {sgk.__file__}, not from {root}")
@@ -166,6 +186,25 @@ def worker(root: Path, index: int) -> dict:
             g: cuda_ms(torch, lambda: sgk.bench_kernel(o0, ws, g, 200, B),
                        1) / 200 for g in groups}
 
+    smoother(torch, core, sgk, params, digest, out)
+    dt_times(torch, core, sgk, sgl, params, trace_device, out)
+    out["vmg"] = {"cycles_per_s": []}
+    for _ in range(3):
+        solver = vmg.VMGSolver(params=params(
+            192, Re=1000.0, multigrid="vmg", n_levels=3,
+            coarse_tolerance_factor=1.0, tolerance=0.0,
+            max_iterations=8000))
+        solver.solve()
+        torch.cuda.synchronize()
+        m = solver.metrics
+        out["vmg"].update(ladder=solver.ladder, cycles=m.iterations)
+        out["vmg"]["cycles_per_s"].append((m.iterations - 50) / max(
+            m.wall_time_seconds - solver.first_chunk_time, 1e-9))
+        u, v, p = solver.state
+        key = "VMG [192, 96] float32, 2,000 cycles"
+        got = {"u": digest(u), "v": digest(v), "p": digest(p)}
+        if out["sha256"].setdefault(key, got) != got:
+            raise RuntimeError("two VMG runs ended in different states")
     solver = SGSolver(params=params(128))
     solver.solve(max_iter=50_000)
     torch.cuda.synchronize()
@@ -186,6 +225,80 @@ def worker(root: Path, index: int) -> dict:
                   "wall_s": fsg.metrics.wall_time_seconds,
                   "call_s": time.time() - t0}
     return out
+
+
+def smoother(torch, core, sgk, params, digest, out):
+    """The smoother's hashes and its ms per step (see the docstring)."""
+    rng = np.random.default_rng(2)
+
+    def forcing(ops):  # random inside the velocity boundary ring
+        nf, ring = ops.nf, ops.interior.to(ops.dtype)
+        return tuple(torch.as_tensor(0.01 * rng.standard_normal(shape),
+                                     dtype=ops.dtype, device=ops.device) * m
+                     for shape, m in (((nf, nf), ring), ((nf, nf), ring),
+                                      ((nf - 2, nf - 2), 1.0)))
+
+    for n in (24, 48, 96, 192):
+        for dtype in ("float32", "float64"):
+            for corner in ("smoothing", "singular"):
+                ops = core.build_spectral_ops(params(
+                    n, dtype, corner_treatment=corner))[0]
+                smooth = sgk.make_sg_smoother(ops)
+                st, tau = core.initial_state(ops), forcing(ops)
+                for steps in (2, 30):
+                    s, metrics = smooth(st, tau, steps)
+                    torch.cuda.synchronize()
+                    out["sha256"][f"smoother N={n} {dtype} {corner} "
+                                  f"{steps} steps"] = {
+                        "u": digest(s.u), "v": digest(s.v),
+                        "p": digest(s.p), "metrics": digest(torch.stack(
+                            [metrics[k] for k in sorted(metrics)]))}
+    out["smooth_ms"] = {}
+    for n in (96, 192):
+        ops = core.build_spectral_ops(params(n))[0]
+        smooth = sgk.make_sg_smoother(ops)
+        st, tau = core.initial_state(ops), forcing(ops)
+        out["smooth_ms"][f"N={n}"] = cuda_ms(
+            torch, lambda: smooth(st, tau, 30), 10) / 30
+
+
+def dt_times(torch, core, sgk, sgl, params, trace_device, out):
+    """dt_kernel alone by CUDA events and by the profiler, and the x1
+    instance's kernel time in x1 chunks (see the docstring)."""
+    rng = np.random.default_rng(5)
+
+    def kernel_us(fn, name):
+        dev, _ = trace_device(fn, name)
+        times = [e.time_range.elapsed_us() for e in dev if name in e.name]
+        return sum(times) / len(times)
+
+    out["dt_ms"], out["dt_us_device"] = {}, {}
+    for n, B in ((48, 1), (96, 1), (128, 1), (192, 1), (320, 1), (128, 8)):
+        ops = [core.build_spectral_ops(params(
+            n, lane=(1000.0,) + LANES[b][1:]))[0] for b in range(B)]
+        o0, nf = ops[0], ops[0].nf
+        kw = dict(dtype=o0.dtype, device=o0.device)
+        u, v = (torch.as_tensor(0.3 * rng.standard_normal((B, nf, nf)), **kw)
+                for _ in range(2))
+        p = torch.zeros((B, nf - 2, nf - 2), **kw)
+        ws = sgk._workspace(
+            o0, lanes=B, **sgl._lane_statics(ops), u=u, v=v, p=p,
+            bu=u.clone(), bv=v.clone(), bp=p.clone(),
+            rows=torch.empty((1, B, 7), **kw),
+            flags=torch.zeros((B, 3), dtype=torch.int32, device=o0.device),
+            ref_norm=torch.full((B,), float("inf"), **kw))
+        key = f"N={n} B={B}"
+        out["dt_ms"][key] = cuda_ms(
+            torch, lambda: sgk.bench_kernel(o0, ws, "dt", 200, B), 1) / 200
+        out["dt_us_device"][key] = kernel_us(
+            lambda: sgk.bench_kernel(o0, ws, "dt", 50, B), "dt_kernel")
+    ops = core.build_spectral_ops(params(320))[0]
+    run = sgk.make_sg_chunk_runner(ops, 16, 1e-30, 10, "rel_iter", 16,
+                                   x1=True)
+    st = run(core.initial_state(ops), 0, float("inf"))[0]
+    out["dt_us_device"]["x1 N=320 B=1"] = kernel_us(
+        lambda: [run(st, 16 * i, float("inf")) for i in range(1, 6)],
+        "dt_kernel")
 
 
 def compare(results) -> dict:

@@ -421,10 +421,13 @@ class TestOnCard:
                                    "sg_smooth": 0}
         sgk.reset_counts()
         sgk.make_sg_smoother(ops)(st, None, 5)
-        # 5 launches a step (dt, 4 stages) and the tail kernel at the end
-        assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 6,
+        # 4 launches a step (the stages; each step after the first takes
+        # its dt from the partials the last stage left), dt at the first
+        # step and the tail kernel at the end: 4 n + 2
+        assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 2,
                                 "sg_control": 0, "sg_stage_x1": 0,
                                 "sg_diag_x1": 0}
+        assert sgk.PART_LAUNCHES == {"dt_kernel": 1}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
 

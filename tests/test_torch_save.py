@@ -13,15 +13,18 @@ not, the JAX runner steps past its cap and the port does not.
 
 import sys
 
-import h5py
 import numpy as np
 import pytest
 import torch
 
-from anap3_tpu.models.fv import FVSolver as JaxFV
-from anap3_tpu.models.spectral import SGSolver as JaxSG
-from anap3_tpu_torch.models.fv import FVSolver
-from anap3_tpu_torch.models.spectral import SGSolver
+# before the JAX package: the card's machine has neither h5py nor JAX, and
+# skips this file there
+h5py = pytest.importorskip("h5py")
+
+from anap3_tpu.models.fv import FVSolver as JaxFV  # noqa: E402
+from anap3_tpu.models.spectral import SGSolver as JaxSG  # noqa: E402
+from anap3_tpu_torch.models.fv import FVSolver  # noqa: E402
+from anap3_tpu_torch.models.spectral import SGSolver  # noqa: E402
 
 torch.set_num_threads(1)
 
