@@ -50,6 +50,21 @@ the default threads (phase 2f's).
 reads another checkout's kernel (its ``chip_smoke.py`` and
 ``anap3_tpu_torch``, built from its own sources) on the same systems.
 
+    python3 scripts/nk_accuracy.py --gate 24 --variants
+
+measures the distribution that phase 2f's budget-16 gate is set from,
+without the extended-precision loop (~5 min): every phase 2f system
+(N = 12-256) at budget 16 for its right-hand side and 23 perturbations
+of it, each draw's distance from the card loop over its bound
+(``chip_smoke.nk_b16_ratios``: the draw's own CPU loop in one thread, the
+yardstick of phase 2f), for the kernel, its other sum orders
+(``--variants``), two other sum orders of the plain loop (on the card
+with each two-sided product associated the other way; on the CPU in the
+host's threads) and the mutants of ``chip_smoke.nk_mutants``; then for
+each the share of draws over the bound, the largest distance over it,
+the most draws over it on one system, and ``chip_smoke.nk_gate``'s
+verdict on phase 2f's draws (the first NK_PERTURB + 1 of each system).
+
     python3 scripts/nk_accuracy.py --compare OUT [OUT2]
 
 needs no card: from this script's saved output (OUT, and OUT2 for another
@@ -63,6 +78,7 @@ import multiprocessing
 import re
 import subprocess
 import sys
+import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
@@ -185,6 +201,70 @@ def variant_libraries() -> dict:
                                        orders.items())))
 
 
+def reassociated_apply(S, pp, inv_dt, inv_hlam):
+    """``nk_kernels.schur_apply`` with each two-sided product associated
+    the other way (A (P B) for (A P) B): the same operators, another
+    rounding."""
+    def hsolve(f):
+        return (S.Vx @ ((S.Vxi @ (f @ S.Vyi.T)) * inv_hlam)) @ S.Vy.T
+
+    gx, gy = S.Gxr @ (pp @ S.IyTr), S.Ixr @ (pp @ S.GyTr)
+    return inv_dt * pp - S.beta_sq * nk.div(S, hsolve(gx), hsolve(gy))
+
+
+def gate(draws: int, libs: dict) -> None:
+    """--gate: phase 2f's budget-16 draws for every implementation."""
+    systems = [(n, lid, dt) for lid in ("singular", "smoothing")
+               for n in cs.NK_N for dt in (0.05, 1.0, 3e3)]
+    kept = cs.NK_PERTURB + 1  # the draws of phase 2f
+    ratios, t0 = {}, time.time()
+    for n, lid, dt in systems:
+        pre, rhs, inv_dt, inv_hlam = cs.nk_system(n, lid, dt)
+        S, Sc = pre.schur, cs.schur_on_cpu(pre.schur)
+        solves = {}
+        for name, lib in libs.items():
+            def kernel(b, lib=lib):
+                nk._lib = lambda: lib
+                return nk.schur_kernel(S, b, inv_dt, inv_hlam, 1e-8, 16)
+            solves[name] = kernel
+        solves["card loop, reassociated"] = lambda b: nk.schur_bicgstab(
+            lambda pp: reassociated_apply(S, pp, inv_dt, inv_hlam), b, 1e-8,
+            16)
+        solves["cpu loop, host threads"] = lambda b: nk.schur_plain(
+            Sc, b.cpu(), inv_dt.cpu(), inv_hlam.cpu(), 1e-8, 16)
+        for name, M in cs.nk_mutants(S):
+            solves[f"mutant: {name}"] = lambda b, M=M: nk.schur_plain(
+                M, b, inv_dt, inv_hlam, 1e-8, 16)
+        if (lid, dt) == ("singular", 0.05):
+            # the draws' CPU loops side by side are the loops one by one
+            rhss = [rhs] + [cs.perturbed(rhs, s) for s in (1, 2, 3)]
+            same = all(torch.equal(a[0], cs.cpu_loop(
+                Sc, b, inv_dt, inv_hlam, 16)[0]) for a, b in zip(
+                    cs.cpu_loops(Sc, rhss, inv_dt, inv_hlam, 16), rhss))
+            print(f"[gate] N={n}: cpu_loops bit-equal to cpu_loop: {same}",
+                  flush=True)
+        got = cs.nk_b16_ratios(S, Sc, rhs, inv_dt, inv_hlam, solves, draws)
+        for name, r in got.items():
+            ratios.setdefault(name, []).append(r)
+        print(f"[gate] N={n} {lid} dt={dt:g}: " + "; ".join(
+            f"{name} over {sum(x > 1 for x in r)}, largest {max(r):.3f}"
+            for name, r in got.items()) + f" ({time.time() - t0:.0f}s)",
+            flush=True)
+    nk._lib = lambda: libs["kernel"]
+    for name, per in ratios.items():
+        r = np.concatenate(per)
+        over = [int(np.sum(np.asarray(v) > 1)) for v in per]
+        share, worst, ok = cs.nk_gate([x for v in per for x in v[:kept]])
+        print(f"[gate] {name}: over the bound in {int(np.sum(r > 1))} of "
+              f"{r.size} draws (share {np.mean(r > 1):.4f}); largest "
+              f"{np.max(r):.3f}; percentiles 50/90/99 of the distance over "
+              f"the bound {np.percentile(r, 50):.4f} / "
+              f"{np.percentile(r, 90):.4f} / {np.percentile(r, 99):.4f}; "
+              f"most over on one system {max(over)} of {draws}; phase 2f's "
+              f"{kept} draws a system: share {share:.4f}, largest "
+              f"{worst:.3f}, {'passes' if ok else 'refused'}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--perturb", action="store_true")
@@ -192,6 +272,7 @@ def main() -> int:
     ap.add_argument("--system", nargs=3, metavar=("N", "LID", "DT"))
     ap.add_argument("--checkout", type=Path, default=ROOT)
     ap.add_argument("--compare", nargs="+", metavar="OUT")
+    ap.add_argument("--gate", type=int, metavar="DRAWS")
     args = ap.parse_args()
     if args.compare:
         compare(args.compare)
@@ -209,6 +290,9 @@ def main() -> int:
     libs = {"kernel": kernel}
     if args.variants:
         libs.update(variant_libraries())
+    if args.gate:
+        gate(args.gate, libs)
+        return 0
     if args.system:
         n, lid, dt = args.system
         systems = [(int(n), lid, float(dt))]

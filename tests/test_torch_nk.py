@@ -31,8 +31,10 @@ tests/test_torch_nk.py -m gpu --noconftest``): the kernel against the plain
 loop at ni = 11, 19, 95, 127 (operator bands resident in shared memory)
 and 255 (streamed; budgets 8 and 16 only), dt 0.05 / 1 / 3e3, both lids,
 with the plain
-loop on the CPU as the yardstick of rounding (budgets 8 and 16: equal k
-and within 1e-12 relative or 10x the CPU loop's distance; budget 40: k
+loop on the CPU as the yardstick of rounding (budget 8: equal k and
+within 1e-12 relative or 10x the CPU loop's distance; budget 16: that
+bound on 1 + NK_PERTURB right-hand sides a system and phase 2f's gate on
+the share of them over it, which refuses two wrong solves; budget 40: k
 within 2, converged solves within the 1e-8 test on their true residuals,
 unconverged ones' residuals against the plain loop's over perturbed
 right-hand sides: see TestOnCard), the breakdown codes and the exit on
@@ -523,6 +525,29 @@ def card_system(n, lid, dt, cuda):
     return pre.schur, rhs, inv_dt, inv_hlam
 
 
+# the budget-16 draws of each system, made once a session
+_B16 = {}
+
+
+def b16_draws(n, lid, dt, cuda):
+    """Phase 2f's budget-16 draws of one system (``chip_smoke``:
+    ``nk_b16_ratios`` on its right-hand side and NK_PERTURB perturbations
+    of it) for the kernel and the wrong solves of ``nk_mutants``: each
+    draw's distance from the card's plain loop over its bound."""
+    if (n, lid, dt) not in _B16:
+        import chip_smoke as cs
+
+        S, rhs, inv_dt, inv_hlam = card_system(n, lid, dt, cuda)
+        solves = {"kernel": lambda b: nk.schur_kernel(S, b, inv_dt,
+                                                      inv_hlam, 1e-8, 16)}
+        for name, M in cs.nk_mutants(S):
+            solves[name] = lambda b, M=M: nk.schur_plain(M, b, inv_dt,
+                                                         inv_hlam, 1e-8, 16)
+        _B16[(n, lid, dt)] = cs.nk_b16_ratios(S, cpu_ops(S), rhs, inv_dt,
+                                              inv_hlam, solves)
+    return _B16[(n, lid, dt)]
+
+
 def residual(S, x, rhs, inv_dt, inv_hlam):
     """The true relative residual ||S x - rhs|| / ||rhs||."""
     return rel(host(nk.schur_apply(S, x, inv_dt, inv_hlam)), host(rhs))
@@ -532,10 +557,16 @@ def residual(S, x, rhs, inv_dt, inv_hlam):
 class TestOnCard:
     # The yardstick of rounding is the plain loop on the CPU: it differs
     # from the card's plain loop only in the sum order of its products, as
-    # the kernel does. Budgets 8 and 16: no solve stops early, and the
+    # the kernel does. Budgets 8 and 16: no solve stops early. At 8 the
     # kernel is within 1e-12 of the card's plain loop, or within 10x the
     # CPU loop's distance from it where the iterations amplify the
-    # rounding beyond 1e-12 (chip_smoke.py NK_B8_TOL, NK_SPREAD). Budget
+    # rounding beyond 1e-12 (chip_smoke.py NK_B8_TOL, NK_SPREAD). At 16
+    # where it lands is a chaotic function of the rounding, so the system
+    # is solved for 1 + NK_PERTURB right-hand sides, each draw held to
+    # that bound by its own CPU loop (chip_smoke.nk_b16_ratios): k equal
+    # and the distance over the bound within NK_B16_EXCESS on each draw,
+    # and the share of draws over the bound, over all the systems, within
+    # NK_B16_SHARE (test_budget_16_gate: phase 2f's gate). Budget
     # 40: a solve that converges is held to the 1e-8 test on its true
     # residual (1.5e-8: the recursive residual drifts from it by rounding),
     # the kernel's and the plain loop's, not to the other solution (two
@@ -558,9 +589,16 @@ class TestOnCard:
         assert nk.LAUNCHES["nk_schur"] == 1
         k_k, k_p = int(k_k), int(k_p)
         err, spread = rel(host(x_k), host(x_p)), rel(host(x_c), host(x_p))
-        if budget < 40:
+        if budget == 8:
             assert k_k == k_p == budget
             assert err <= max(1e-12, 10 * spread), (err, spread)
+            return
+        if budget == 16:
+            import chip_smoke as cs
+
+            assert k_k == k_p == budget
+            draws = b16_draws(n, lid, dt, cuda)["kernel"]
+            assert max(draws) <= cs.NK_B16_EXCESS, draws
             return
         assert abs(k_k - k_p) <= 2, (k_k, k_p)
         if k_k < budget:
@@ -568,6 +606,24 @@ class TestOnCard:
         if k_p < budget:
             assert k_k < budget, (k_k, k_p)
             assert residual(S, x_p, rhs, inv_dt, inv_hlam) <= 1.5e-8
+
+    def test_budget_16_gate(self, cuda):
+        """Phase 2f's budget-16 gate (``chip_smoke.nk_gate``: the share of
+        draws over their bound within NK_B16_SHARE, the largest distance
+        over it within NK_B16_EXCESS) on the draws of every system of the
+        budget-16 cases above: the kernel passes it, and each wrong solve
+        of ``chip_smoke.nk_mutants`` is refused."""
+        import chip_smoke as cs
+
+        draws = {}
+        for lid in sorted(LIDS):
+            for n in (12, 20, 96, 128, 256):
+                for dt in (0.05, 1.0, 3e3):
+                    for name, r in b16_draws(n, lid, dt, cuda).items():
+                        draws.setdefault(name, []).extend(r)
+        for name, r in draws.items():
+            share, worst, ok = cs.nk_gate(r)
+            assert ok == (name == "kernel"), (name, share, worst)
 
     @pytest.mark.parametrize("n,resident", [(12, True), (20, True),
                                             (96, True), (128, True),
