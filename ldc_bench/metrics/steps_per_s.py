@@ -1,0 +1,12 @@
+"""steps_per_s.<kind>: the steps every lane needed (its reported
+iterations), over the window's time inside ``solve()`` or
+``run_batched`` (the benchmark's own host spans)."""
+
+from ._common import applies
+
+
+def read(ctx, name):
+    if not applies(ctx, name):
+        return None
+    jobs = ctx["jobs"]
+    return sum(j.lane_steps for j in jobs) / sum(j.step_s for j in jobs)
