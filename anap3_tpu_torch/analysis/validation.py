@@ -52,20 +52,25 @@ def compute_l2_errors_vs_reference(
     With ``heatmap_method`` set, error-distribution PNGs are saved for the
     non-regularized comparison (appended to ``heatmap_paths``).
     """
+    # imported here: it imports torch, which this module needs no other way
+    from ..utils.profiling import span
+
     base_dir = Path(base_dir) if base_dir is not None else Path.cwd()
     results: Dict[str, float] = {}
     for ref_root, suffix in reference_roots:
         ref_path = base_dir / ref_root / f"Re{int(Re)}" / "solution.vts"
-        if not ref_path.exists():
-            log.debug("No reference solution at %s", ref_path)
-            continue
-        grid = read_vts(ref_path)
-        ref_u = np.asarray(grid.point_data["u"], dtype=float)
-        ref_v = np.asarray(grid.point_data["v"], dtype=float)
-        ref_x = grid.points[:, 0]
-        ref_y = grid.points[:, 1]
+        with span("validate.load"):
+            if not ref_path.exists():
+                log.debug("No reference solution at %s", ref_path)
+                continue
+            grid = read_vts(ref_path)
+            ref_u = np.asarray(grid.point_data["u"], dtype=float)
+            ref_v = np.asarray(grid.point_data["v"], dtype=float)
+            ref_x = grid.points[:, 0]
+            ref_y = grid.points[:, 1]
 
-        cur_u, cur_v = evaluate_at_points(ref_x, ref_y)
+        with span("validate.evaluate"):
+            cur_u, cur_v = evaluate_at_points(ref_x, ref_y)
         margin = 1e-10
         interior = (
             (ref_x > margin) & (ref_x < Lx - margin)

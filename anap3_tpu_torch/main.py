@@ -223,6 +223,8 @@ def log_solver_results(cfg: dict, solver, parent_run_id: str | None = None,
 
     Returns (run_id, validation_errors). ``run`` may be an already-open run
     (the live-logged path); otherwise one is created and closed here."""
+    from .utils.profiling import span
+
     solver_name = cfg["solver"].get("name", "solver")
     own_run = run is None
     if own_run:
@@ -232,40 +234,42 @@ def log_solver_results(cfg: dict, solver, parent_run_id: str | None = None,
         if parent_run_id:
             tags.update({"mlflow.parentRunId": parent_run_id,
                          "parent_run_id": parent_run_id, "sweep": "child"})
-        run = T.start_run(run_name=_run_name(cfg), tags=tags)
-        T.log_params(solver.params.to_mlflow())
-        T.log_dict(_plain(cfg), "config.yaml")
+        with span("cli.track"):
+            run = T.start_run(run_name=_run_name(cfg), tags=tags)
+            T.log_params(solver.params.to_mlflow())
+            T.log_dict(_plain(cfg), "config.yaml")
     try:
         reference_dir = cfg.get("validation", {}).get(
             "reference_dir", "data/validation/fv")
         validation_errors = solver.compute_validation_errors(
             reference_dir=reference_dir, base_dir=REPO_ROOT)
-        if validation_errors:
-            T.log_metrics(validation_errors)
+        with span("cli.track"):
+            if validation_errors:
+                T.log_metrics(validation_errors)
 
-        metrics = solver.metrics.to_mlflow()
-        wall = max(solver.metrics.wall_time_seconds, 1e-9)
-        metrics["timesteps_per_sec"] = solver.metrics.iterations / wall
-        # the first chunk's time (kernel builds and warm-up), so that
-        # throughput can be judged net of it
-        metrics["first_chunk_seconds"] = getattr(solver, "first_chunk_time",
-                                                 0.0)
-        T.log_metrics(metrics)
-        if solver.time_series:
-            batch = solver.time_series.to_batch()
-            if batch:
-                T.log_batch(run.run_id, batch)
+            metrics = solver.metrics.to_mlflow()
+            wall = max(solver.metrics.wall_time_seconds, 1e-9)
+            metrics["timesteps_per_sec"] = solver.metrics.iterations / wall
+            # the first chunk's time (kernel builds and warm-up), so that
+            # throughput can be judged net of it
+            metrics["first_chunk_seconds"] = getattr(
+                solver, "first_chunk_time", 0.0)
+            T.log_metrics(metrics)
+            if solver.time_series:
+                batch = solver.time_series.to_batch()
+                if batch:
+                    T.log_batch(run.run_id, batch)
 
-        table = solver.validation_table(base_dir=REPO_ROOT)
-        if table:
-            T.log_table(table, "validation_metrics.json")
-        saad = solver.saad_table(base_dir=REPO_ROOT)
-        if saad:
-            T.log_table(saad, "saad_quantities.json")
-        for plot in getattr(solver, "validation_error_plots", []) or []:
-            T.log_artifact(plot)
+            table = solver.validation_table(base_dir=REPO_ROOT)
+            if table:
+                T.log_table(table, "validation_metrics.json")
+            saad = solver.saad_table(base_dir=REPO_ROOT)
+            if saad:
+                T.log_table(saad, "saad_quantities.json")
+            for plot in getattr(solver, "validation_error_plots", []) or []:
+                T.log_artifact(plot)
 
-        with tempfile.TemporaryDirectory() as tmpdir:
+        with span("cli.vts"), tempfile.TemporaryDirectory() as tmpdir:
             vts_path = Path(tmpdir) / "solution.vts"
             solver.save_vtk(vts_path)
             T.log_artifact(vts_path)
@@ -301,7 +305,8 @@ def run_solver(cfg: dict, parent_run_id: str | None = None):
 
     Phase wall times (setup/solve/analysis) are logged as
     ``time_<phase>_seconds`` metrics; the plots phase by generate_plots.
-    ``ANAP3_TRACE_DIR`` traces the solve with torch.profiler."""
+    ``ANAP3_TRACE_DIR`` traces the solve and the analysis (validation,
+    tracking writes, VTS export) with torch.profiler."""
     from .utils.profiling import PhaseTimer, device_trace
 
     timer = PhaseTimer()
@@ -323,12 +328,12 @@ def run_solver(cfg: dict, parent_run_id: str | None = None):
         solver._log_callback = _live_log
         log.info("Solving: %s N=%s Re=%s", solver_name, cfg["N"], cfg["Re"])
 
-        with timer.phase("solve"), \
-                device_trace(os.environ.get("ANAP3_TRACE_DIR")):
-            solver.solve()
-        with timer.phase("analysis"):
-            run_id, validation_errors = log_solver_results(
-                cfg, solver, parent_run_id, run=run)
+        with device_trace(os.environ.get("ANAP3_TRACE_DIR")):
+            with timer.phase("solve"):
+                solver.solve()
+            with timer.phase("analysis"):
+                run_id, validation_errors = log_solver_results(
+                    cfg, solver, parent_run_id, run=run)
         T.log_metrics(timer.as_metrics())
         return run_id, validation_errors, solver
 
@@ -346,6 +351,7 @@ def generate_plots(cfg: dict, run_id: str, output_dir=None):
         return
 
     from .plotting import generate_plots_for_run
+    from .utils.profiling import span
 
     t0 = time.time()
     try:
@@ -365,7 +371,7 @@ def generate_plots(cfg: dict, run_id: str, output_dir=None):
         return
     # plots run after the child run closed; re-attach to record the phase
     try:
-        with T.attach_run(run_id):
+        with span("cli.track"), T.attach_run(run_id):
             T.log_metrics({"time_plots_seconds": round(time.time() - t0, 4)})
     except Exception as exc:
         log.warning("Could not log plot timing: %s", exc)

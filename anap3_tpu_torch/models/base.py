@@ -21,6 +21,7 @@ import numpy as np
 from ..analysis import validation as validation_mod
 from ..analysis.vortex import vortex_metrics_from_fields
 from ..utils import vts as vts_mod
+from ..utils.profiling import span
 from .params import (Fields, Metrics, TimeSeries, resolve_device, resolve_dtype,
                      use_pallas_flag)
 from .runner import IterationResult
@@ -116,7 +117,8 @@ class CavitySolver:
 
     def _store_results(self, result: IterationResult,
                        max_timeseries_points: int = 1000) -> None:
-        self.fields = self._final_fields()
+        with span("solve.finish"):
+            self.fields = self._final_fields()
         self.first_chunk_time = result.first_chunk_time
         hist = result.history
 
@@ -167,9 +169,14 @@ class CavitySolver:
             self.metrics.steady_residual_rms = float(polish["rms"])
 
     def compute_vortex_metrics(self) -> Dict[str, float]:
-        psi, X, Y = self._streamfunction()
-        omega = self._vorticity_full()
-        return vortex_metrics_from_fields(psi, omega.reshape(psi.shape), X, Y)
+        # a span a part, so that each holds few of the profiler's events
+        with span("solve.finish"):
+            psi, X, Y = self._streamfunction()
+        with span("solve.finish"):
+            omega = self._vorticity_full()
+        with span("solve.finish"):
+            return vortex_metrics_from_fields(psi, omega.reshape(psi.shape),
+                                              X, Y)
 
     def compute_global_quantities(self) -> Dict[str, float]:
         """The final energy, enstrophy and palinstrophy (E, Z, P)."""
@@ -187,14 +194,15 @@ class CavitySolver:
             roots.insert(0, (reference_dir, ""))
             roots = list(dict.fromkeys(roots))
         self.validation_error_plots: list = []
-        return validation_mod.compute_l2_errors_vs_reference(
-            self._evaluate_at_points, self.params.Re,
-            Lx=self.params.Lx, Ly=self.params.Ly,
-            reference_roots=tuple(roots), base_dir=base_dir,
-            heatmap_method=(self.params.method or self.params.name)
-            if save_plots else None,
-            heatmap_paths=self.validation_error_plots,
-        )
+        with span("validate"):
+            return validation_mod.compute_l2_errors_vs_reference(
+                self._evaluate_at_points, self.params.Re,
+                Lx=self.params.Lx, Ly=self.params.Ly,
+                reference_roots=tuple(roots), base_dir=base_dir,
+                heatmap_method=(self.params.method or self.params.name)
+                if save_plots else None,
+                heatmap_paths=self.validation_error_plots,
+            )
 
     def validation_table(self, base_dir=None):
         return validation_mod.botella_validation_rows(

@@ -33,6 +33,7 @@ from ..ops import fv_stencils as st
 from ..ops.corner import lid_profile
 from ..ops.poisson import (SeparablePoisson, fd_dirichlet_poisson,
                            fv_neumann_pressure_poisson)
+from ..utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -404,8 +405,9 @@ class FVSolver(CavitySolver):
 
         metric = resolve_convergence_metric(self.params,
                                             auto_large="rel_iter")
-        step, chunk_runner = self._fused_paths(metric)
-        ckpt_mgr, start_iter = self._restore_checkpoint()
+        with span("level.setup"):
+            step, chunk_runner = self._fused_paths(metric)
+            ckpt_mgr, start_iter = self._restore_checkpoint()
         stall = int(self.params.stall_chunks)
         if stall < 0:  # auto: the f32 criterion can floor above tolerance
             stall = 25 if self.params.dtype == "float32" else 0

@@ -28,6 +28,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import span
+
 log = logging.getLogger(__name__)
 
 __all__ = ["IterationResult", "run_fixed_point", "make_chunk_runner",
@@ -240,11 +242,13 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
         length, so a capped solve never steps past its cap."""
         n = min(chunk, max_iterations - start)
         if n not in runners:
-            runners[n] = (chunk_runner(n, inner_tol, inner_metric)
-                          if chunk_runner is not None else
-                          make_chunk_runner(step_fn, get_uv, n, inner_tol,
-                                            warmup, inner_metric))
-        return _Pending(runners[n](st, start, rn))
+            with span("level.setup"):
+                runners[n] = (chunk_runner(n, inner_tol, inner_metric)
+                              if chunk_runner is not None else
+                              make_chunk_runner(step_fn, get_uv, n, inner_tol,
+                                                warmup, inner_metric))
+        with span("chunk.dispatch"):
+            return _Pending(runners[n](st, start, rn))
 
     rows_buf: List[np.ndarray] = []
     idx_buf: List[np.ndarray] = []
@@ -283,115 +287,119 @@ def run_fixed_point(step_fn, get_uv, state, tolerance: float,
         if it + chunk < max_iterations:
             nxt = dispatch(state_k, it + chunk, ref_k)
         # one bundled device->host read for chunk k's control flow
-        done_host, conv_iter_host, conv_flag, rows_host = cur.read()
-        state = state_k
-        if first_chunk_time == 0.0:
-            first_chunk_time = time.time() - t_chunk
+        with span("chunk.wait"):
+            done_host, conv_iter_host, conv_flag, rows_host = cur.read()
+        with span("chunk.control"):
+            state = state_k
+            if first_chunk_time == 0.0:
+                first_chunk_time = time.time() - t_chunk
 
-        if done_host:
-            n_ran = conv_iter_host - it
-            iterations = conv_iter_host
-            converged = conv_flag
-            diverged = not converged
-        else:
-            n_ran = min(chunk, max_iterations - it)
-            iterations = it + n_ran
-        gis = np.arange(it, it + n_ran)
-        keep = (gis >= warmup) & ((gis - warmup) % stride == 0)
-        if keep.any():
-            rows_buf.append(rows_host[:n_ran][keep])
-            idx_buf.append(gis[keep])
-            n_kept += int(keep.sum())
-        if n_ran > 0 and gis[-1] >= warmup:
-            last_row = rows_host[n_ran - 1]
-            last_idx = int(gis[-1])
-        if n_kept > 2 * max_history_points:
-            all_rows = np.concatenate(rows_buf, axis=0)[::2]
-            all_idx = np.concatenate(idx_buf)[::2]
-            rows_buf, idx_buf = [all_rows], [all_idx]
-            n_kept = all_rows.shape[0]
-            stride *= 2
+            if done_host:
+                n_ran = conv_iter_host - it
+                iterations = conv_iter_host
+                converged = conv_flag
+                diverged = not converged
+            else:
+                n_ran = min(chunk, max_iterations - it)
+                iterations = it + n_ran
+            gis = np.arange(it, it + n_ran)
+            keep = (gis >= warmup) & ((gis - warmup) % stride == 0)
+            if keep.any():
+                rows_buf.append(rows_host[:n_ran][keep])
+                idx_buf.append(gis[keep])
+                n_kept += int(keep.sum())
+            if n_ran > 0 and gis[-1] >= warmup:
+                last_row = rows_host[n_ran - 1]
+                last_idx = int(gis[-1])
+            if n_kept > 2 * max_history_points:
+                all_rows = np.concatenate(rows_buf, axis=0)[::2]
+                all_idx = np.concatenate(idx_buf)[::2]
+                rows_buf, idx_buf = [all_rows], [all_idx]
+                n_kept = all_rows.shape[0]
+                stride *= 2
 
-        if log_callback is not None:
-            t_log = time.time()
-            for off in range(n_ran):
-                gi = it + off
-                if gi % log_every == 0 or (done_host and gi == iterations - 1):
-                    log_callback(gi, dict(zip(METRIC_KEYS,
-                                              rows_host[off].tolist())))
-            log_time += time.time() - t_log
+            if log_callback is not None:
+                t_log = time.time()
+                for off in range(n_ran):
+                    gi = it + off
+                    if gi % log_every == 0 or (done_host
+                                               and gi == iterations - 1):
+                        log_callback(gi, dict(zip(METRIC_KEYS,
+                                                  rows_host[off].tolist())))
+                log_time += time.time() - t_log
 
-        it += n_ran
-        if checkpoint_mgr is not None and not done_host:
-            t_ck = time.time()
-            checkpoint_mgr.maybe_save(state, it, {"ref_norm": ref_k})
-            log_time += time.time() - t_ck
-        if done_host:
-            break  # a speculated chunk is dropped; state is chunk k's
-        if use_energy and it > warmup:
-            vals = rows_host[:n_ran, energy_col]
-            vals = vals[np.isfinite(vals)]
-            if vals.size:
-                e_last = float(vals[-1])
-                # floored at the energy dtype's rounding walk over n steps
-                eff_tol = max(tolerance, float(np.sqrt(n_ran))
-                              * float(np.finfo(rows_host.dtype).eps))
-                if e_prev is not None and abs(e_last - e_prev) <= (
-                        eff_tol * max(abs(e_last), 1e-30)):
-                    if plateau_count == 0:
-                        e_window0 = e_prev
-                    plateau_count += 1
-                    if plateau_count >= plateau_target:
-                        # net-drift gate: noise walks ~sqrt(window), a
-                        # drift grows linearly and fails
-                        if abs(e_last - e_window0) <= (
-                                eff_tol * max(abs(e_last), 1e-30)
-                                * max(1.0, plateau_target ** 0.5)):
-                            if eff_tol > tolerance:
-                                log.info(
-                                    "energy plateau converged at the %s "
-                                    "noise floor (effective tol %.1e > "
-                                    "requested %.1e)", rows_host.dtype,
-                                    eff_tol, tolerance)
-                            converged = True
-                            iterations = it
-                            break
+            it += n_ran
+            if checkpoint_mgr is not None and not done_host:
+                t_ck = time.time()
+                checkpoint_mgr.maybe_save(state, it, {"ref_norm": ref_k})
+                log_time += time.time() - t_ck
+            if done_host:
+                break  # a speculated chunk is dropped; state is chunk k's
+            if use_energy and it > warmup:
+                vals = rows_host[:n_ran, energy_col]
+                vals = vals[np.isfinite(vals)]
+                if vals.size:
+                    e_last = float(vals[-1])
+                    # floored at the energy dtype's rounding walk over n steps
+                    eff_tol = max(tolerance, float(np.sqrt(n_ran))
+                                  * float(np.finfo(rows_host.dtype).eps))
+                    if e_prev is not None and abs(e_last - e_prev) <= (
+                            eff_tol * max(abs(e_last), 1e-30)):
+                        if plateau_count == 0:
+                            e_window0 = e_prev
+                        plateau_count += 1
+                        if plateau_count >= plateau_target:
+                            # net-drift gate: noise walks ~sqrt(window), a
+                            # drift grows linearly and fails
+                            if abs(e_last - e_window0) <= (
+                                    eff_tol * max(abs(e_last), 1e-30)
+                                    * max(1.0, plateau_target ** 0.5)):
+                                if eff_tol > tolerance:
+                                    log.info(
+                                        "energy plateau converged at the %s "
+                                        "noise floor (effective tol %.1e > "
+                                        "requested %.1e)", rows_host.dtype,
+                                        eff_tol, tolerance)
+                                converged = True
+                                iterations = it
+                                break
+                            plateau_count = 0
+                    else:
                         plateau_count = 0
-                else:
-                    plateau_count = 0
-                e_prev = e_last
-        if stall_chunks > 0 and not use_energy and it > warmup:
-            vals = rows_host[:n_ran, crit_col]
-            vals = vals[np.isfinite(vals)]
-            if vals.size:
-                chunk_min = float(vals.min())
-                if chunk_min < best_crit * 0.98:
-                    best_crit = chunk_min
-                    stall_count = 0
-                else:
-                    stall_count += 1
-                if stall_count >= stall_chunks:
-                    stalled = True
-                    iterations = it
-                    break
+                    e_prev = e_last
+            if stall_chunks > 0 and not use_energy and it > warmup:
+                vals = rows_host[:n_ran, crit_col]
+                vals = vals[np.isfinite(vals)]
+                if vals.size:
+                    chunk_min = float(vals.min())
+                    if chunk_min < best_crit * 0.98:
+                        best_crit = chunk_min
+                        stall_count = 0
+                    else:
+                        stall_count += 1
+                    if stall_count >= stall_chunks:
+                        stalled = True
+                        iterations = it
+                        break
         cur = nxt
 
     wall = time.time() - t0 - log_time
 
-    if rows_buf:
-        all_rows = np.concatenate(rows_buf, axis=0)
-        all_idx = np.concatenate(idx_buf)
-    else:
-        all_rows = np.zeros((0, len(METRIC_KEYS)))
-        all_idx = np.zeros((0,), np.int64)
-    mask = all_idx < iterations
-    all_rows, all_idx = all_rows[mask], all_idx[mask]
-    if last_row is not None and last_idx < iterations and (
-            all_idx.size == 0 or int(all_idx[-1]) != last_idx):
-        all_rows = np.concatenate([all_rows, last_row[None]], axis=0)
-        all_idx = np.concatenate([all_idx, [last_idx]])
-    history = {key: all_rows[:, i].tolist()
-               for i, key in enumerate(METRIC_KEYS)}
+    with span("chunk.control"):
+        if rows_buf:
+            all_rows = np.concatenate(rows_buf, axis=0)
+            all_idx = np.concatenate(idx_buf)
+        else:
+            all_rows = np.zeros((0, len(METRIC_KEYS)))
+            all_idx = np.zeros((0,), np.int64)
+        mask = all_idx < iterations
+        all_rows, all_idx = all_rows[mask], all_idx[mask]
+        if last_row is not None and last_idx < iterations and (
+                all_idx.size == 0 or int(all_idx[-1]) != last_idx):
+            all_rows = np.concatenate([all_rows, last_row[None]], axis=0)
+            all_idx = np.concatenate([all_idx, [last_idx]])
+        history = {key: all_rows[:, i].tolist()
+                   for i, key in enumerate(METRIC_KEYS)}
     return IterationResult(
         state=state, iterations=iterations, converged=converged,
         diverged=diverged, wall_time=wall, history=history,

@@ -43,6 +43,7 @@ from ..ops.singular import eval_singular_uv, singular_min_n
 from ..ops.transfer import (make_level_transfer_matrices,
                             nodal_interpolation_matrix)
 from ..analysis.vortex import solve_streamfunction
+from ..utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -294,8 +295,9 @@ class SGSolver(CavitySolver):
                     "expect divergence unless warm-started",
                     self.params.nx, floor, self.params.Re)
         metric = resolve_convergence_metric(self.params)
-        step, chunk_runner = self._paths(self.ops)
-        ckpt_mgr, start_iter = self._restore_checkpoint()
+        with span("level.setup"):
+            step, chunk_runner = self._paths(self.ops)
+            ckpt_mgr, start_iter = self._restore_checkpoint()
         chunk_eff = effective_chunk(chunk_runner, self.params.chunk_size)
         result = run_fixed_point(
             step, lambda s: (s.u, s.v), self.state,
@@ -555,16 +557,18 @@ class FSGSolver(SGSolver):
         for level_idx, n in enumerate(orders):
             level_tol = tol * (self.params.coarse_tolerance_factor
                                ** (len(orders) - 1 - level_idx))
-            if n == int(self.params.nx):
-                ops = self.ops
-            else:
-                ops, _ = core.build_spectral_ops(self.params, n=n,
-                                                 device=self.device)
-            if state is None:
-                state = core.initial_state(ops)
-            else:
-                state = self._prolongate(state, prev_n, n, ops)
-            step, chunk_runner = self._paths(ops)
+            with span("level.setup"):
+                if n == int(self.params.nx):
+                    ops = self.ops
+                else:
+                    ops, _ = core.build_spectral_ops(self.params, n=n,
+                                                     device=self.device)
+                step, chunk_runner = self._paths(ops)
+                if state is None:
+                    state = core.initial_state(ops)
+            if prev_n is not None:
+                with span("level.prolong"):
+                    state = self._prolongate(state, prev_n, n, ops)
             chunk_eff = effective_chunk(chunk_runner, self.params.chunk_size)
             result = run_fixed_point(
                 step, lambda s: (s.u, s.v), state,
@@ -604,18 +608,20 @@ class FSGSolver(SGSolver):
         self.state = state
         # the reference's single-row history: final residuals and
         # quadratures, rel-iter placeholder at tol (10x tol unconverged)
-        R_u, R_v, R_p = core.residuals(self.ops, state.u, state.v, state.p)
-        energy, enstrophy, palinstrophy = core.conserved_quantities(
-            self.ops, state.u, state.v)
-        history = {
-            "rel_iter": [tol if converged else tol * 10],
-            "u_eq": [float(torch.linalg.norm(R_u))],
-            "v_eq": [float(torch.linalg.norm(R_v))],
-            "continuity": [float(torch.linalg.norm(R_p))],
-            "energy": [float(energy)],
-            "enstrophy": [float(enstrophy)],
-            "palinstrophy": [float(palinstrophy)],
-        }
+        with span("solve.finish"):
+            R_u, R_v, R_p = core.residuals(self.ops, state.u, state.v,
+                                           state.p)
+            energy, enstrophy, palinstrophy = core.conserved_quantities(
+                self.ops, state.u, state.v)
+            history = {
+                "rel_iter": [tol if converged else tol * 10],
+                "u_eq": [float(torch.linalg.norm(R_u))],
+                "v_eq": [float(torch.linalg.norm(R_v))],
+                "continuity": [float(torch.linalg.norm(R_p))],
+                "energy": [float(energy)],
+                "enstrophy": [float(enstrophy)],
+                "palinstrophy": [float(palinstrophy)],
+            }
         result = IterationResult(
             state=state, iterations=total_iters,
             converged=bool(converged and not diverged),

@@ -64,7 +64,7 @@ __all__ = ["make_fv_step", "make_fv_chunk_runner", "fv_iterate_plain",
            "scalar_table", "workspace", "chunk_workspace", "unfused_step",
            "bench_workspace",
            "bench_kernel", "pad_state", "unpad_state", "LAUNCHES",
-           "PLAIN_CALLS", "KERNELS", "reset_counts", "METRIC_NAMES",
+           "PLAIN_CALLS", "STEPS", "KERNELS", "reset_counts", "METRIC_NAMES",
            "plain_momentum", "plain_pressure_stage", "plain_control",
            "plain_pressure_launch", "pressure_grid", "coresident",
            "check_launch", "MAX_ITEMS"]
@@ -72,6 +72,8 @@ __all__ = ["make_fv_step", "make_fv_chunk_runner", "fv_iterate_plain",
 KERNELS = ("fv_bicgstab", "fv_pressure")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {"fv_step": 0, "fv_chunk": 0, "fv_unfused": 0}
+# iterations asked of the chunk runners: a chunk's n, once per call
+STEPS = {"fv_chunk": 0}
 METRIC_NAMES = ("u_eq", "v_eq", "continuity", "energy", "enstrophy",
                 "palinstrophy")
 N_COLS = 7
@@ -100,6 +102,7 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
     for k in PLAIN_CALLS:
         PLAIN_CALLS[k] = 0
+    STEPS["fv_chunk"] = 0
 
 
 def validate(ops: FVOps) -> None:
@@ -664,6 +667,7 @@ def make_fv_chunk_runner(params, ops: FVOps, chunk: int, tolerance: float,
                 warmup=int(warmup), K=int(bicgstab_iters))
 
     def chunk_fn(state, start_iter, ref_norm):
+        STEPS["fv_chunk"] += args["chunk"]
         if _on_cuda(ops, state):
             return _chunk_kernel(S, ops, state, start_iter, ref_norm, **args)
         return chunk_plain(S, state, start_iter, ref_norm, **args)

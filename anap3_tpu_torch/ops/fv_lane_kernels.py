@@ -24,7 +24,9 @@ kernel takes rel_iter only. Dispatch is by the states' device: CPU tensors
 take ``lanes_plain``, CUDA tensors launch the kernels or raise.
 
 Launch counts: ``LAUNCHES["fv_lanes"]`` counts the kernel launches of lane
-chunks; ``PLAIN_CALLS["fv_lanes"]`` counts calls of ``lanes_plain``.
+chunks; ``PLAIN_CALLS["fv_lanes"]`` counts calls of ``lanes_plain``;
+``STEPS["fv_lanes"]`` the batch iterations asked of a lane chunk function,
+a chunk's n once per call, kernel and plain path alike.
 """
 
 from __future__ import annotations
@@ -43,16 +45,18 @@ log = logging.getLogger(__name__)
 
 __all__ = ["make_fv_lane_runner", "maybe_fv_lane_runner", "lanes_plain",
            "validate_lanes", "fv_lanes_supported", "LAUNCHES", "PLAIN_CALLS",
-           "KERNELS", "reset_counts", "run_lanes", "lane_statics"]
+           "KERNELS", "reset_counts", "run_lanes", "lane_statics", "STEPS"]
 
 KERNELS = ("fv_lanes",)
 LAUNCHES = {"fv_lanes": 0}
 PLAIN_CALLS = {"fv_lanes": 0}
+STEPS = {"fv_lanes": 0}
 
 
 def reset_counts() -> None:
     LAUNCHES["fv_lanes"] = 0
     PLAIN_CALLS["fv_lanes"] = 0
+    STEPS["fv_lanes"] = 0
 
 
 def validate_lanes(params_list, ops_list) -> None:
@@ -171,6 +175,7 @@ def make_fv_lane_runner(params_list, ops_list, chunk: int, tolerance: float,
                 use_residual=convergence_metric == "residual")
 
     def chunk_fn(states, start_iter, carry=None):
+        STEPS["fv_lanes"] += args["chunk"]
         if carry is None:
             carry = fresh_carry(B, ops0.dtype, ops0.device)
         if _check_states(ops0, B, states):

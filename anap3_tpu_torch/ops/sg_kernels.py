@@ -87,7 +87,9 @@ by kernel (sg_stage: one per RK stage; sg_diag: dt and the tail kernel;
 sg_control: the unsampled control; sg_stage_x1 and sg_diag_x1: the x1
 stage and x1 tail launches); ``PART_LAUNCHES`` counts dt_kernel's alone
 (also in sg_diag's); ``PLAIN_CALLS`` counts calls of the plain versions.
-``reset_counts()`` zeroes all three.
+``STEPS["sg_chunk"]`` counts the steps the chunk runners were asked to
+march, kernel and plain path alike (a done state marches frozen to the
+chunk's end). ``reset_counts()`` zeroes all four.
 """
 
 from __future__ import annotations
@@ -116,7 +118,7 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
            "tail_block_items", "MAX_TAIL_ITEMS", "chunk_launches",
            "smoother_launches", "BENCH_GROUPS", "PARTS", "PART_LAUNCHES",
-           "base_parts", "dt_from_parts"]
+           "base_parts", "dt_from_parts", "STEPS"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
@@ -137,6 +139,8 @@ LAUNCHES = {k: 0 for k in KERNELS}
 PARTS = ("dt_kernel",)
 PART_LAUNCHES = {k: 0 for k in PARTS}
 PLAIN_CALLS = {"sg_step": 0, "sg_chunk": 0, "sg_smooth": 0}
+# steps asked of the chunk runners: a chunk's n, once per call
+STEPS = {"sg_chunk": 0}
 
 # pointer-table order of csrc/sg_common.cuh:Ptr
 _PTR_NAMES = (
@@ -455,7 +459,7 @@ def _new_counts():
 
 
 def reset_counts() -> None:
-    for table in (LAUNCHES, PART_LAUNCHES, PLAIN_CALLS):
+    for table in (LAUNCHES, PART_LAUNCHES, PLAIN_CALLS, STEPS):
         for k in table:
             table[k] = 0
 
@@ -1195,6 +1199,7 @@ def make_sg_chunk_runner(ops: SpectralOps, chunk: int, tolerance: float,
     made = {}
 
     def chunk_fn(state, start_iter, ref_norm):
+        STEPS["sg_chunk"] += args["chunk"]
         if _on_cuda(ops, state):
             if x1 and "tables" not in made:
                 made["tables"] = _x1_tables(ops)

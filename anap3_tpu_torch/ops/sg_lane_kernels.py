@@ -41,7 +41,10 @@ lanes: ``lanes_plain`` with quadratures every step on any device.
 
 Launch counts: ``LAUNCHES`` counts the kernel launches of lane chunks by the
 TPU kernel they stand for ("sg_lanes_tiled": #9, "sg_lanes_aligned": #10);
-``PLAIN_CALLS["sg_lanes"]`` counts calls of ``lanes_plain``.
+``PLAIN_CALLS["sg_lanes"]`` counts calls of ``lanes_plain``;
+``STEPS["sg_lanes"]`` the batch steps asked of a lane chunk function, a
+chunk's n once per call of a batch (of each corner-mode group), kernel and
+plain path alike.
 """
 
 from __future__ import annotations
@@ -53,6 +56,7 @@ import torch
 from ..models.runner import WARMUP_ITERS, LaneCarry, fresh_carry
 from ..models.spectral_sg import SpectralState
 from ..models.params import lane_kernels_on
+from ..utils.profiling import span
 from . import sg_kernels as sgk
 
 log = logging.getLogger(__name__)
@@ -62,7 +66,7 @@ __all__ = ["make_lane_chunk_runner", "maybe_lane_runner",
            "validate_lanes",
            "aligned_supported", "aligned_lanes_supported",
            "lane_metrics_every", "LAUNCHES", "PLAIN_CALLS", "KERNELS",
-           "reset_counts", "MAX_ALIGNED_N"]
+           "reset_counts", "MAX_ALIGNED_N", "STEPS"]
 
 # the aligned tier's order cap, smoothed and singular
 # (anap3_tpu/ops/pallas_aligned.py MAX_ALIGNED_N, MAX_ALIGNED_SINGULAR_N)
@@ -70,6 +74,7 @@ MAX_ALIGNED_N = 320
 KERNELS = ("sg_lanes_tiled", "sg_lanes_aligned")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {"sg_lanes": 0}
+STEPS = {"sg_lanes": 0}
 
 _SHARED = ("Dx", "DyT", "Dxx", "DyyT", "Ix", "IyT", "Gx", "GyT", "interior",
            "W2d")
@@ -82,6 +87,7 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
     for k in PLAIN_CALLS:
         PLAIN_CALLS[k] = 0
+    STEPS["sg_lanes"] = 0
 
 
 def aligned_supported(n: int) -> bool:
@@ -113,12 +119,15 @@ def validate_lanes(ops_list) -> None:
         if o.singular != o0.singular:
             raise ValueError("the lane kernels need one corner mode across "
                              f"lanes (lane {k} differs from lane 0)")
-        for name in _SHARED:
-            a, b = getattr(o0, name), getattr(o, name)
-            if a.shape != b.shape or not torch.equal(a, b):
-                raise ValueError(
-                    f"lane {k} operator {name!r} differs from lane 0: "
-                    "lane-batched kernels need shared operators")
+        # a span a lane: a batch's comparisons hold many of the
+        # profiler's events
+        with span("level.setup"):
+            for name in _SHARED:
+                a, b = getattr(o0, name), getattr(o, name)
+                if a.shape != b.shape or not torch.equal(a, b):
+                    raise ValueError(
+                        f"lane {k} operator {name!r} differs from lane 0: "
+                        "lane-batched kernels need shared operators")
 
 
 def aligned_lanes_supported(ops_list) -> bool:
@@ -227,9 +236,11 @@ def make_lane_chunk_runner(ops_list, chunk: int, tolerance: float,
                 warmup=int(warmup),
                 use_residual=convergence_metric == "residual",
                 metrics_every=lane_metrics_every(ops0.nf - 1))
-    statics = _lane_statics(ops_list)
+    with span("level.setup"):
+        statics = _lane_statics(ops_list)
 
     def chunk_fn(states, start_iter, carry=None):
+        STEPS["sg_lanes"] += args["chunk"]
         if carry is None:
             carry = fresh_carry(B, ops0.dtype, ops0.device)
         if _check_states(ops0, B, states):
@@ -253,6 +264,7 @@ def plain_lane_runner(ops_list):
                     metrics_every=1)
 
         def chunk_fn(states, start_iter, carry=None):
+            STEPS["sg_lanes"] += args["chunk"]
             if carry is None:
                 carry = fresh_carry(B, o0.dtype, o0.device)
             return lanes_plain(ops_list, states, start_iter, carry, **args)

@@ -27,6 +27,7 @@ from typing import List, Sequence
 
 from ..models.params import lane_kernels_on
 from ..models.runner import IterationResult
+from ..utils.profiling import span
 from .sweep import lane_state, run_batched_sweep, stack_ops, stack_states
 
 log = logging.getLogger(__name__)
@@ -140,9 +141,11 @@ def run_batched(solvers: Sequence, mesh=None) -> List[IterationResult]:
             plateau = None
         else:
             raise TypeError(f"{type(first).__name__} cannot run batched")
+        stacked = stack_ops(ops_list)
+        with span("level.setup"):
+            states = stack_states([s.state for s in solvers])
         res = run_batched_sweep(
-            step_fn, lambda s: (s.u, s.v), stack_ops(ops_list),
-            stack_states([s.state for s in solvers]),
+            step_fn, lambda s: (s.u, s.v), stacked, states,
             tolerance=float(p0.tolerance),
             max_iterations=int(p0.max_iterations), chunk=chunk, mesh=mesh,
             lane_runner=lane_runner, convergence_metric=metric,
@@ -151,16 +154,17 @@ def run_batched(solvers: Sequence, mesh=None) -> List[IterationResult]:
         for k in range(len(solvers)):
             # recorded columns carry their global iteration (long sweeps
             # are decimated); keep those before this lane's end
-            rec = res.history_iters < int(res.iterations[k])
-            results.append(IterationResult(
-                state=lane_state(res.states, k),
-                iterations=int(res.iterations[k]),
-                converged=bool(res.converged[k]),
-                diverged=bool(res.diverged[k]), wall_time=res.wall_time,
-                history={key: res.history[key][k][rec].tolist()
-                         for key in res.history},
-                first_chunk_time=res.first_chunk_time,
-                history_iters=res.history_iters[rec]))
+            with span("solve.finish"):
+                rec = res.history_iters < int(res.iterations[k])
+                results.append(IterationResult(
+                    state=lane_state(res.states, k),
+                    iterations=int(res.iterations[k]),
+                    converged=bool(res.converged[k]),
+                    diverged=bool(res.diverged[k]), wall_time=res.wall_time,
+                    history={key: res.history[key][k][rec].tolist()
+                             for key in res.history},
+                    first_chunk_time=res.first_chunk_time,
+                    history_iters=res.history_iters[rec]))
     for solver, result in zip(solvers, results):
         solver.state = result.state
         if result.levels is not None:

@@ -36,6 +36,7 @@ from ..models.spectral import (fsg_level_orders, prolongate,
                                scaled_plateau_chunks)
 from ..models.spectral_vmg import check_fp32_matmul
 from ..ops.sg_lane_kernels import sg_lane_runner
+from ..utils.profiling import span
 from .sweep import lane_state, run_batched_sweep, stack_ops, stack_states
 
 log = logging.getLogger(__name__)
@@ -67,13 +68,23 @@ def _run_group(param_list, orders, chunk, mesh=None):
     for level_idx, n in enumerate(orders):
         level_tol = tol * (p0.coarse_tolerance_factor
                            ** (len(orders) - 1 - level_idx))
-        ops_list = [core.build_spectral_ops(p, n=n)[0] for p in param_list]
+        # a span a lane, so that each holds few of the profiler's events
+        ops_list = []
+        for p in param_list:
+            with span("level.setup"):
+                ops_list.append(core.build_spectral_ops(p, n=n)[0])
         if states is None:
-            states = stack_states([core.initial_state(o) for o in ops_list])
+            with span("level.setup"):
+                lanes = [core.initial_state(o) for o in ops_list]
         else:
-            states = stack_states([
-                prolongate(p, lane_state(states, b), prev_n, n, ops_list[b])
-                for b, p in enumerate(param_list)])
+            lanes = []
+            for b, p in enumerate(param_list):
+                with span("level.prolong"):
+                    lanes.append(prolongate(p, lane_state(states, b), prev_n,
+                                            n, ops_list[b]))
+        with span("level.setup"):
+            states = stack_states(lanes)
+        stacked = stack_ops(ops_list)
         # the finest level takes the lanes' criterion ("auto" is the energy
         # plateau at N >= 128); coarser levels only give warm starts, where
         # rel_iter is enough (fsg_sweep.py:102-111)
@@ -82,7 +93,7 @@ def _run_group(param_list, orders, chunk, mesh=None):
         else:
             metric = "rel_iter"
         res = run_batched_sweep(
-            core.sg_step, lambda s: (s.u, s.v), stack_ops(ops_list), states,
+            core.sg_step, lambda s: (s.u, s.v), stacked, states,
             tolerance=level_tol, max_iterations=max_iter, chunk=chunk,
             convergence_metric=metric, mesh=mesh,
             lane_runner=sg_lane_runner(ops_list, p0),
@@ -139,19 +150,20 @@ def run_batched_fsg(param_list: Sequence[SpectralParameters],
                   first_chunk) in out.values():
         for k, b in enumerate(members):
             ops, st = ops_list[k], lane_state(states, k)
-            R_u, R_v, R_p = core.residuals(ops, st.u, st.v, st.p)
-            energy, enstrophy, palinstrophy = core.conserved_quantities(
-                ops, st.u, st.v)
-            ok = bool(converged[k] and not diverged[k])
-            history = {
-                "rel_iter": [tol if ok else tol * 10],
-                "u_eq": [float(torch.linalg.norm(R_u))],
-                "v_eq": [float(torch.linalg.norm(R_v))],
-                "continuity": [float(torch.linalg.norm(R_p))],
-                "energy": [float(energy)],
-                "enstrophy": [float(enstrophy)],
-                "palinstrophy": [float(palinstrophy)],
-            }
+            with span("solve.finish"):
+                R_u, R_v, R_p = core.residuals(ops, st.u, st.v, st.p)
+                energy, enstrophy, palinstrophy = core.conserved_quantities(
+                    ops, st.u, st.v)
+                ok = bool(converged[k] and not diverged[k])
+                history = {
+                    "rel_iter": [tol if ok else tol * 10],
+                    "u_eq": [float(torch.linalg.norm(R_u))],
+                    "v_eq": [float(torch.linalg.norm(R_v))],
+                    "continuity": [float(torch.linalg.norm(R_p))],
+                    "energy": [float(energy)],
+                    "enstrophy": [float(enstrophy)],
+                    "palinstrophy": [float(palinstrophy)],
+                }
             results[b] = IterationResult(
                 state=st, iterations=int(iters[k]), converged=ok,
                 diverged=bool(diverged[k]), wall_time=wall, history=history,

@@ -52,6 +52,7 @@ import torch.distributed as dist
 from ..models.runner import (ENERGY_PLATEAU_CHUNKS, METRIC_KEYS, WARMUP_ITERS,
                              LaneCarry, control_step, fresh_carry, freeze,
                              rel_change)
+from ..utils.profiling import span
 
 __all__ = ["SweepResult", "StackedOps", "stack_ops", "stack_states",
            "lane_state", "make_batched_chunk_runner", "run_batched_sweep",
@@ -104,11 +105,14 @@ class StackedOps:
             vals = [getattr(o, f.name) for o in self.lanes]
             v0 = vals[0]
             if isinstance(v0, torch.Tensor):
-                if all(v.shape == v0.shape and torch.equal(v, v0)
-                       for v in vals[1:]):
-                    self.shared[f.name] = v0
-                else:
-                    self.stacked[f.name] = torch.stack(vals)
+                # a span a field: a batch's comparisons hold many of the
+                # profiler's events
+                with span("level.setup"):
+                    if all(v.shape == v0.shape and torch.equal(v, v0)
+                           for v in vals[1:]):
+                        self.shared[f.name] = v0
+                    else:
+                        self.stacked[f.name] = torch.stack(vals)
             elif isinstance(v0, float):
                 self.stacked[f.name] = torch.tensor(
                     vals, dtype=like.dtype, device=like.device)
@@ -319,18 +323,22 @@ def run_batched_sweep(step_fn, get_uv, ops, states, tolerance: float,
         lanes = split.lanes
         ops = stack_ops(ops.lanes[lanes])
         states = type(states)(*(t[lanes] for t in states))
-    chunk_runner = lane_runner(lanes) if lane_runner is not None else None
+    with span("level.setup"):
+        chunk_runner = (lane_runner(lanes) if lane_runner is not None
+                        else None)
     runners = {}
 
     def runner(n):
         """The chunk function of ``n`` steps (``chunk``, or the last
         chunk's remainder below ``max_iterations``), built once a length."""
         if n not in runners:
-            runners[n] = (
-                chunk_runner(n, inner_tol, warmup, inner_metric)
-                if chunk_runner is not None else
-                make_batched_chunk_runner(step_fn, get_uv, ops, n, inner_tol,
-                                          warmup, inner_metric))
+            with span("level.setup"):
+                runners[n] = (
+                    chunk_runner(n, inner_tol, warmup, inner_metric)
+                    if chunk_runner is not None else
+                    make_batched_chunk_runner(step_fn, get_uv, ops, n,
+                                              inner_tol, warmup,
+                                              inner_metric))
         return runners[n]
 
     try:
@@ -379,7 +387,9 @@ def _sweep_loop(runner, states, B, tolerance, max_iterations, chunk, warmup,
     def dispatch(st, start, carry):
         # the last chunk runs only the steps left below the cap
         n = min(chunk, max_iterations - start)
-        return _Pending(runner(n)(st, start, carry))
+        run = runner(n)
+        with span("chunk.dispatch"):
+            return _Pending(run(st, start, carry))
 
     if it < max_iterations:
         cur = dispatch(states, it, None)
@@ -388,83 +398,87 @@ def _sweep_loop(runner, states, B, tolerance, max_iterations, chunk, warmup,
         nxt = None
         if it + chunk < max_iterations:
             nxt = dispatch(states, it + chunk, carry)
-        flags_h, rows_h = cur.read()
-        if first_chunk_time == 0.0:
-            first_chunk_time = time.time() - t0
-        n_ran = min(chunk, max_iterations - it)
-        rows_h = rows_h[:n_ran]  # (n, B, K)
-        gis = np.arange(it, it + n_ran)
-        keep = (gis >= warmup) & ((gis - warmup) % stride == 0)
-        if keep.any():
-            rows_buf.append(rows_h[keep])
-            idx_buf.append(gis[keep])
-            n_kept += int(keep.sum())
-        if n_kept > 2 * max_history_points:
-            all_rows = np.concatenate(rows_buf, axis=0)[::2]
-            all_idx = np.concatenate(idx_buf)[::2]
-            rows_buf, idx_buf = [all_rows], [all_idx]
-            n_kept = all_rows.shape[0]
-            stride *= 2
-        it += n_ran
-        if use_energy and it > warmup:
-            e_rows = rows_h[:, :, energy_col]  # (n, B)
-            if plateau is None:
-                plateau = np.zeros(B, np.int64)
-                conv_it_energy = np.full(B, -1, np.int64)
-                e_w0 = np.full(B, np.nan)
-            # last finite energy per lane (done lanes record NaN)
-            e_last = np.full(B, np.nan)
-            for b in range(B):
-                finite = np.isfinite(e_rows[:, b])
-                if finite.any():
-                    e_last[b] = e_rows[np.flatnonzero(finite)[-1], b]
-            if e_prev is not None:
-                flat = (np.abs(e_last - e_prev)
-                        <= tolerance * np.maximum(np.abs(e_last), 1e-30))
-                flat &= np.isfinite(e_last)
-                e_w0 = np.where(flat & (plateau == 0), e_prev, e_w0)
-                plateau = np.where(flat, plateau + 1, 0)
-                reached = plateau >= plateau_target
-                # net-drift gate: the window's net change within
-                # sqrt(window) per-chunk budgets
-                net_ok = (np.abs(e_last - e_w0)
-                          <= tolerance * np.maximum(np.abs(e_last), 1e-30)
-                          * max(1.0, plateau_target ** 0.5))
-                newly = reached & net_ok & (conv_it_energy < 0)
-                conv_it_energy[newly] = it
-                plateau = np.where(reached & ~net_ok, 0, plateau)
-            e_prev = np.where(np.isfinite(e_last), e_last,
-                              e_prev if e_prev is not None else e_last)
-        lane_done = flags_h[:, 0] > 0
-        if use_energy and conv_it_energy is not None:
-            lane_done = lane_done | (conv_it_energy >= 0)
-        all_done = bool(lane_done.all())
-        if split is not None:
-            all_done = split.all(all_done)
-        if all_done:
-            break  # a speculated chunk is dropped
+        with span("chunk.wait"):
+            flags_h, rows_h = cur.read()
+        with span("chunk.control"):
+            if first_chunk_time == 0.0:
+                first_chunk_time = time.time() - t0
+            n_ran = min(chunk, max_iterations - it)
+            rows_h = rows_h[:n_ran]  # (n, B, K)
+            gis = np.arange(it, it + n_ran)
+            keep = (gis >= warmup) & ((gis - warmup) % stride == 0)
+            if keep.any():
+                rows_buf.append(rows_h[keep])
+                idx_buf.append(gis[keep])
+                n_kept += int(keep.sum())
+            if n_kept > 2 * max_history_points:
+                all_rows = np.concatenate(rows_buf, axis=0)[::2]
+                all_idx = np.concatenate(idx_buf)[::2]
+                rows_buf, idx_buf = [all_rows], [all_idx]
+                n_kept = all_rows.shape[0]
+                stride *= 2
+            it += n_ran
+            if use_energy and it > warmup:
+                e_rows = rows_h[:, :, energy_col]  # (n, B)
+                if plateau is None:
+                    plateau = np.zeros(B, np.int64)
+                    conv_it_energy = np.full(B, -1, np.int64)
+                    e_w0 = np.full(B, np.nan)
+                # last finite energy per lane (done lanes record NaN)
+                e_last = np.full(B, np.nan)
+                for b in range(B):
+                    finite = np.isfinite(e_rows[:, b])
+                    if finite.any():
+                        e_last[b] = e_rows[np.flatnonzero(finite)[-1], b]
+                if e_prev is not None:
+                    flat = (np.abs(e_last - e_prev)
+                            <= tolerance * np.maximum(np.abs(e_last), 1e-30))
+                    flat &= np.isfinite(e_last)
+                    e_w0 = np.where(flat & (plateau == 0), e_prev, e_w0)
+                    plateau = np.where(flat, plateau + 1, 0)
+                    reached = plateau >= plateau_target
+                    # net-drift gate: the window's net change within
+                    # sqrt(window) per-chunk budgets
+                    net_ok = (np.abs(e_last - e_w0)
+                              <= tolerance * np.maximum(np.abs(e_last), 1e-30)
+                              * max(1.0, plateau_target ** 0.5))
+                    newly = reached & net_ok & (conv_it_energy < 0)
+                    conv_it_energy[newly] = it
+                    plateau = np.where(reached & ~net_ok, 0, plateau)
+                e_prev = np.where(np.isfinite(e_last), e_last,
+                                  e_prev if e_prev is not None else e_last)
+            lane_done = flags_h[:, 0] > 0
+            if use_energy and conv_it_energy is not None:
+                lane_done = lane_done | (conv_it_energy >= 0)
+            all_done = bool(lane_done.all())
+            if split is not None:
+                all_done = split.all(all_done)
+            if all_done:
+                break  # a speculated chunk is dropped
         cur = nxt
     wall = time.time() - t0
 
-    done_h = flags_h[:, 0] > 0
-    conv_iter_h = flags_h[:, 1]
-    if use_energy:
-        if conv_it_energy is None:
-            conv_it_energy = np.full(B, -1, np.int64)
-        converged = conv_it_energy >= 0
-        iterations = np.where(converged, conv_it_energy, it)
-    else:
-        converged = flags_h[:, 2] > 0
-        iterations = np.where(conv_iter_h > 0, conv_iter_h, it)
-    diverged = done_h & ~converged
+    with span("chunk.control"):
+        done_h = flags_h[:, 0] > 0
+        conv_iter_h = flags_h[:, 1]
+        if use_energy:
+            if conv_it_energy is None:
+                conv_it_energy = np.full(B, -1, np.int64)
+            converged = conv_it_energy >= 0
+            iterations = np.where(converged, conv_it_energy, it)
+        else:
+            converged = flags_h[:, 2] > 0
+            iterations = np.where(conv_iter_h > 0, conv_iter_h, it)
+        diverged = done_h & ~converged
 
-    if rows_buf:
-        rows_all = np.concatenate(rows_buf, axis=0)  # (T', B, K)
-        idx_all = np.concatenate(idx_buf)
-    else:
-        rows_all = np.zeros((0, B, len(METRIC_KEYS)))
-        idx_all = np.zeros((0,), np.int64)
-    hist = {key: rows_all[:, :, ki].T for ki, key in enumerate(METRIC_KEYS)}
+        if rows_buf:
+            rows_all = np.concatenate(rows_buf, axis=0)  # (T', B, K)
+            idx_all = np.concatenate(idx_buf)
+        else:
+            rows_all = np.zeros((0, B, len(METRIC_KEYS)))
+            idx_all = np.zeros((0,), np.int64)
+        hist = {key: rows_all[:, :, ki].T
+                for ki, key in enumerate(METRIC_KEYS)}
     return SweepResult(states=states, iterations=iterations,
                        converged=converged, diverged=diverged,
                        wall_time=wall, history=hist, history_iters=idx_all,

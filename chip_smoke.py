@@ -3027,13 +3027,14 @@ def profile_ptc_step(solver):
           f"evaluations, the capture included): unprofiled wall "
           f"{step_wall:.3f}s", flush=True)
     if traced is not None:
-        dev, host = traced
+        dev, host, window = traced
         vec = used[-1]
         print(f"[newton profile] {vec} GMRES vectors of the captured matvec "
               f"and one P^-1 (nk launches {per_run}): unprofiled wall "
               f"{wall:.4f}s, {wall / vec * 1e3:.3f} ms a vector; "
               f"{len(dev) / vec:.1f} device activities a vector; profiled "
-              f"host {host:.4f}s, {device_breakdown(dev)}", flush=True)
+              f"host {host:.4f}s, {device_breakdown(dev, window=window)}",
+              flush=True)
 
 
 def phase_newton_prelude():

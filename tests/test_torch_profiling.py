@@ -7,7 +7,8 @@ anap3_tpu.utils.profiling, on the CPU.
 - ``trace_device`` refuses a trace that holds no device activity (the
   card's measurement helpers fail the run on it), and ``device_breakdown``
   reads the window, busy time, idle share and kernel shares of a trace's
-  device events.
+  device events: over the caller's host window where given, else from
+  the first activity to the last.
 """
 
 import json
@@ -84,3 +85,18 @@ def test_device_breakdown_reads_a_trace():
                            "share 0.300, 4 device activities")
     assert "stage_kernel 0.060 ms (86%)" in text
     assert "control_kernel 0.010 ms (14%)" in text
+
+
+def test_device_breakdown_takes_the_idle_share_over_a_window():
+    # the same activities inside a 200 µs host window: the host time
+    # before the first kernel counts as idle, and an activity is clipped
+    # to the window
+    dev = [_event("void stage_kernel<float, 16>(Params)", 0.0, 30.0),
+           _event("void stage_kernel<float, 16>(Params)", 50.0, 80.0),
+           _event("control_kernel(int*)", 90.0, 100.0)]
+    text = TP.device_breakdown(dev, window=(-100.0, 100.0))
+    assert text.startswith("window 0.200 ms, device time 0.070 ms, idle "
+                           "share 0.650, 3 device activities")
+    clipped = TP.device_breakdown(dev, window=(10.0, 95.0))
+    assert clipped.startswith("window 0.085 ms, device time 0.055 ms, "
+                              "idle share 0.353")
