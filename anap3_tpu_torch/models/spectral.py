@@ -483,8 +483,10 @@ class SGSolver(CavitySolver):
         return psi_t + S["psi"], X, Y
 
     def _evaluate_at_points(self, x: np.ndarray, y: np.ndarray):
-        """Global 2-D polynomial evaluation at scattered points: modal
-        coefficients A = Vx^-1 U Vy^-T, values by row Vandermondes."""
+        """Global 2-D polynomial evaluation at points: modal coefficients
+        A = Vx^-1 U Vy^-T, values G = Px A Py^T on the grid of the points'
+        unique coordinates (the truth grid's 128 x 128 for its 16,384
+        points), gathered back to the points."""
         xn, yn = self.grid["x_nodes"], self.grid["y_nodes"]
 
         def to_ref(vals, nodes):
@@ -493,12 +495,14 @@ class SGSolver(CavitySolver):
 
         Vx = basis_ops.jacobi_vandermonde(to_ref(xn, xn))
         Vy = basis_ops.jacobi_vandermonde(to_ref(yn, yn))
-        Px = basis_ops.jacobi_vandermonde(to_ref(x, xn), degree=xn.size - 1)
-        Py = basis_ops.jacobi_vandermonde(to_ref(y, yn), degree=yn.size - 1)
+        ux, ix = np.unique(np.ravel(x), return_inverse=True)
+        uy, iy = np.unique(np.ravel(y), return_inverse=True)
+        Px = basis_ops.jacobi_vandermonde(to_ref(ux, xn), degree=xn.size - 1)
+        Py = basis_ops.jacobi_vandermonde(to_ref(uy, yn), degree=yn.size - 1)
 
         def eval_field(F):
             coeff = np.linalg.solve(Vx, np.linalg.solve(Vy, F.T).T)
-            return np.einsum("pm,mn,pn->p", Px, coeff, Py, optimize=True)
+            return (Px @ coeff @ Py.T)[ix, iy].reshape(np.shape(x))
 
         u_pts = eval_field(_np(self.state.u))
         v_pts = eval_field(_np(self.state.v))

@@ -114,14 +114,15 @@ def clenshaw_curtis_weights(num_points: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def jacobi_poly(x: np.ndarray, alpha: float, beta: float, degree: int) -> np.ndarray:
-    """Evaluate the Jacobi polynomial P_degree^(alpha,beta) via the three-term
-    recurrence, vectorized over ``x``."""
-    x = np.asarray(x, dtype=float)
+def _jacobi_recurrence(x: np.ndarray, alpha: float, beta: float, degree: int):
+    """Yield P_0^(alpha,beta)(x) .. P_degree^(alpha,beta)(x), one three-term
+    recurrence step each."""
     p_prev = np.ones_like(x)
+    yield p_prev
     if degree == 0:
-        return p_prev
+        return
     p_cur = 0.5 * (alpha - beta + (alpha + beta + 2.0) * x)
+    yield p_cur
     for n in range(2, degree + 1):
         m = n - 1
         denom0 = 2.0 * m + alpha + beta
@@ -132,7 +133,16 @@ def jacobi_poly(x: np.ndarray, alpha: float, beta: float, degree: int) -> np.nda
         )
         p_next = ((a_0 + x) * p_cur - a_m1 * p_prev) / a_p1
         p_prev, p_cur = p_cur, p_next
-    return p_cur
+        yield p_cur
+
+
+def jacobi_poly(x: np.ndarray, alpha: float, beta: float, degree: int) -> np.ndarray:
+    """Evaluate the Jacobi polynomial P_degree^(alpha,beta) via the three-term
+    recurrence, vectorized over ``x``."""
+    x = np.asarray(x, dtype=float)
+    for p in _jacobi_recurrence(x, alpha, beta, degree):
+        pass
+    return p
 
 
 def grad_jacobi_poly(x: np.ndarray, alpha: float, beta: float, degree: int):
@@ -146,13 +156,12 @@ def grad_jacobi_poly(x: np.ndarray, alpha: float, beta: float, degree: int):
 
 def jacobi_vandermonde(x: np.ndarray, alpha: float = 0.0, beta: float = 0.0,
                        degree: int | None = None) -> np.ndarray:
-    """Vandermonde matrix V[i, n] = P_n^(alpha,beta)(x_i)."""
+    """Vandermonde matrix V[i, n] = P_n^(alpha,beta)(x_i): every column
+    from one pass of ``jacobi_poly``'s recurrence."""
     x = np.asarray(x, dtype=float)
     if degree is None:
         degree = x.size - 1
-    return np.stack(
-        [jacobi_poly(x, alpha, beta, n) for n in range(degree + 1)], axis=1
-    )
+    return np.stack(list(_jacobi_recurrence(x, alpha, beta, degree)), axis=1)
 
 
 def jacobi_grad_vandermonde(x: np.ndarray, alpha: float = 0.0, beta: float = 0.0,
