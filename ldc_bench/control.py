@@ -6,9 +6,10 @@ and the controls put in the program's place:
   the program's final state rounded to bfloat16, and its validation
   numbers worked out by the reference from that state and rounded to
   bfloat16;
-- ``x1`` (``--x1``, spectral cells): the program's own lower-precision
+- ``x1`` (``--x1``, SG and FSG cells): the program's own lower-precision
   path, ``matmul_algorithm=x1`` (one bfloat16 tensor-core pass a product
-  in the SG chunks), each level capped at ``--x1-cap`` steps.
+  in the SG chunks), each level capped at ``--x1-cap`` steps; the other
+  solvers refuse it.
 
     python3 -m ldc_bench.control --workload <cell> --seeds 1 2 3 [--x1]
 
@@ -34,11 +35,8 @@ def bf16_answer(root: Path, config: dict, lane):
     """(state, reported validation) of the bfloat16 control."""
     state = tuple(drive.bf16(a) for a in lane.state)
     p = lane.params
-    if config["reference"] == "spectral":
-        ev = ref_val.spectral_evaluator(lane.n, p, state[0], state[1])
-    else:
-        ev = ref_val.fv_evaluator(p, state[0], state[1])
-    worked = ref_val.l2_errors(root, p, ev)
+    ref = spec.reference(config["reference"], root)
+    worked = ref_val.l2_errors(root, p, ref.lane_evaluator(p, lane.n, state))
     return state, {k: float(drive.bf16(np.float32(v))) for k, v in
                    worked.items()}
 

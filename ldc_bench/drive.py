@@ -2,6 +2,38 @@
 solvers of a job from its parameters, run the job through the entry a
 user's run calls, validate it, and keep what the judgement and the
 metrics read. The program is imported here, at set-up, and nowhere else.
+
+A configuration's ``solver`` names one of the port's solver classes
+(``program()["solvers"]``, one for each ``_target_`` of
+``conf/solver/gpu/*.yaml``). A lane's ``iterations`` is the count its
+solver reports (``IterationResult.iterations``) and ``levels`` its count
+at each order, coarsest first, where the solver keeps that record (FSG,
+FMG), else ``[(N, iterations)]``. What one iteration is, by solver:
+
+- ``sg``, ``fsg``: an RK4 step (FSG: at each level of its ladder);
+- ``vmg``: a V-cycle (NU1 + NU2 = 4 smoothing steps at each level above
+  the coarsest, NU_COARSE = 30 there); a hierarchy of one level (where
+  the FAS floor, ceil(2.4 sqrt(Re)), admits no coarser order) runs the SG
+  solve and counts RK4 steps;
+- ``fmg``: at each level: RK4 steps on the coarsest level, which runs the
+  SG chunk, and V-cycles over the levels below on each finer one; the
+  lane's ``iterations`` adds the two kinds;
+- ``newton``: a PTC step (each a GMRES solve of up to ``gmres_vectors``
+  vectors);
+- ``fv``: a SIMPLE iteration.
+
+``max_iterations``, which the warm-up sets to ``run.WARM_STEPS`` (64)
+and a traced job to its mix's ``trace_steps``, caps by solver:
+
+- ``sg``, ``fsg``, ``fv``: the iterations at each level;
+- ``vmg``: max(1, max_iterations // (NU1 + NU2)) V-cycles (16 at 64);
+- ``fmg``: the coarsest level's RK4 steps, and max(1, max_iterations //
+  (NU1 + NU2)) V-cycles at each finer level;
+- ``newton``: nothing: its budget is ``newton_max_steps``, so its warm-up
+  and its traced job are whole solves.
+
+A ``round`` job runs ``parallel.batched.run_batched``, which batches the
+SG, FSG and FV solvers only; another solver's round is refused.
 """
 
 from __future__ import annotations
@@ -13,27 +45,51 @@ from pathlib import Path
 
 import numpy as np
 
+from .spec import SpecError
+
 
 def program():
     """The program's modules the benchmark drives."""
     import anap3_tpu_torch.models.fv as fv
     import anap3_tpu_torch.models.spectral as spectral
+    import anap3_tpu_torch.models.spectral_vmg as spectral_vmg
+    import anap3_tpu_torch.models.steady as steady
     from anap3_tpu_torch.models.params import FVParameters, SpectralParameters
-    from anap3_tpu_torch.ops import (fv_kernels, fv_lane_kernels, sg_kernels,
-                                     sg_lane_kernels)
+    from anap3_tpu_torch.ops import (fv_kernels, fv_lane_kernels, nk_kernels,
+                                     sg_kernels, sg_lane_kernels)
     from anap3_tpu_torch.parallel import batched
 
     return {
-        "fsg": (spectral.FSGSolver, SpectralParameters),
-        "fv": (fv.FVSolver, FVParameters),
+        "solvers": {
+            "sg": (spectral.SGSolver, SpectralParameters),
+            "fsg": (spectral.FSGSolver, SpectralParameters),
+            "vmg": (spectral_vmg.VMGSolver, SpectralParameters),
+            "fmg": (spectral_vmg.FMGSolver, SpectralParameters),
+            "newton": (steady.NewtonSolver, SpectralParameters),
+            "fv": (fv.FVSolver, FVParameters),
+        },
+        "batchable": batched.BATCHABLE_SOLVERS,
         "run_batched": batched.run_batched,
         "counters": (sg_kernels, fv_kernels, sg_lane_kernels,
-                     fv_lane_kernels),
+                     fv_lane_kernels, nk_kernels),
     }
 
 
+def class_path(cls) -> str:
+    return f"{cls.__module__}.{cls.__qualname__}"
+
+
+def solver_class(prog, config: dict):
+    """(solver class, parameter class) of the configuration's ``solver``."""
+    solvers = prog["solvers"]
+    if config["solver"] not in solvers:
+        raise SpecError(f"no solver {config['solver']!r}: the harness knows "
+                        f"{sorted(solvers)}")
+    return solvers[config["solver"]]
+
+
 def make_solver(prog, config: dict, lane: dict, device: str):
-    cls, params_cls = prog[config["solver"]]
+    cls, params_cls = solver_class(prog, config)
     names = {f.name for f in dataclasses.fields(params_cls)}
     unknown = set(lane) - names
     if unknown:
@@ -107,6 +163,10 @@ def run_job(prog, config: dict, kind: str, lanes: list, device: str,
     where given); ``span(name)`` is a context manager around each phase
     (the profiler's labels in a traced job)."""
     span = span or (lambda name: contextlib.nullcontext())
+    if kind == "round" and \
+            class_path(solver_class(prog, config)[0]) not in prog["batchable"]:
+        raise SpecError(f"a round job needs a solver that run_batched "
+                        f"batches, not {config['solver']!r}")
     t0 = time.perf_counter()
     with span("build"):
         solvers = [make_solver(prog, config, lane, device) for lane in lanes]

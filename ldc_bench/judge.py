@@ -18,7 +18,9 @@ The numbers (each the worst over the run's lanes):
   the same state; ``unconverged``, the lanes the program did not report
   converged.
 
-A cell's limits file names the numbers that are compared.
+The configuration's ``reference`` names the module that works out its
+numbers, ``reference/<name>.py`` (``spec.reference``). A cell's limits
+file names the numbers that are compared.
 """
 
 from __future__ import annotations
@@ -26,8 +28,7 @@ from __future__ import annotations
 import math
 from pathlib import Path
 
-from .reference import fv as ref_fv
-from .reference import spectral as ref_spectral
+from . import spec
 from .reference import validation as ref_val
 
 
@@ -38,16 +39,9 @@ def lane_numbers(root: Path, config: dict, lane, state=None,
     state = lane.state if state is None else state
     reported = lane.validation if reported is None else reported
     p = lane.params
-    if config["reference"] == "spectral":
-        u, v, pr = state[:3]
-        nums = ref_spectral.judge(p, lane.n, u, v, pr)
-        evaluate = ref_val.spectral_evaluator(lane.n, p, u, v)
-    elif config["reference"] == "fv":
-        nums = ref_fv.judge(p, *state[:5])
-        evaluate = ref_val.fv_evaluator(p, state[0], state[1])
-    else:
-        raise ValueError(f"no reference {config['reference']!r}")
-    worked = ref_val.l2_errors(root, p, evaluate)
+    ref = spec.reference(config["reference"], root)
+    nums = ref.lane_numbers(p, lane.n, state)
+    worked = ref_val.l2_errors(root, p, ref.lane_evaluator(p, lane.n, state))
     nums["l2_u"] = worked.get("u_L2_error", float("nan"))
     nums["l2_v"] = worked.get("v_L2_error", float("nan"))
     nums["l2_gap"] = ref_val.gap(reported, worked)

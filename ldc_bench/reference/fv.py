@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .validation import fv_evaluator
+
 RHO = 1.0
 
 
@@ -196,3 +198,13 @@ def judge(params: dict, u, v, p, mx, my) -> dict:
     flux = _ratio(max(np.abs(rx - mx).max(), np.abs(ry - my).max()), big)
     mass = _ratio(np.abs(divergence(mx, my)).max(), big)
     return {"mom": mom, "flux": flux, "mass": mass}
+
+
+def lane_numbers(params: dict, n: int, state) -> dict:
+    """The judged numbers of a lane's final state (u, v, p, mx, my)."""
+    return judge(params, *state[:5])
+
+
+def lane_evaluator(params: dict, n: int, state):
+    """(u, v) at points of the lane's final state, for the validation."""
+    return fv_evaluator(params, state[0], state[1])

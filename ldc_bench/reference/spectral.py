@@ -172,3 +172,15 @@ def evaluate(n: int, params: dict, field, xs, ys):
     Mx = interp_matrix(cgl_nodes(n, Lx), np.asarray(xs, float))
     My = interp_matrix(cgl_nodes(n, Ly), np.asarray(ys, float))
     return Mx @ np.asarray(field, np.float64) @ My.T
+
+
+def lane_numbers(params: dict, n: int, state) -> dict:
+    """The judged numbers of a lane's final state (u, v, p)."""
+    return judge(params, n, *state[:3])
+
+
+def lane_evaluator(params: dict, n: int, state):
+    """(u, v) at points of the lane's final state, for the validation."""
+    from .validation import spectral_evaluator  # validation imports this
+
+    return spectral_evaluator(n, params, state[0], state[1])

@@ -1,12 +1,14 @@
 """Find what belongs to a cell by its name: the cell in ``BENCHMARK.json``,
 its configuration file, its traffic mix (``traffic/<name>.json``), the
-limits of its correctness check (``limits/<cell>.json``) and the reader of
-each metric (``metrics/<metric>.py``, else ``metrics/<stem>.py`` with the
-metric's last dotted part taken off). A later cell, mix or metric is a new
-file; nothing here names one."""
+limits of its correctness check (``limits/<cell>.json``), the plain
+reference its configuration names (``reference/<name>.py``) and the reader
+of each metric (``metrics/<metric>.py``, else ``metrics/<stem>.py`` with
+the metric's last dotted part taken off). A later cell, mix, reference or
+metric is a new file; nothing here names one."""
 
 from __future__ import annotations
 
+import functools
 import importlib
 import importlib.util
 import json
@@ -64,16 +66,37 @@ def metrics(bench: dict, cell_name: str, trace: bool) -> list:
             if "workloads" not in m or cell_name in m["workloads"]]
 
 
+def _exec(path: Path, name: str):
+    """The module of the file ``path``, executed anew under ``name`` (its
+    package imported first, so that its relative imports resolve)."""
+    importlib.import_module(name.rsplit(".", 1)[0])
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(name: str, root: Path = ROOT):
     """The ``read(ctx)`` function of a metric's reader file."""
     folder = Path(root) / PACKAGE / "metrics"
-    importlib.import_module(f"{PACKAGE}.metrics")
     for stem in (name, name.rsplit(".", 1)[0]):
         path = folder / f"{stem}.py"
         if path.exists():
-            mod_name = f"{PACKAGE}.metrics.{stem.replace('.', '_')}"
-            spec = importlib.util.spec_from_file_location(mod_name, path)
-            mod = importlib.util.module_from_spec(spec)
-            spec.loader.exec_module(mod)
-            return mod.read
+            return _exec(path, f"{PACKAGE}.metrics.{stem.replace('.', '_')}"
+                         ).read
     raise SpecError(f"no reader for metric {name!r} in {folder}")
+
+
+_exec_once = functools.lru_cache(maxsize=None)(_exec)
+
+
+def reference(name: str, root: Path = ROOT):
+    """The plain reference module ``reference/<name>.py``, loaded once a
+    process. It exposes ``lane_numbers(params, n, state)``, the judged
+    numbers of a lane's final state, and ``lane_evaluator(params, n,
+    state)``, a function ``(x, y) -> (u, v)`` at points for the
+    validation worked out again (``reference/validation.l2_errors``)."""
+    path = (Path(root) / PACKAGE / "reference" / f"{name}.py").resolve()
+    if not path.exists():
+        raise SpecError(f"no reference {name!r}: no file {path}")
+    return _exec_once(path, f"{PACKAGE}.reference.{name.replace('.', '_')}")

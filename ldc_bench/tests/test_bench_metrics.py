@@ -6,8 +6,9 @@ import pytest
 from ldc_bench import spec, trace, work
 from ldc_bench.drive import Job, Lane
 
-CFG_SG = {"reference": "spectral", "params": {"dtype": "float32"}}
-CFG_FV = {"reference": "fv", "params": {"dtype": "float32"}}
+CFG_SG = {"solver": "fsg", "reference": "spectral",
+          "params": {"dtype": "float32"}}
+CFG_FV = {"solver": "fv", "reference": "fv", "params": {"dtype": "float32"}}
 
 
 def lane(iterations, levels, n=96):

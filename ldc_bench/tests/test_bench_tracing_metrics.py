@@ -34,7 +34,8 @@ GAPS = [["anap3.validate.evaluate", 1.3], ["anap3.chunk.dispatch", 0.08],
 def ctx_of(kind, jobs, traced, gaps=GAPS):
     tr = None if traced is None else {"job": traced, "idle_gaps": gaps,
                                       "busy_s": 1.0, "window_s": 3.0}
-    return {"kind": kind, "config": {}, "jobs": jobs, "window_s": 10.0,
+    return {"kind": kind, "config": {"solver": "fsg"}, "jobs": jobs,
+            "window_s": 10.0,
             "setup_s": 7.5, "launches": 5000, "trace": tr}
 
 
