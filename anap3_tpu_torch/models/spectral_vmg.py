@@ -25,6 +25,24 @@ are XLA products at HIGHEST precision in the JAX package. FMG is the FSG
 nested iteration with each level solved by V-cycles over the hierarchy
 below it.
 
+On CUDA a cycle is captured into one CUDA graph at its second call and
+replayed from then on (``CapturedCycle``): the same kernels in the same
+order on the same buffers, so the same bits, from one host entry where the
+eager cycle makes ~300 launches (at N=48 it was host-bound: ~3 ms of
+dispatch against ~1.5 ms of device work a cycle on an H100 host).
+
+Under a profiler each level of a cycle opens the spans of ``SPANS``
+(``utils/profiling.span``): ``vmg.smooth`` around every smoothing sweep
+(pre, post and coarsest), ``vmg.restrict`` around steps 2-4 (the defect,
+the state injection with its BCs, the coarse defect and tau_H, a span of
+the name each) and ``vmg.prolong`` around step 6 (the correction; its BCs
+and the finite check). Each of these spans but a plain sweep holds under a
+hundred of the profiler's host events (a kernel sweep is one host entry),
+so a trace reader that looks back a bounded number of them (``ldc_bench``:
+256) finds it. A captured cycle opens them while it is run eagerly and
+captured (its first two calls), and not at a replay, which runs no host
+code of the cycle.
+
 Where the port differs from the JAX package (the reference faults of
 ROADMAP Queue 3, fixed here):
 
@@ -50,6 +68,7 @@ from .runner import IterationResult, run_fixed_point
 from .spectral import (FSGSolver, PE_COARSEST_MAX, SGSolver,
                        default_coarsest_n, resolve_convergence_metric,
                        scaled_plateau_chunks)
+from ..ops import sg_kernels
 from ..ops.basis import make_basis
 from ..ops.sg_kernels import MAX_KERNEL_N, make_sg_smoother, smooth_plain
 from ..ops.transfer import (fft_restriction_matrix,
@@ -57,6 +76,7 @@ from ..ops.transfer import (fft_restriction_matrix,
                             make_level_transfer_matrices,
                             modal_restriction_matrix, nodal_injection_matrix,
                             nodal_interpolation_matrix)
+from ..utils.profiling import span
 
 log = logging.getLogger(__name__)
 
@@ -64,7 +84,8 @@ __all__ = ["VMGSolver", "FMGSolver", "VmgLevel", "build_vmg_levels",
            "make_v_cycle", "levels_from_jax", "fas_coarsest_n",
            "cell_peclet", "check_fp32_matmul", "PE_COARSEST_MAX",
            "PE_FULL_CORRECTION", "FAS_RESOLUTION_COEFF",
-           "VMG_AUTO_ENERGY_MIN_N", "VMG_COLD_START_MAX_N"]
+           "VMG_AUTO_ENERGY_MIN_N", "VMG_COLD_START_MAX_N", "SPANS",
+           "CapturedCycle"]
 
 
 @dataclass
@@ -84,6 +105,9 @@ class VmgLevel:
 
 _TRANSFERS = ("inj_full", "inj_inner", "res_full", "res_inner", "pro_full",
               "pro_inner")
+
+# the spans a V-cycle opens at its phase boundaries (see the module note)
+SPANS = ("vmg.smooth", "vmg.restrict", "vmg.prolong")
 
 # Undamped corrections below this cell Peclet number (the JAX package's
 # calibration, anap3_tpu/models/spectral_vmg.py; PE_COARSEST_MAX, the FSG
@@ -260,6 +284,100 @@ def _sandwich(A: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return A @ X @ A.T
 
 
+# one capture stream a device: cuBLAS keeps a workspace (32 MiB on an
+# H100) for every stream it has run on, for the life of the process
+_CAPTURE_STREAMS = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    """The device's capture stream, its cuBLAS workspace set up by a
+    product outside any capture."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _CAPTURE_STREAMS:
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            a = torch.ones((2, 2), device=device)
+            a @ a
+        torch.cuda.current_stream(device).wait_stream(stream)
+        _CAPTURE_STREAMS[device] = stream
+    return _CAPTURE_STREAMS[device]
+
+
+def _counter_tables() -> tuple:
+    """The SG kernels' counters that a cycle's smoothing sweeps add to."""
+    return (sg_kernels.LAUNCHES, sg_kernels.PART_LAUNCHES,
+            sg_kernels.PLAIN_CALLS, sg_kernels.STEPS,
+            sg_kernels.SMOOTH_STEPS)
+
+
+class CapturedCycle:
+    """A cycle step ``state -> (state, metrics)`` replayed from one CUDA
+    graph.
+
+    The first call runs the step eagerly: it loads the kernels' library,
+    allocates the smoothers' scratch and sets up cuBLAS on the stream. The
+    second captures the step over static input buffers (a capture runs
+    nothing), and it and every later call copy their state into the
+    buffers, replay the graph and return copies of its outputs, so a
+    returned state or metric outlives the next call. A replay enqueues the
+    kernels of an eager step in the same order, with the same arguments,
+    so it gives the same bits.
+
+    The smoothing sweeps count their launches and steps in
+    ``ops/sg_kernels``'s counters when they are called, which in a capture
+    is once for all replays: the counts of the capture are taken back and
+    added again at every replay, so the counters read as for eager
+    cycles."""
+
+    def __init__(self, step):
+        self.step = step
+        self.calls = 0
+        self.graph = None
+        self.inputs = self.out = self.metrics = None
+        self.counts = ()
+
+    def _capture(self, state) -> None:
+        self.inputs = type(state)(*(torch.empty_like(t) for t in state))
+        before = [dict(t) for t in _counter_tables()]
+        graph = torch.cuda.CUDAGraph()
+        stream = _capture_stream(state[0].device)
+        stream.wait_stream(torch.cuda.current_stream(state[0].device))
+        with torch.cuda.stream(stream):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out, self.metrics = self.step(self.inputs)
+            finally:
+                graph.capture_end()
+        torch.cuda.current_stream(state[0].device).wait_stream(stream)
+        counts = []
+        for table, was in zip(_counter_tables(), before):
+            counts.append({k: n - was.get(k, 0) for k, n in table.items()
+                           if n != was.get(k, 0)})
+            table.clear()
+            table.update(was)
+        self.counts = tuple(counts)
+        self.graph = graph
+
+    def __call__(self, state):
+        self.calls += 1
+        if self.calls == 1:
+            return self.step(state)
+        if self.graph is None:
+            self._capture(state)
+        for buf, t in zip(self.inputs, state):
+            buf.copy_(t)
+        self.graph.replay()
+        for table, counts in zip(_counter_tables(), self.counts):
+            for k, n in counts.items():
+                table[k] = table.get(k, 0) + n
+        values = torch.stack(tuple(self.metrics.values()))
+        return (type(state)(*(t.clone() for t in self.out)),
+                dict(zip(self.metrics, values.unbind())))
+
+
 def make_v_cycle(levels: List[VmgLevel], nu1: int = 2, nu2: int = 2,
                  nu_coarse: int = 30, damping: float = 1.0,
                  smoothers: Optional[dict] = None):
@@ -271,15 +389,17 @@ def make_v_cycle(levels: List[VmgLevel], nu1: int = 2, nu2: int = 2,
     kernels' smoothing loop; without it a sweep is the loop's plain version
     (``smooth_plain``, a loop of ``core.sg_step``). ``damping``
     under-relaxes the prolongated correction (an experiment hook;
-    production cycles run at full strength)."""
+    production cycles run at full strength). On a CUDA card the step is a
+    ``CapturedCycle`` (its ``step`` the eager cycle)."""
     smoothers = smoothers or {}
     masks = [lv.ops.interior.to(lv.ops.dtype) for lv in levels]
 
     def smooth(idx, state, tau, n_steps):
         sm = smoothers.get(idx)
-        if sm is not None:
-            return sm(state, tau, n_steps)
-        return smooth_plain(levels[idx].ops, state, tau, n_steps)
+        with span("vmg.smooth"):
+            if sm is not None:
+                return sm(state, tau, n_steps)
+            return smooth_plain(levels[idx].ops, state, tau, n_steps)
 
     def defect(level, state, tau):
         R = core.residuals(level.ops, state.u, state.v, state.p)
@@ -287,48 +407,66 @@ def make_v_cycle(levels: List[VmgLevel], nu1: int = 2, nu2: int = 2,
             R = tuple(r + t for r, t in zip(R, tau))
         return R
 
+    def restrict(idx, state, tau):
+        """(coarse0, tau_H): steps 2-4 of the cycle at level ``idx``, in
+        four spans of one name (each within a trace reader's reach)."""
+        level, coarse = levels[idx], levels[idx + 1]
+        with span("vmg.restrict"):
+            d_u, d_v, d_p = defect(level, state, tau)
+            # zero on the boundary ring
+            d_u, d_v = d_u * masks[idx], d_v * masks[idx]
+        with span("vmg.restrict"):
+            u_H0, v_H0 = core.enforce_bc(
+                coarse.ops, _sandwich(level.inj_full, state.u),
+                _sandwich(level.inj_full, state.v))
+            coarse0 = core.SpectralState(u_H0, v_H0,
+                                         _sandwich(level.inj_inner, state.p))
+        with span("vmg.restrict"):
+            R_u0, R_v0, R_p0 = defect(coarse, coarse0, None)
+        with span("vmg.restrict"):
+            cmask = masks[idx + 1]
+            tau_H = (_sandwich(level.res_full, d_u) * cmask - R_u0,
+                     _sandwich(level.res_full, d_v) * cmask - R_v0,
+                     _sandwich(level.res_inner, d_p) - R_p0)
+        return coarse0, tau_H
+
+    def prolong(idx, state, coarse0, coarse):
+        """Step 6 of the cycle at level ``idx``, the corrected state, in
+        two spans of one name."""
+        level, mask = levels[idx], masks[idx]
+        with span("vmg.prolong"):
+            e_u = _sandwich(level.pro_full, coarse.u - coarse0.u)
+            e_v = _sandwich(level.pro_full, coarse.v - coarse0.v)
+            e_p = _sandwich(level.pro_inner, coarse.p - coarse0.p)
+        with span("vmg.prolong"):
+            u, v = core.enforce_bc(level.ops,
+                                   state.u + damping * (e_u * mask),
+                                   state.v + damping * (e_v * mask))
+            p = state.p + damping * e_p
+            # a tau-forced coarse level can blow up in the impulsive-start
+            # transient; FAS re-injects a fresh coarse state every cycle,
+            # so a non-finite correction is dropped (a device select, no
+            # host sync) and the fine level keeps smoothing
+            ok = (torch.isfinite(e_u).all() & torch.isfinite(e_v).all()
+                  & torch.isfinite(e_p).all())
+            return core.SpectralState(torch.where(ok, u, state.u),
+                                      torch.where(ok, v, state.v),
+                                      torch.where(ok, p, state.p))
+
     def cycle(idx, state, tau):
         if idx == len(levels) - 1:  # coarsest: just smooth
             return smooth(idx, state, tau, nu_coarse)
-        level, coarse_ops = levels[idx], levels[idx + 1].ops
-        mask, cmask = masks[idx], masks[idx + 1]
-
         state, _ = smooth(idx, state, tau, nu1)
-        d_u, d_v, d_p = defect(level, state, tau)
-        d_u, d_v = d_u * mask, d_v * mask  # zero on the boundary ring
-
-        u_H0, v_H0 = core.enforce_bc(
-            coarse_ops, _sandwich(level.inj_full, state.u),
-            _sandwich(level.inj_full, state.v))
-        coarse0 = core.SpectralState(u_H0, v_H0,
-                                     _sandwich(level.inj_inner, state.p))
-        R_u0, R_v0, R_p0 = defect(levels[idx + 1], coarse0, None)
-        tau_H = (_sandwich(level.res_full, d_u) * cmask - R_u0,
-                 _sandwich(level.res_full, d_v) * cmask - R_v0,
-                 _sandwich(level.res_inner, d_p) - R_p0)
-
+        coarse0, tau_H = restrict(idx, state, tau)
         coarse, _ = cycle(idx + 1, coarse0, tau_H)
-
-        e_u = _sandwich(level.pro_full, coarse.u - coarse0.u)
-        e_v = _sandwich(level.pro_full, coarse.v - coarse0.v)
-        e_p = _sandwich(level.pro_inner, coarse.p - coarse0.p)
-        u, v = core.enforce_bc(level.ops, state.u + damping * (e_u * mask),
-                               state.v + damping * (e_v * mask))
-        p = state.p + damping * e_p
-        # a tau-forced coarse level can blow up in the impulsive-start
-        # transient; FAS re-injects a fresh coarse state every cycle, so a
-        # non-finite correction is dropped (a device select, no host sync)
-        # and the fine level keeps smoothing
-        ok = (torch.isfinite(e_u).all() & torch.isfinite(e_v).all()
-              & torch.isfinite(e_p).all())
-        state = core.SpectralState(torch.where(ok, u, state.u),
-                                   torch.where(ok, v, state.v),
-                                   torch.where(ok, p, state.p))
+        state = prolong(idx, state, coarse0, coarse)
         return smooth(idx, state, tau, nu2)
 
     def v_cycle_step(state):
         return cycle(0, state, None)
 
+    if levels[0].ops.device.type == "cuda":
+        return CapturedCycle(v_cycle_step)
     return v_cycle_step
 
 

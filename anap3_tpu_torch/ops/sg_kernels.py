@@ -89,7 +89,11 @@ stage and x1 tail launches); ``PART_LAUNCHES`` counts dt_kernel's alone
 (also in sg_diag's); ``PLAIN_CALLS`` counts calls of the plain versions.
 ``STEPS["sg_chunk"]`` counts the steps the chunk runners were asked to
 march, kernel and plain path alike (a done state marches frozen to the
-chunk's end). ``reset_counts()`` zeroes all four.
+chunk's end). ``SMOOTH_STEPS`` counts the steps each call of a smoother
+(``make_sg_smoother``) was asked for, kernel and plain path alike, keyed
+by the level's order N; it is a table of its own, apart from ``STEPS``,
+whose sum counts chunk steps only. ``reset_counts()`` zeroes the first
+four and empties ``SMOOTH_STEPS``.
 """
 
 from __future__ import annotations
@@ -118,7 +122,7 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
            "tail_block_items", "MAX_TAIL_ITEMS", "chunk_launches",
            "smoother_launches", "BENCH_GROUPS", "PARTS", "PART_LAUNCHES",
-           "base_parts", "dt_from_parts", "STEPS"]
+           "base_parts", "dt_from_parts", "STEPS", "SMOOTH_STEPS"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
@@ -141,6 +145,9 @@ PART_LAUNCHES = {k: 0 for k in PARTS}
 PLAIN_CALLS = {"sg_step": 0, "sg_chunk": 0, "sg_smooth": 0}
 # steps asked of the chunk runners: a chunk's n, once per call
 STEPS = {"sg_chunk": 0}
+# steps asked of the smoothers, by the level's order N: a sweep's n_steps,
+# once per call
+SMOOTH_STEPS = {}
 
 # pointer-table order of csrc/sg_common.cuh:Ptr
 _PTR_NAMES = (
@@ -462,6 +469,7 @@ def reset_counts() -> None:
     for table in (LAUNCHES, PART_LAUNCHES, PLAIN_CALLS, STEPS):
         for k in table:
             table[k] = 0
+    SMOOTH_STEPS.clear()
 
 
 def scalar_table(ops_list) -> torch.Tensor:
@@ -658,6 +666,7 @@ def make_sg_smoother(ops: SpectralOps):
     stream order."""
     _check_ops(ops)
     scratch = {}
+    order = ops.nf - 1
 
     def kernel(state, taus, n_steps):
         from ._build import load_library
@@ -690,6 +699,7 @@ def make_sg_smoother(ops: SpectralOps):
     def run(state, tau, n_steps):
         if int(n_steps) < 1:
             raise ValueError(f"n_steps must be >= 1, not {n_steps}")
+        SMOOTH_STEPS[order] = SMOOTH_STEPS.get(order, 0) + int(n_steps)
         on_cuda = _on_cuda(ops, state)
         taus = _taus(ops, tau)  # checked on both paths
         if on_cuda:

@@ -11,6 +11,11 @@
 - ``STEPS`` of the four kernel modules counts the steps the chunk runners
   were asked to march, the dropped speculated chunk included, on their
   plain paths here; ``reset_counts()`` zeroes it.
+- A VMG solve opens ``vmg.smooth``, ``vmg.restrict`` and ``vmg.prolong``
+  at each level of every V-cycle, inside the chunk's dispatch, and none
+  without a profiler; ``SMOOTH_STEPS`` counts a smoother's steps by order
+  (its plain path here), apart from ``STEPS``, and ``reset_counts()``
+  empties it.
 """
 
 import time
@@ -24,6 +29,7 @@ from anap3_tpu_torch.models import fv as TFV
 from anap3_tpu_torch.models import runner as TR
 from anap3_tpu_torch.models import spectral_sg as core
 from anap3_tpu_torch.models.params import FVParameters, SpectralParameters
+from anap3_tpu_torch.models import spectral_vmg as TV
 from anap3_tpu_torch.models.spectral import FSGSolver
 from anap3_tpu_torch.ops import fv_kernels as fvk
 from anap3_tpu_torch.ops import fv_lane_kernels as fvl
@@ -243,3 +249,62 @@ def test_steps_count_the_chunks_asked_for(kind):
     assert all(sum(t.values()) == 0 for t in others)
     mod.reset_counts()
     assert sum(mod.STEPS.values()) == 0
+
+
+def vmg(**kw):
+    """A two-level VMG solve [24, 12], capped at 6 V-cycles in chunks of
+    2."""
+    kw = dict(dict(Re=25.0, nx=24, ny=24, n_levels=2, dtype="float64",
+                   basis_type="chebyshev", CFL=1.5, tolerance=1e-10,
+                   max_iterations=24, chunk_size=8), **kw)
+    return TV.VMGSolver(params=SpectralParameters(device="cpu", **kw))
+
+
+def test_no_vmg_span_is_made_without_a_profiler(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"a span {name!r} was made with no profiler")
+
+    monkeypatch.setattr(TP, "_record", refuse)
+    solver = vmg()
+    solver.solve()
+    assert solver.metrics.iterations == 6
+
+
+def test_vmg_spans_name_each_phase_of_a_cycle_and_nest():
+    solver = vmg()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        solver.solve()
+    assert solver.ladder == [24, 12] and solver.metrics.iterations == 6
+    spans = spans_of(prof)
+    cycle = [s for s in spans if s[0].startswith("vmg.")]
+    # a cycle: pre, coarsest and post sweeps; the defect, the injection,
+    # the coarse defect and tau_H; the correction, then its BCs and check
+    counts = {n: sum(m == n for m, _, _ in cycle) for n in TV.SPANS}
+    assert counts == {"vmg.smooth": 3 * 6, "vmg.restrict": 4 * 6,
+                      "vmg.prolong": 2 * 6}
+    assert [n for n, _, _ in cycle[:9]] == [
+        "vmg.smooth"] + ["vmg.restrict"] * 4 + ["vmg.smooth"] + [
+        "vmg.prolong"] * 2 + ["vmg.smooth"]
+    dispatch = [(a, b) for n, a, b in spans if n == "chunk.dispatch"]
+    assert len(dispatch) == 3
+    for i, (n, a, b) in enumerate(cycle):
+        assert any(d0 <= a and b <= d1 for d0, d1 in dispatch), n
+        if i + 1 < len(cycle):
+            assert cycle[i + 1][1] >= b  # one after another, none nested
+
+
+def test_smooth_steps_count_each_sweep_by_order():
+    levels = TV.build_vmg_levels(vmg().params)
+    smoothers = {i: sgk.make_sg_smoother(lv.ops)
+                 for i, lv in enumerate(levels)}
+    step = TV.make_v_cycle(levels, smoothers=smoothers)
+    for m in (sgk, fvk, sgl, fvl):
+        m.reset_counts()
+    state = core.initial_state(levels[0].ops)
+    for _ in range(3):
+        state, _ = step(state)
+    assert sgk.SMOOTH_STEPS == {24: 3 * (2 + 2), 12: 3 * 30}
+    assert sgk.PLAIN_CALLS["sg_smooth"] == 3 * 3
+    assert all(sum(m.STEPS.values()) == 0 for m in (sgk, fvk, sgl, fvl))
+    sgk.reset_counts()
+    assert sgk.SMOOTH_STEPS == {}
