@@ -74,11 +74,12 @@ constexpr int NDPART = 4;
 constexpr int NQPART = 3;
 
 // Kernel counts reported to the wrapper's launch counters: the stage, the
-// dt and sampled tails, the unsampled control, and the x1 stage and x1
-// sampled tail (matmul_algorithm=x1, float32; dt stays in C_DIAG); then
+// dt and sampled tails, the unsampled control, the x1 stage and x1
+// sampled tail (matmul_algorithm=x1, float32; dt stays in C_DIAG), the
+// resident chunk (sg_resident.cu: a whole chunk in one launch); then
 // dt_kernel's launches alone (C_DT, also counted in C_DIAG).
-enum Count { C_STAGE, C_DIAG, C_CONTROL, C_STAGE_X1, C_DIAG_X1, C_DT,
-             C_COUNT };
+enum Count { C_STAGE, C_DIAG, C_CONTROL, C_STAGE_X1, C_DIAG_X1, C_RESIDENT,
+             C_DT, C_COUNT };
 
 // dt_kernel's launch: a thread-block cluster of DT_CLUSTER blocks a lane
 // (the portable size), DT_THREADS threads a block, so the lane's
@@ -293,6 +294,32 @@ struct StageArgs {
   __nv_bfloat16* x1_out;
 };
 
+template <typename T>
+struct Vec2;
+template <>
+struct Vec2<float> {
+  using type = float2;
+};
+template <>
+struct Vec2<double> {
+  using type = double2;
+};
+
+// Two adjacent elements in one load (p aligned to their pair).
+template <typename T>
+__device__ __forceinline__ typename Vec2<T>::type ld2(const T* p) {
+  return *reinterpret_cast<const typename Vec2<T>::type*>(p);
+}
+
+// acc[2 * rho + t] += a[rho] * b[t]: a 2x2 outer product, each output one
+// fused multiply-add (the products' k-ascending chains of the stage and
+// resident kernels)
+template <typename T, typename V>
+__device__ __forceinline__ void fma4(T* acc, const V& a, const V& b) {
+  acc[0] += a.x * b.x; acc[1] += a.x * b.y;
+  acc[2] += a.y * b.x; acc[3] += a.y * b.y;
+}
+
 // max that propagates NaN from either side (jnp.maximum / torch.maximum)
 template <typename T>
 __device__ __forceinline__ T nan_max(T a, T b) {
@@ -476,6 +503,27 @@ __device__ __forceinline__ T warp_tree(const T* col, int stride, int nb,
   return r;
 }
 
+// A quadrature tile's 256 cell values summed in the fixed 256-slot tree
+// (level s = 128, ..., 1 folds slot t + s into slot t), cell e read as
+// at(e): lane l takes the tree's first three levels from its eight slots
+// l + 32 j in the tree's pair order, then the last five by shuffles (lane
+// l with l + s). Valid in lane 0.
+template <typename T, typename At>
+__device__ __forceinline__ T tile_tree(const At& at, int l) {
+  T x = ((at(l) + at(l + 128)) + (at(l + 64) + at(l + 192))) +
+        ((at(l + 32) + at(l + 160)) + (at(l + 96) + at(l + 224)));
+#pragma unroll
+  for (int lv = 0; lv < 5; ++lv)
+    x += __shfl_down_sync(0xffffffffu, x, 16 >> lv);
+  return x;
+}
+
+// tile_tree of the cells col[0, 256).
+template <typename T>
+__device__ __forceinline__ T tile_sum(const T* col, int l) {
+  return tile_tree<T>([&](int e) { return col[e]; }, l);
+}
+
 // Columns of a lane's tail: the last stage's NPART, the next base's NDPART
 // (a chunk step), the NQPART quadratures (a sampled step).
 constexpr int TAIL_COLS = NPART + NDPART + NQPART;
@@ -572,6 +620,128 @@ __device__ void finish_lane(const Tail<T>& t, int lane, bool sampled,
   }
 }
 
+// Launch geometry of the resident chunk kernel (sg_resident.cu), which
+// resident_geometry derives from the stage geometry: a lane is one
+// thread-block cluster of `cluster` blocks (grid x; grid z = lanes), one
+// block a row band of the stage geometry (8 rows), each block `sub`
+// sub-blocks of RES_SUB_THREADS threads, one a column tile of the band:
+// the stage kernel's tiles (16 columns) and threads (4 k groups of one
+// warp each), the only tile and split the stage geometry chooses at the
+// orders whose lane fits a cluster. `smem` is the dynamic shared memory of
+// a block in bytes (res_layout).
+constexpr int RES_TN = 16;
+constexpr int RES_KSPLIT = 4;
+constexpr int RES_SUB_THREADS = RES_KSPLIT * 32;
+// values a thread's products hand on a round of the k groups' exchange:
+// the 40 of the velocity and first pressure products go in two rounds
+constexpr int RES_RED_VALS = 20;
+// a point's partial-sum terms on a last stage (the k groups' exchange
+// space holds them): R_u, R_v, R_p, u - u0, v - v0, the base's u, v and
+// its total speeds |u + su|, |v + sv|
+constexpr int RES_STAT = 9;
+// a sub-block's exchange space: RES_RED_VALS values of each k group's 32
+// threads
+constexpr int RES_XR = RES_KSPLIT * RES_RED_VALS * 32;
+// the shared memory a block starts with (bytes): its mbarriers (from byte
+// RES_MBAR: state copy 0's, copy 1's, the vorticity's and the quadrature
+// cells') and the lane's flags (4 ints from byte RES_FLAGS)
+constexpr int RES_MBAR = 0;
+constexpr int RES_FLAGS = 32;
+constexpr int RES_HEADER = RES_FLAGS + 4 * 4;
+// a tile's row of last-stage and next-base partials (NPART + NDPART
+// values), padded to whole 16-byte units in both working types
+constexpr int RES_PROW = 12;
+// the most sub-blocks of a block: the kernel's launch bound leaves each
+// thread 128 registers in float32 and 255 in float64
+__host__ __device__ constexpr int res_max_sub(int elem) {
+  return elem == 4 ? 4 : 2;
+}
+
+struct ResidentGeo {
+  int cluster, sub, smem;
+};
+
+// Element offsets of a resident block's shared-memory regions (after the
+// RES_HEADER bytes), each rounded up to 4 elements. Pairs a k step loads
+// together are interleaved: u with v, Dx with Dxx, DyT with DyyT, Gx with
+// Ix, IyT with GyT, Gx p with Ix p. A state copy is L rows of RW elements:
+// row i holds the (u, v) pairs of grid row i, then from element 2 L the
+// pressure row i - 1 (the row of grid row i's interior points), so a row
+// band's state is one run; L is nf rounded up to 2, Lp ni rounded up to
+// 4, and RW = 2 L + Lp rounded up to 4 (mod 8), so the rows of a warp's
+// threads (2 apart) fall in different banks. Regions: DyT with DyyT and
+// IyT with GyT whole ([k][j][2], ld L), then Dx whole, k-major ([k][i],
+// ld L), for the quadratures; Dx with Dxx and Gx with Ix on the block's
+// band of 8 rows, k-major ([k][r][2]); two state copies; the block's band
+// of Gx p with Ix p ([k][r][2]); the vorticity (nf x Lo, Lo = nf rounded
+// up to 4); the quadrature cells (nf rows of 3 x Lo: energy, enstrophy,
+// palinstrophy), whose place the first dt's 4 x RED_THREADS slots take
+// before the first step; the base's and the boundary values' (u, v) on
+// the band (8 x L pairs each) and the base's p (8 x Lp); each sub-block's
+// exchange space (RES_XR); the lane's last-stage and next-base partials (a
+// RES_PROW row a tile); the quadrature partials (a row a 16 x 16 tile);
+// the scalars and the lane's scalar table. resident_geometry and the
+// kernel share it.
+struct ResLayout {
+  int L, Lp, RW, Lo;
+  int ops, bops, f, fcopy, band, omega, uni, base, xr, part, qpart, small,
+      elems;
+};
+__host__ __device__ inline int res_r4(int n) { return (n + 3) & ~3; }
+__host__ __device__ inline ResLayout res_layout(int nf, int sub, int tiles) {
+  ResLayout y;
+  const int ni = nf - 2, nq = (int)lane_blocks(nf);
+  y.L = (nf + 1) & ~1;
+  y.Lp = res_r4(ni);
+  y.RW = 2 * y.L + y.Lp + ((2 * y.L + y.Lp) % 8 == 0 ? 4 : 0);
+  y.Lo = res_r4(nf);
+  const int L = y.L;
+  int at = 0;
+  y.ops = at;
+  at += res_r4(3 * nf * L + 2 * ni * L);
+  y.bops = at;
+  at += res_r4(2 * STAGE_TM * (nf + ni));
+  y.f = at;
+  y.fcopy = L * y.RW;
+  at += 2 * y.fcopy;
+  y.band = at;
+  at += res_r4(2 * STAGE_TM * ni);
+  y.omega = at;
+  at += nf * y.Lo;
+  y.uni = at;
+  at += res_r4(3 * nf * y.Lo > 4 * RED_THREADS ? 3 * nf * y.Lo
+                                                : 4 * RED_THREADS);
+  y.base = at;
+  at += res_r4(STAGE_TM * (4 * L + y.Lp));
+  y.xr = at;
+  at += sub * RES_XR;
+  y.part = at;
+  at += res_r4(tiles * RES_PROW);
+  y.qpart = at;
+  at += res_r4(nq * NQPART);
+  y.small = at;
+  at += res_r4(S_COUNT + TAIL_COLS + 7 + 4 + 1 + H_COUNT);
+  y.elems = at;
+  return y;
+}
+__host__ __device__ inline size_t res_smem_bytes(int nf, int elem, int sub,
+                                                 int tiles) {
+  return RES_HEADER + (size_t)elem * res_layout(nf, sub, tiles).elems;
+}
+
+// What the resident chunk kernel runs on besides the operators: one
+// chunk's state (in place), rows, flags and residual normalization (every
+// pointer lane 0's, as the chunk entry's pointer table holds them) and its
+// contract.
+template <typename T>
+struct ResArgs {
+  T *u, *v, *p, *rows, *ref_norm;
+  int* flags;
+  int nf, lanes, chunk, start_iter, warmup, metrics_every, use_residual;
+  T tol;
+  int cluster, sub;
+};
+
 // Launchers, defined (and instantiated for float and double) in the .cu
 // file of each kernel, each for `lanes` lanes at once; pointers are lane 0's.
 // None synchronizes; each returns cudaGetLastError().
@@ -607,6 +777,15 @@ template <typename T>
 cudaError_t launch_tail(const Ops<T>& o, const T* u, const T* v, T* omega,
                         const Tail<T>& t, int nf, int lanes, int blocks,
                         cudaStream_t s);
+// The resident geometry at order nf - 1 with elements of `elem` bytes
+// under the stage geometry g (whose tiles it computes), where a lane fits
+// one portable cluster's shared memory; cudaErrorInvalidValue where not.
+cudaError_t resident_geometry(int nf, int elem, const StageGeo& g,
+                              ResidentGeo* r);
+// A whole chunk of `lanes` lanes in one launch: a cluster a lane.
+template <typename T>
+cudaError_t launch_resident(const Ops<T>& o, const ResArgs<T>& a,
+                            const ResidentGeo& r, cudaStream_t s);
 // Co-resident blocks of the tail kernel (its x1 instance with x1) on the
 // current device; cudaErrorNotSupported on a card without cooperative
 // launch.

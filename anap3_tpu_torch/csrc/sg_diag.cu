@@ -180,21 +180,6 @@ struct TileSmem {
   T vals[2][TILE * TILE];
 };
 
-// A tile's cell values col[0, 256) summed in the fixed 256-slot tree
-// (level s = 128, ..., 1 folds slot t + s into slot t): lane l takes the
-// tree's first three levels from its eight slots l + 32 j in the tree's
-// pair order, then the last five by shuffles (lane l with l + s). Valid in
-// lane 0.
-template <typename T>
-__device__ __forceinline__ T tile_sum(const T* col, int l) {
-  T x = ((col[l] + col[l + 128]) + (col[l + 64] + col[l + 192])) +
-        ((col[l + 32] + col[l + 160]) + (col[l + 96] + col[l + 224]));
-#pragma unroll
-  for (int lv = 0; lv < 5; ++lv)
-    x += __shfl_down_sync(0xffffffffu, x, 16 >> lv);
-  return x;
-}
-
 // x rounded to bf16 and back (x1 products).
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));

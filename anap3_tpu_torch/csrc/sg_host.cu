@@ -44,6 +44,12 @@
 // x1: the JAX package's per-step fallback keeps x3 and its V-cycle
 // smoother runs x6.
 //
+// sg_resident_chunk_run is the same chunk in one launch of the resident
+// kernel (sg_resident.cu), at the orders where a lane fits one
+// thread-block cluster's shared memory (sg_resident_geometry), with the
+// chunk's outputs bit for bit; the wrappers take it wherever that
+// geometry exists.
+//
 // sg_lanes_chunk_run is sg_chunk_run for B sweep lanes at once (the lanes'
 // state machines are independent, their flags carried in from the previous
 // chunk): it takes the place of the Pallas fori_loops of
@@ -265,6 +271,35 @@ int chunk_run(const void* const* P, int nf, const int* geo, int lanes,
   return 0;
 }
 
+// The chunk of chunk_run in ONE launch of the resident kernel
+// (sg_resident.cu), on the same pointer table: the same state, rows, flags
+// and residual normalization, bit for bit, at the orders and dtypes where
+// resident_geometry exists; the stage geometry `geo` fixes the tiles it
+// computes.
+template <typename T>
+int resident_run(const void* const* P, int nf, const int* geo, int lanes,
+                 int chunk, int start_iter, int warmup, int metrics_every,
+                 int use_residual, double tol, int* counts, cudaStream_t s) {
+  Work<T> w = make_work<T>(P, lanes);
+  SG_CHECK(stage_geometry(geo, nf, sizeof(T), 0, &w.g));
+  ResidentGeo r;
+  SG_CHECK(resident_geometry(nf, sizeof(T), w.g, &r));
+  if (chunk < 1) return 0;
+  auto m = [&](int k) { return const_cast<void*>(P[k]); };
+  ResArgs<T> a = {};
+  a.u = w.u; a.v = w.v; a.p = w.p;
+  a.rows = static_cast<T*>(m(P_ROWS));
+  a.ref_norm = static_cast<T*>(m(P_REFNORM));
+  a.flags = static_cast<int*>(m(P_FLAGS));
+  a.nf = nf; a.lanes = lanes; a.chunk = chunk; a.start_iter = start_iter;
+  a.warmup = warmup; a.metrics_every = metrics_every;
+  a.use_residual = use_residual; a.tol = T(tol);
+  a.cluster = r.cluster; a.sub = r.sub;
+  SG_CHECK(launch_resident<T>(w.o, a, r, s));
+  counts[C_RESIDENT] += 1;
+  return 0;
+}
+
 // Timing aid: `reps` launches of one kernel group on a chunk workspace of
 // `lanes` lanes (0: one last stage of a chunk step, out of place into the
 // B buffers, with the base's partials; 1: dt; 2: a sampled step's tail;
@@ -369,6 +404,38 @@ int sg_chunk_run(int dtype, int nf, const int* geo, const void* const* ptrs,
   return sg_lanes_chunk_run(dtype, nf, geo, 1, ptrs, chunk, start_iter,
                             warmup, metrics_every, use_residual, tol, x1,
                             tail_blocks, counts, stream);
+}
+
+// sg_lanes_chunk_run's chunk (x1 = 0) in one launch, where
+// sg_resident_geometry exists; cudaErrorInvalidValue elsewhere.
+int sg_resident_chunk_run(int dtype, int nf, const int* geo, int lanes,
+                          const void* const* ptrs, int chunk, int start_iter,
+                          int warmup, int metrics_every, int use_residual,
+                          double tol, int* counts, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return dtype ? sg::resident_run<double>(ptrs, nf, geo, lanes, chunk,
+                                          start_iter, warmup, metrics_every,
+                                          use_residual, tol, counts, s)
+               : sg::resident_run<float>(ptrs, nf, geo, lanes, chunk,
+                                         start_iter, warmup, metrics_every,
+                                         use_residual, tol, counts, s);
+}
+
+// The resident kernel's geometry at order nf - 1 under the stage geometry
+// geo (x1 = 0): its cluster, sub-blocks and shared memory in bytes into
+// out[0..2]; cudaErrorInvalidValue where a lane does not fit one cluster
+// (sg_common.cuh:res_layout is the one account of its shared memory).
+int sg_resident_geometry(int dtype, int nf, const int* geo, int* out) {
+  const int elem = dtype ? 8 : 4;
+  sg::StageGeo g;
+  cudaError_t err = sg::stage_geometry(geo, nf, elem, 0, &g);
+  sg::ResidentGeo r;
+  if (err == cudaSuccess) err = sg::resident_geometry(nf, elem, g, &r);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = r.cluster;
+  out[1] = r.sub;
+  out[2] = r.smem;
+  return 0;
 }
 
 int sg_bench_run(int dtype, int nf, const int* geo, int lanes,

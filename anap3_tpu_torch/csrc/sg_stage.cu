@@ -232,29 +232,6 @@ cudaError_t stage_geometry(const int* geo, int nf, int elem, int x1,
 
 namespace {
 
-template <typename T>
-struct Vec2;
-template <>
-struct Vec2<float> {
-  using type = float2;
-};
-template <>
-struct Vec2<double> {
-  using type = double2;
-};
-
-template <typename T>
-__device__ __forceinline__ typename Vec2<T>::type ld2(const T* p) {
-  return *reinterpret_cast<const typename Vec2<T>::type*>(p);
-}
-
-// acc[base + 2 * rho + t] += a[rho] * b[t]: a 2x2 outer product
-template <typename T, typename V>
-__device__ __forceinline__ void fma4(T* acc, const V& a, const V& b) {
-  acc[0] += a.x * b.x; acc[1] += a.x * b.y;
-  acc[2] += a.y * b.x; acc[3] += a.y * b.y;
-}
-
 // One element global -> shared by cp.async; `valid` false reads nothing and
 // writes a zero.
 template <typename T>

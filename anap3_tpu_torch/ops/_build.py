@@ -102,6 +102,14 @@ def _bind_sg(lib: ctypes.CDLL) -> None:
     lib.sg_lanes_chunk_run.argtypes = [i, i, ip, i, pp, i, i, i, i, i, d, i,
                                        i, ip, vp]
     lib.sg_lanes_chunk_run.restype = i
+    # (dtype, nf, stage geometry, lanes, ptrs, chunk, start, warmup,
+    # metrics_every, use_residual, tol, counts, stream)
+    lib.sg_resident_chunk_run.argtypes = [i, i, ip, i, pp, i, i, i, i, i, d,
+                                          ip, vp]
+    lib.sg_resident_chunk_run.restype = i
+    # (dtype, nf, stage geometry, out: cluster, sub-blocks, shared memory)
+    lib.sg_resident_geometry.argtypes = [i, i, ip, ip]
+    lib.sg_resident_geometry.restype = i
     lib.sg_smooth_run.argtypes = [i, i, ip, pp, i, i, i, ip, vp]
     lib.sg_smooth_run.restype = i
     lib.sg_bench_run.argtypes = [i, i, ip, i, pp, i, i, i, i, vp]

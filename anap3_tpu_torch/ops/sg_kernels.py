@@ -67,6 +67,16 @@ dt from their maxima, so ``smoother_launches(n)`` is 4 n + 2.
 ``base_parts`` and ``dt_from_parts`` are the plain versions of the
 partials and of dt from them.
 
+The resident chunk: where a lane's operators and state fit one
+thread-block cluster's shared memory (``resident_geometry``: float32 to
+N = 51, float64 to N = 31, no x1), a chunk is ONE launch of
+csrc/sg_resident.cu's kernel (``sg_resident_chunk_run``), which marches
+every step in shared memory and leaves the multi-launch chunk's state,
+rows, flags and residual normalization bit for bit;
+``chunk_launches(..., resident=True)`` is its plan, one launch a chunk.
+The chunk runners take it wherever that geometry exists, and the
+multi-launch chunk elsewhere; nothing else selects it.
+
 matmul_algorithm=x1: ``make_sg_chunk_runner(..., x1=True)`` (float32
 only) runs the chunk with every product as one bf16 tensor-core pass, the
 semantics of ``anap3_tpu/ops/pallas_aligned.py:make_aligned_chunk_runner``
@@ -85,8 +95,9 @@ applies; the step and the smoother have no x1 mode.
 Launch counts: ``LAUNCHES`` counts the kernel launches the wrappers made,
 by kernel (sg_stage: one per RK stage; sg_diag: dt and the tail kernel;
 sg_control: the unsampled control; sg_stage_x1 and sg_diag_x1: the x1
-stage and x1 tail launches); ``PART_LAUNCHES`` counts dt_kernel's alone
-(also in sg_diag's); ``PLAIN_CALLS`` counts calls of the plain versions.
+stage and x1 tail launches; sg_resident: the resident chunks);
+``PART_LAUNCHES`` counts dt_kernel's alone (also in sg_diag's);
+``PLAIN_CALLS`` counts calls of the plain versions.
 ``STEPS["sg_chunk"]`` counts the steps the chunk runners were asked to
 march, kernel and plain path alike (a done state marches frozen to the
 chunk's end). ``SMOOTH_STEPS`` counts the steps each call of a smoother
@@ -122,15 +133,17 @@ __all__ = ["make_sg_step", "make_sg_chunk_runner", "make_sg_smoother",
            "stage_geometry", "StageGeometry", "MAX_KERNEL_N", "tail_grid",
            "tail_block_items", "MAX_TAIL_ITEMS", "chunk_launches",
            "smoother_launches", "BENCH_GROUPS", "PARTS", "PART_LAUNCHES",
-           "base_parts", "dt_from_parts", "STEPS", "SMOOTH_STEPS"]
+           "base_parts", "dt_from_parts", "STEPS", "SMOOTH_STEPS",
+           "resident_geometry", "ResidentGeometry"]
 
 # quadratures every 16th step, the production cadence of the aligned kernel
 ALIGNED_METRICS_EVERY = 16
 
-# the exact kernels, then the x1 instances (csrc/sg_common.cuh:Count)
+# the exact kernels, the x1 instances, then the resident chunk
+# (csrc/sg_common.cuh:Count)
 EXACT_KERNELS = ("sg_stage", "sg_diag", "sg_control")
 X1_KERNELS = ("sg_stage_x1", "sg_diag_x1")
-KERNELS = EXACT_KERNELS + X1_KERNELS
+KERNELS = EXACT_KERNELS + X1_KERNELS + ("sg_resident",)
 # the orders where matmul_algorithm=x1 applies: the JAX package's aligned
 # tier (anap3_tpu/ops/pallas_aligned.py:aligned_supported, the same cap
 # for both lids)
@@ -370,6 +383,44 @@ def stage_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
         threads=ksplit * stage_group_threads(tn), grid=(cluster, rows))
 
 
+class ResidentGeometry(NamedTuple):
+    """The resident chunk kernel's launch shape at one order and dtype."""
+    cluster: int   # blocks of a lane's cluster = grid x: a row band each
+    sub: int       # sub-blocks of a block: a column tile of the band each
+    threads: int   # threads of a block: 4 k-group warps a sub-block
+
+
+# The largest order whose lane fits one portable cluster, by element size:
+# where csrc/sg_common.cuh:res_layout, the one account of a resident
+# block's shared memory, still fits the card's (the C entry
+# sg_resident_geometry answers at every order; the card tests hold the two
+# to each other).
+RESIDENT_MAX_N = {4: 51, 8: 31}
+
+
+@functools.lru_cache(maxsize=None)
+def resident_geometry(nf: int, dtype: torch.dtype, lanes: int = 1,
+                      x1: bool = False):
+    """The resident chunk kernel's launch shape at order nf - 1 in
+    ``dtype`` for ``lanes`` lanes, or None where a lane does not fit one
+    cluster (its chunk then runs the multi-launch kernels).
+
+    A lane is a portable cluster of a block a row band of the stage
+    geometry (8 rows), a block a sub-block of 128 threads a column tile of
+    its band (16 columns, the stage geometry's tiles and 4 k groups at
+    these orders). It takes float32 up to N = 51 and float64 up to N = 31
+    (``RESIDENT_MAX_N``); x1 and more than 65,535 lanes take None. The
+    geometry does not depend on the lane count."""
+    elem = {torch.float32: 4, torch.float64: 8}.get(dtype)
+    if elem is None:
+        raise TypeError(f"the SG kernels take float32 or float64, not {dtype}")
+    if x1 or not 1 <= lanes <= 65535 or nf - 1 > RESIDENT_MAX_N[elem]:
+        return None
+    g = stage_geometry(nf, dtype)
+    return ResidentGeometry(cluster=g.rows, sub=g.cluster,
+                            threads=g.cluster * g.threads)
+
+
 def tail_grid(nf: int, lanes: int, coresident: int) -> int:
     """Blocks of the tail kernel's cooperative launch at order nf - 1 for
     ``lanes`` lanes on a card where ``coresident`` of its blocks fit at
@@ -424,13 +475,16 @@ def _tail_blocks(ops: SpectralOps, lanes: int, lib, x1: bool = False) -> int:
 
 
 def chunk_launches(chunk: int, start_iter: int, metrics_every: int,
-                   x1: bool = False) -> dict:
+                   x1: bool = False, resident: bool = False) -> dict:
     """The launches of one chunk by kernel: four stages a step, dt at the
     first step, and one tail a step: the tail kernel (sg_diag) on a sampled
     step (the first, and every ``metrics_every``-th global iteration, as
     ``chunk_plain`` samples), control (sg_control) on the others. With
     ``x1`` the stages and sampled tails are the x1 instances' (sg_stage_x1,
-    sg_diag_x1); dt stays sg_diag's."""
+    sg_diag_x1); dt stays sg_diag's. With ``resident`` (an order of
+    ``resident_geometry``) the whole chunk is one launch of sg_resident."""
+    if resident:
+        return {"sg_resident": int(chunk > 0)}
     sampled = sum(1 for i in range(chunk)
                   if i == 0 or (start_iter + i) % metrics_every == 0)
     if x1:
@@ -447,15 +501,17 @@ def smoother_launches(n_steps: int) -> dict:
     return {"sg_stage": 4 * n_steps, "sg_diag": 2}
 
 
-def _check_launches(counts, chunk, start_iter, metrics_every, x1=False):
+def _check_launches(counts, chunk, start_iter, metrics_every, x1=False,
+                    resident=False):
     """Raise where the C entry's counts (KERNELS', then PARTS' where
-    given) differ from the chunk's plan: dt_kernel once, at the first step."""
+    given) differ from the chunk's plan: dt_kernel once, at the first step
+    (none in a resident chunk, which takes its first dt itself)."""
     got = {k: 0 for k in KERNELS}
     got.update(zip(KERNELS + PARTS, (int(n) for n in counts)))
-    plan = chunk_launches(chunk, start_iter, metrics_every, x1)
+    plan = chunk_launches(chunk, start_iter, metrics_every, x1, resident)
     want = {k: plan.get(k, 0) for k in KERNELS}
     if "dt_kernel" in got:
-        want["dt_kernel"] = int(chunk > 0)
+        want["dt_kernel"] = int(chunk > 0 and not resident)
     if got != want:
         raise RuntimeError(f"chunk launches {got}, planned {want}")
 
@@ -1151,12 +1207,37 @@ def chunk_workspace(ops: SpectralOps, state: SpectralState, chunk: int,
         lsc=scalar_table([ops]) if lsc is None else lsc)
 
 
+def _run_resident(ops, lanes, ws, chunk, start_iter, warmup, metrics_every,
+                  use_residual, tolerance, launches, key):
+    """One chunk of ``lanes`` lanes on the workspace ``ws`` in one launch of
+    the resident kernel (an order of ``resident_geometry``), its launches
+    counted in ``launches[key]`` and held to the plan."""
+    from ._build import load_library
+
+    lib = load_library("sg")
+    counts = _new_counts()
+    rc = lib.sg_resident_chunk_run(
+        _dtype_code(ops.dtype), ops.nf, _geo(ops, lanes), lanes,
+        _ptr_table(ws), int(chunk), int(start_iter), int(warmup),
+        int(metrics_every), int(use_residual), float(tolerance), counts,
+        _stream())
+    launches[key] += sum(int(n) for n in counts[:len(KERNELS)])
+    _raise_on(lib, rc, "sg_resident_chunk_run")
+    _check_launches(counts, chunk, start_iter, metrics_every, resident=True)
+
+
 def _run_chunk(ops, ws, chunk, start_iter, warmup, metrics_every,
                use_residual, tolerance, x1=False):
     """One kernel chunk on the workspace ``ws`` (its state advanced in
-    place), with the launches counted and held to the plan."""
+    place), with the launches counted and held to the plan: one launch of
+    the resident kernel where ``resident_geometry`` takes the order, the
+    multi-launch chunk elsewhere."""
     from ._build import load_library
 
+    if resident_geometry(ops.nf, ops.dtype, 1, x1) is not None:
+        return _run_resident(ops, 1, ws, chunk, start_iter, warmup,
+                             metrics_every, use_residual, tolerance,
+                             LAUNCHES, "sg_resident")
     lib = load_library("sg")
     counts = _new_counts()
     rc = lib.sg_chunk_run(_dtype_code(ops.dtype), ops.nf, _geo(ops, x1=x1),

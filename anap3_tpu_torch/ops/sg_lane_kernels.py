@@ -39,8 +39,14 @@ kernel's arithmetic at its cadence, lane by lane; CUDA tensors launch the
 kernels or raise. ``plain_lane_runner`` is the plain batched path of SG
 lanes: ``lanes_plain`` with quadratures every step on any device.
 
+Where ``sg_kernels.resident_geometry`` takes the order, a lane chunk is one
+launch of the resident kernel (``csrc/sg_resident.cu``, a thread-block
+cluster a lane, ``sg_resident_chunk_run``), with the multi-launch chunk's
+outputs bit for bit.
+
 Launch counts: ``LAUNCHES`` counts the kernel launches of lane chunks by the
-TPU kernel they stand for ("sg_lanes_tiled": #9, "sg_lanes_aligned": #10);
+TPU kernel they stand for ("sg_lanes_tiled": #9, "sg_lanes_aligned": #10),
+the resident kernel's apart ("sg_lanes_resident", #9 and #10 alike);
 ``PLAIN_CALLS["sg_lanes"]`` counts calls of ``lanes_plain``;
 ``STEPS["sg_lanes"]`` the batch steps asked of a lane chunk function, a
 chunk's n once per call of a batch (of each corner-mode group), kernel and
@@ -71,7 +77,7 @@ __all__ = ["make_lane_chunk_runner", "maybe_lane_runner",
 # the aligned tier's order cap, smoothed and singular
 # (anap3_tpu/ops/pallas_aligned.py MAX_ALIGNED_N, MAX_ALIGNED_SINGULAR_N)
 MAX_ALIGNED_N = 320
-KERNELS = ("sg_lanes_tiled", "sg_lanes_aligned")
+KERNELS = ("sg_lanes_tiled", "sg_lanes_aligned", "sg_lanes_resident")
 LAUNCHES = {k: 0 for k in KERNELS}
 PLAIN_CALLS = {"sg_lanes": 0}
 STEPS = {"sg_lanes": 0}
@@ -197,19 +203,24 @@ def _lanes_kernel(ops_list, statics, states, start_iter, carry, chunk,
         bp=torch.empty_like(states.p),
         rows=torch.empty((chunk, B, 7), dtype=ops0.dtype, device=ops0.device),
         flags=carry.flags.clone(), ref_norm=carry.ref_norm.clone())
-    counts = sgk._new_counts()
-    # sweeps pass no matmul algorithm (exact products: x1 = 0)
-    rc = lib.sg_lanes_chunk_run(sgk._dtype_code(ops0.dtype), ops0.nf,
-                                sgk._geo(ops0, B), B, sgk._ptr_table(ws),
-                                int(chunk), int(start_iter), int(warmup),
-                                int(metrics_every), int(use_residual),
-                                float(tolerance), 0,
-                                sgk._tail_blocks(ops0, B, lib), counts,
-                                sgk._stream())
-    key = "sg_lanes_tiled" if metrics_every == 1 else "sg_lanes_aligned"
-    LAUNCHES[key] += sum(int(n) for n in counts[:len(sgk.KERNELS)])
-    sgk._raise_on(lib, rc, "sg_lanes_chunk_run")
-    sgk._check_launches(counts, chunk, start_iter, metrics_every)
+    if sgk.resident_geometry(ops0.nf, ops0.dtype, B) is not None:
+        sgk._run_resident(ops0, B, ws, chunk, start_iter, warmup,
+                          metrics_every, use_residual, tolerance, LAUNCHES,
+                          "sg_lanes_resident")
+    else:
+        counts = sgk._new_counts()
+        # sweeps pass no matmul algorithm (exact products: x1 = 0)
+        rc = lib.sg_lanes_chunk_run(sgk._dtype_code(ops0.dtype), ops0.nf,
+                                    sgk._geo(ops0, B), B, sgk._ptr_table(ws),
+                                    int(chunk), int(start_iter), int(warmup),
+                                    int(metrics_every), int(use_residual),
+                                    float(tolerance), 0,
+                                    sgk._tail_blocks(ops0, B, lib), counts,
+                                    sgk._stream())
+        key = "sg_lanes_tiled" if metrics_every == 1 else "sg_lanes_aligned"
+        LAUNCHES[key] += sum(int(n) for n in counts[:len(sgk.KERNELS)])
+        sgk._raise_on(lib, rc, "sg_lanes_chunk_run")
+        sgk._check_launches(counts, chunk, start_iter, metrics_every)
     return (SpectralState(ws["u"], ws["v"], ws["p"]),
             LaneCarry(ws["flags"], ws["ref_norm"]), ws["rows"])
 

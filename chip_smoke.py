@@ -22,7 +22,11 @@ when it fails:
    rings, and at N=400 a non-portable cluster of nine blocks),
    float32 and float64, smoothed and singular lids; tolerances: relative
    max error <= 1e-11 in float64 and <= 1e-4 in float32, done/conv_iter
-   equal; kernel and plain ms/step at N = 48, 96, 128; at N=128 float32 the
+   equal (at N = 20 and 48 the chunk is the resident kernel's, in float32
+   and float64: sg_kernels.resident_geometry); kernel and plain ms/step at
+   N = 48, 96, 128; at N=48 float32 the resident chunk's ms per step over a
+   1000-step chunk of a developing flow beside chunk_plain, its bound and
+   the library yardstick of a step's products; at N=128 float32 the
    times of the last stage, dt_kernel, tail_kernel (a sampled step's
    quadratures and finish) and control_kernel (an unsampled step's
    finish), each beside its plain version and bound, the stage's library
@@ -124,8 +128,10 @@ when it fails:
    CUDA tensors (the bounds of phase 2, flags equal); every lane against a
    one-lane sg_chunk_run of its own, bit for bit; a lane driven to NaN by a
    huge CFL flagged diverged and frozen while the others keep their bits; a
-   tolerance met by one lane mid-chunk; ms per step of the N=128 B=8 and
-   N=20 B=8 lane chunks beside 8 one-lane chunks and beside plain;
+   tolerance met by one lane mid-chunk (N = 20 and 40 take the resident
+   lane chunk, N = 96 the multi-launch one); ms per step of the N=128 B=8
+   (aligned), N=127 B=8 (tiled) and N=20 and N=40 B=8 (resident) lane
+   chunks beside 8 one-lane chunks and beside plain;
 2e. FV lane kernels (fv_lanes_chunk_run): B = 3 lanes with Re, alpha_uv,
    alpha_p and the lid speed varying, at 20x20, ny=12 x nx=16 and 128x128,
    float32 and float64, TVD and upwind, against lanes_plain (the bounds of
@@ -387,6 +393,9 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     # (make_aligned_chunk_runner, algorithm="x1")
     "sg_stage_x1": "anap3_tpu/ops/pallas_aligned.py:647",
     "sg_diag_x1": "anap3_tpu/ops/pallas_aligned.py:647",
+    # the resident chunk (a whole chunk in one launch, float32 N <= 51 and
+    # float64 N <= 31): the chunk kernels' sites, one lane and with lanes
+    "sg_resident": "anap3_tpu/ops/pallas_aligned.py:647, pallas_tiled.py:721",
     # the body _make_iterate of make_pallas_fv_step / _chunk_runner: the
     # assembly and the solve, then the pressure stage with the chunk's
     # state machine (and the step's metrics vector)
@@ -396,6 +405,8 @@ REPLACES = {  # TPU kernels each CUDA kernel stands in for (pallas_call site)
     # lane entries of csrc/sg_host.cu and csrc/fv_host.cu
     "sg_lanes_tiled": "anap3_tpu/ops/pallas_lanes.py:364",
     "sg_lanes_aligned": "anap3_tpu/ops/pallas_lanes_aligned.py:612",
+    "sg_lanes_resident": "anap3_tpu/ops/pallas_lanes.py:364, "
+                         "pallas_lanes_aligned.py:612",
     "fv_lanes": "anap3_tpu/ops/pallas_fv_lanes.py:524",
     # no pallas_call: jax.scipy.sparse.linalg.bicgstab inside the jitted
     # matvec_fused (steady.py:251), which XLA compiles
@@ -405,6 +416,7 @@ SOURCES = {"sg_stage_x1": "anap3_tpu_torch/csrc/sg_stage.cu",
            "sg_diag_x1": "anap3_tpu_torch/csrc/sg_diag.cu",
            "sg_lanes_tiled": "anap3_tpu_torch/csrc/sg_host.cu",
            "sg_lanes_aligned": "anap3_tpu_torch/csrc/sg_host.cu",
+           "sg_lanes_resident": "anap3_tpu_torch/csrc/sg_resident.cu",
            "fv_lanes": "anap3_tpu_torch/csrc/fv_host.cu"}
 # sweep lanes: (Re, corner_smoothing, CFL, beta_squared); singular lanes
 # take the first three (Re <= 1000 from rest at N=20)
@@ -789,6 +801,8 @@ def phase_kernels(summary):
                           f"{b_ms / chunk:.5f} ({b_by}); library (a stage's "
                           f"12 products as torch.matmul, TF32 off) "
                           f"{lib:.4f} ms", flush=True)
+                if n == 48 and dt_name == "float32" and corner == "smoothing":
+                    time_resident(ops, st0, summary)
                 if n == 128 and dt_name == "float32" and corner == "smoothing":
                     # absolute errors on the main path's inputs: one step
                     # from the flow 64 steps after rest, and that chunk
@@ -806,6 +820,45 @@ def phase_kernels(summary):
                           + ", ".join(f"{k} {summary[k]['max_abs_err']:.3e}"
                                       for k in sgk.EXACT_KERNELS), flush=True)
                     time_kernels(ops, st0, summary)
+
+
+def time_resident(ops, st0, summary):
+    """The resident chunk (sg_resident) at N=48 float32, one lane: ms per
+    step over a 1000-step chunk of a developing flow (quadratures every
+    16th step, CUDA events), beside chunk_plain, the steps' bound and the
+    library yardstick of a step's 4 x 12 products; its largest absolute
+    error against chunk_plain over 16 steps of that flow."""
+    check(sgk.resident_geometry(ops.nf, ops.dtype) is not None,
+          f"N={ops.nf - 1} {ops.dtype} is not a resident order")
+    inf = float("inf")
+    st = sgk.make_sg_chunk_runner(ops, 200, 1e-30, 10, "rel_iter", 16)(
+        st0, 0, inf)[0]
+    out_k = sgk.make_sg_chunk_runner(ops, 16, 1e-30, 10, "rel_iter", 16)(
+        st, 200, inf)
+    ref = torch.tensor(inf, dtype=ops.dtype, device=ops.device)
+    out_p = sgk.chunk_plain(ops, st, 200, ref, 16, 1e-30, 10, False, 16)
+    err = max(float((a.double() - b.double()).abs().max())
+              for a, b in zip(out_k[0], out_p[0]))
+    chunk = 1000
+    run = sgk.make_sg_chunk_runner(ops, chunk, 1e-30, 10, "rel_iter", 16)
+    sgk.reset_counts()
+    t_k = cuda_ms(lambda: run(st, 200, inf), 3) / chunk
+    check(sgk.LAUNCHES["sg_resident"] == 4
+          and sum(sgk.LAUNCHES.values()) == 4,
+          f"the timed chunks were not resident launches: {sgk.LAUNCHES}")
+    t_p = cuda_ms(lambda: sgk.chunk_plain(ops, st, 200, ref, 16, 1e-30, 10,
+                                          False, 16), 1) / 16
+    b_ms, b_by = steps_bound(ops.nf, ops.dtype, chunk,
+                             sampled_steps(200, chunk, 16))
+    lib = stage_library_ms(ops, st, stages=4)
+    summary["sg_resident"].update(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                                  bound_ms=b_ms / chunk, bound_by=b_by,
+                                  library_ms=lib)
+    print(f"[kernels] sg_resident at N=48 float32, one lane, {chunk}-step "
+          f"chunk: {t_k:.5f} ms/step, plain {t_p:.4f} ms/step, bound "
+          f"{b_ms / chunk:.5f} ms/step ({b_by}), library (a step's 4 x 12 "
+          f"products as torch.matmul, TF32 off) {lib:.4f} ms; abs err "
+          f"{err:.3e} over 16 steps", flush=True)
 
 
 def time_kernels(ops, st0, summary):
@@ -1461,14 +1514,16 @@ def phase_sg_lanes(summary):
         check(torch.equal(torch.isnan(out_k[2]), torch.isnan(out_p[2])),
               "mid-chunk NaN rows differ")
     # the main paths' shapes, float32: N=128 B=8 (sg sweep: the aligned
-    # cadence) and N=20 B=8 (the fsg sweep's coarse level: every step)
-    for key, n in (("sg_lanes_aligned", 128), ("sg_lanes_tiled", 20)):
+    # cadence), N=127 B=8 (the scaling probe's order: every step), N=20 and
+    # N=40 B=8 (the fsg sweep's levels: the resident lane chunk); a
+    # kernel's first shape is its summary row
+    for n in (128, 127, 20, 40):
+        key = lane_kernel(n)
         ops_list = lane_ops(n, "float32", SG_LANES)
         o0 = ops_list[0]
         m = sgl.lane_metrics_every(n)
         out_k, _, _, abs_err = sg_lane_check(
             ops_list, 16, 1e-30, f"SG N={n} float32 B=8 (main path)", 1e-4)
-        summary[key]["max_abs_err"] = abs_err
         st = out_k[0]  # a developing flow, not rest
         chunk = 200
         run = sgl.make_lane_chunk_runner(ops_list, chunk, 1e-30)
@@ -1485,11 +1540,20 @@ def phase_sg_lanes(summary):
         bound_step = 8 * b_ms / chunk
         # a step's 4 x 12 products of the 8 lanes, each batched over lanes
         lib = stage_library_ms(ops_list, st, stages=4)
-        summary[key].update(ms=t_lane, plain_ms=t_plain, bound_ms=bound_step,
-                            bound_by=b_by, library_ms=lib)
-        profile_chunk(lambda: run(st, 16),
-                      f"lanes profile SG N={n} float32 B=8 {chunk}-step chunk")
-        print(f"[lanes] SG N={n} float32 B=8, quadratures every {m}: lane "
+        if "ms" not in summary[key]:
+            summary[key].update(max_abs_err=abs_err, ms=t_lane,
+                                plain_ms=t_plain, bound_ms=bound_step,
+                                bound_by=b_by, library_ms=lib)
+        # a resident chunk is one launch (~2.5 ms at N=20), and late in a
+        # long process the profiler misses a profile's first device
+        # activities (the 200-step chunks above read 997 of 1,009): ten
+        reps = 10 if key == "sg_lanes_resident" else 1
+        profile_chunk(lambda: [run(st, 16) for _ in range(reps)],
+                      f"lanes profile SG N={n} float32 B=8 "
+                      + (f"{reps} x " if reps > 1 else "")
+                      + f"{chunk}-step chunk")
+        print(f"[lanes] SG N={n} float32 B=8 ({key}), quadratures every "
+              f"{m}: lane "
               f"chunk {t_lane:.4f} ms/step ({8 / t_lane * 1e3:.1f} "
               f"lane-steps/s), 8 one-lane chunks {t_ones:.4f} ms/step "
               f"({t_ones / t_lane:.2f}x), plain {t_plain:.4f} ms/step, "
@@ -3338,6 +3402,24 @@ def flagship_vmg() -> int:
     return 0
 
 
+def resident_at(n):
+    """("sg_resident",) where sg_kernels.resident_geometry takes the
+    float32 order n (a one-lane chunk there is one resident launch), ()
+    elsewhere."""
+    return (("sg_resident",) if sgk.resident_geometry(n + 1, torch.float32)
+            else ())
+
+
+def lane_kernel(n, lanes=8):
+    """The lane kernel a float32 batch of ``lanes`` lanes at order n
+    launches: the resident lane chunk where resident_geometry takes the
+    order, else the aligned or the tiled one by the quadrature cadence."""
+    if sgk.resident_geometry(n + 1, torch.float32, lanes):
+        return "sg_lanes_resident"
+    return ("sg_lanes_aligned" if sgl.lane_metrics_every(n) > 1
+            else "sg_lanes_tiled")
+
+
 # the main paths: (name, phase, the kernels it must launch)
 SG_NO_CONTROL = ("sg_stage", "sg_diag")
 SG_EXACT = sgk.EXACT_KERNELS
@@ -3346,16 +3428,20 @@ SG_X1 = ("sg_stage_x1", "sg_diag", "sg_diag_x1", "sg_control")
 MAIN_PATHS = (
     ("sg N=128", phase_sg, SG_EXACT),
     ("sg N=128 x1", phase_sg_x1, SG_X1),
-    ("fsg N=96", phase_fsg, SG_EXACT),
+    # the flagship's N=48 level: the resident chunk
+    ("fsg N=96", phase_fsg, SG_EXACT + resident_at(48)),
     ("fsg N=96 x1", phase_fsg_x1, SG_X1),
     # the flagship again with the float64 Newton polish (after phase 4,
     # whose march it repeats)
-    ("fsg N=96 polished", phase_fsg_polished, SG_EXACT + nkk.KERNELS),
+    ("fsg N=96 polished", phase_fsg_polished,
+     SG_EXACT + resident_at(48) + nkk.KERNELS),
     # the port's CLI (python -m anap3_tpu_torch): the flagship, then one
     # round of the corner-smoothing optimization as one batch on the SG
     # lane kernels
-    ("cli fsg N=96", phase_cli_fsg, SG_EXACT),
-    ("cli optimization N=40", phase_cli_optimization, sgl.KERNELS),
+    ("cli fsg N=96", phase_cli_fsg, SG_EXACT + resident_at(48)),
+    # the round's levels N=20 and 40
+    ("cli optimization N=40", phase_cli_optimization,
+     tuple(dict.fromkeys((lane_kernel(20), lane_kernel(40))))),
     # the Newton iteration: each GMRES vector replays one CUDA graph of
     # the matvec, whose Schur BiCGSTAB is the nk kernel (no pallas_call in
     # the JAX module)
@@ -3370,11 +3456,13 @@ MAIN_PATHS = (
     ("fv Re=1000", lambda: phase_fv_solve(1000.0), fvk.KERNELS),
     # the V-cycles step through the smoother and the step, whose tail is
     # tail_kernel (sg_diag); FMG's x6 chunk samples every step: no
-    # control_kernel on these paths
+    # control_kernel on these paths; FMG's coarsest level (N=24) is a
+    # chunk, the resident one
     ("vmg [192, 96]", phase_vmg_wide, SG_NO_CONTROL),
     ("vmg N=48", phase_vmg48, SG_NO_CONTROL),
-    ("fmg N=96", phase_fmg96, SG_NO_CONTROL),
-    ("fsg sweep N=40", phase_fsg_sweep, sgl.KERNELS),
+    ("fmg N=96", phase_fmg96, SG_NO_CONTROL + resident_at(24)),
+    ("fsg sweep N=40", phase_fsg_sweep,
+     tuple(dict.fromkeys((lane_kernel(20), lane_kernel(40))))),
     ("sg sweep N=128", phase_sg_sweep, ("sg_lanes_aligned",)),
     ("fv sweep N=128", phase_fv_sweep, fvl.KERNELS),
     # the distributed paths at world size 1 over NCCL: the x-sharded solve

@@ -442,17 +442,21 @@ class TestOnCard:
     bit (run there with ``python -m pytest tests/test_torch_checkpoint.py
     -m gpu --noconftest``)."""
 
-    def test_sg_kernel_resume_is_bit_equal(self, cuda, tmp_path):
+    # N=48: the resident chunk (sg_kernels.resident_geometry); N=64, past
+    # it: the multi-launch chunk
+    @pytest.mark.parametrize("n,kernel", [(48, "sg_resident"),
+                                          (64, "sg_stage")])
+    def test_sg_kernel_resume_is_bit_equal(self, cuda, tmp_path, n, kernel):
         from anap3_tpu_torch.ops import sg_kernels as sgk
 
         def make(**kw):
             return SGSolver(device="cuda", **make_params(
-                nx=48, ny=48, dtype="float32", tolerance=0.0,
+                nx=n, ny=n, dtype="float32", tolerance=0.0,
                 convergence_metric="rel_iter", chunk_size=200, **kw))
 
         sgk.reset_counts()
         ref, resumed = _resume_pair(make, tmp_path, 200)
-        assert sgk.LAUNCHES["sg_stage"] > 0 and not any(
+        assert sgk.LAUNCHES[kernel] > 0 and not any(
             sgk.PLAIN_CALLS.values())
         assert resumed.metrics.iterations == ref.metrics.iterations == 600
         for a, b in zip(resumed.state, ref.state):

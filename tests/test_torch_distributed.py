@@ -216,7 +216,8 @@ class TestOnCard:
             runs.append(TS.run_batched_sweep(
                 None, UV, TS.stack_ops(ops), states, 0.0, 400, chunk=200,
                 mesh=m, lane_runner=sgl.sg_lane_runner(ops, plist[0])))
-            assert sgl.LAUNCHES["sg_lanes_aligned"] > 0
+            # N=48: the resident lane chunk (sg_kernels.resident_geometry)
+            assert sgl.LAUNCHES["sg_lanes_resident"] > 0
             assert not any(sgl.PLAIN_CALLS.values())
         np.testing.assert_array_equal(runs[0].iterations, runs[1].iterations)
         for a, b in zip(runs[0].states, runs[1].states):

@@ -253,8 +253,8 @@ class TestWrappers:
     def test_source_hash_follows_the_sources(self, tmp_path):
         srcs = _build.sources("sg")
         assert [s.name for s in srcs] == [
-            "sg_control.cu", "sg_diag.cu", "sg_host.cu", "sg_stage.cu",
-            "sg_common.cuh"]
+            "sg_control.cu", "sg_diag.cu", "sg_host.cu", "sg_resident.cu",
+            "sg_stage.cu", "sg_common.cuh"]
         h = _build._source_hash(srcs)
         edited = tmp_path / srcs[0].name
         edited.write_bytes(srcs[0].read_bytes() + b"\n// edit\n")
@@ -407,16 +407,30 @@ class TestOnCard:
         # dt, one stage launch per RK stage, and the tail kernel (the
         # quadratures and the metrics)
         assert sgk.LAUNCHES == {"sg_stage": 4, "sg_diag": 2, "sg_control": 0,
-                                "sg_stage_x1": 0, "sg_diag_x1": 0}
+                                "sg_stage_x1": 0, "sg_diag_x1": 0,
+                                "sg_resident": 0}
         sgk.reset_counts()
         sgk.make_sg_chunk_runner(ops, 20, 1e-30, 10, "rel_iter", 16)(
             st, 0, np.inf)
-        # 5 launches a step: 4 stages and one tail; the 2 sampled steps
-        # (i=0, idx=16) take the tail kernel, the 18 others control; dt
-        # once, at the chunk's first step
+        # N=20 is an order of the resident geometry: the whole chunk in
+        # one launch, no dt of its own
+        assert sgk.LAUNCHES == {"sg_stage": 0, "sg_diag": 0,
+                                "sg_control": 0, "sg_stage_x1": 0,
+                                "sg_diag_x1": 0, "sg_resident": 1}
+        assert sgk.PART_LAUNCHES == {"dt_kernel": 0}
+        # past it (N=64) the multi-launch chunk: 5 launches a step, 4
+        # stages and one tail; the 2 sampled steps (i=0, idx=16) take the
+        # tail kernel, the 18 others control; dt once, at the chunk's
+        # first step
+        wide = cuda_ops(64, torch.float32)
+        assert sgk.resident_geometry(wide.nf, wide.dtype) is None
+        sgk.reset_counts()
+        sgk.make_sg_chunk_runner(wide, 20, 1e-30, 10, "rel_iter", 16)(
+            T.initial_state(wide), 0, np.inf)
         assert sgk.LAUNCHES == {"sg_stage": 80, "sg_diag": 3,
                                 "sg_control": 18, "sg_stage_x1": 0,
-                                "sg_diag_x1": 0}
+                                "sg_diag_x1": 0, "sg_resident": 0}
+        assert sgk.PART_LAUNCHES == {"dt_kernel": 1}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}
         sgk.reset_counts()
@@ -426,7 +440,7 @@ class TestOnCard:
         # step and the tail kernel at the end: 4 n + 2
         assert sgk.LAUNCHES == {"sg_stage": 20, "sg_diag": 2,
                                 "sg_control": 0, "sg_stage_x1": 0,
-                                "sg_diag_x1": 0}
+                                "sg_diag_x1": 0, "sg_resident": 0}
         assert sgk.PART_LAUNCHES == {"dt_kernel": 1}
         assert sgk.PLAIN_CALLS == {"sg_step": 0, "sg_chunk": 0,
                                    "sg_smooth": 0}

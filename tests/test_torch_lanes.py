@@ -554,10 +554,20 @@ class TestOnCard:
         sgl.reset_counts()
         sgk.reset_counts()
         sgl.make_lane_chunk_runner(ops, 20, 1e-30)(st, 0)
-        # 5 launches a step for all lanes (4 stages and one tail: the tail
-        # kernel on the sampled steps i = 0 and idx = 16, control on the
-        # others), and dt once
-        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 101}
+        # N=40 is an order of the resident geometry: one launch a chunk
+        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 0,
+                                "sg_lanes_resident": 1}
+        assert sgk.LAUNCHES == {k: 0 for k in sgk.KERNELS}
+        # past it (N=64) 5 launches a step for all lanes (4 stages and one
+        # tail: the tail kernel on the sampled steps i = 0 and idx = 16,
+        # control on the others), and dt once
+        ops = card_sg_ops(SG_LANES, 64, torch.float32)
+        assert sgk.resident_geometry(ops[0].nf, ops[0].dtype, 8) is None
+        st = stack_states([T.initial_state(o) for o in ops])
+        sgl.reset_counts()
+        sgl.make_lane_chunk_runner(ops, 20, 1e-30)(st, 0)
+        assert sgl.LAUNCHES == {"sg_lanes_tiled": 0, "sg_lanes_aligned": 101,
+                                "sg_lanes_resident": 0}
         assert sgk.LAUNCHES == {k: 0 for k in sgk.KERNELS}
         assert sgl.PLAIN_CALLS == {"sg_lanes": 0}
 
@@ -623,12 +633,15 @@ class TestOnCard:
         return {k: v for m in (sgk, sgl, fvk, fvl, TS)
                 for k, v in m.PLAIN_CALLS.items() if v}
 
-    def test_mixed_corner_batch_launches_lane_kernels(self, cuda):
+    @pytest.mark.parametrize("n,kernel", [(32, "sg_lanes_resident"),
+                                          (64, "sg_lanes_aligned")])
+    def test_mixed_corner_batch_launches_lane_kernels(self, cuda, n, kernel):
         """Smoothed and singular lanes in one run_batched group: one lane
-        group per corner mode through the lane kernels, no plain call, and
-        every lane is its own SGSolver run, bit for bit."""
+        group per corner mode through the lane kernels (the resident chunk
+        at N=32, the multi-launch one past its geometry), no plain call,
+        and every lane is its own SGSolver run, bit for bit."""
         ps = [SpectralParameters(
-            Re=Re, nx=32, ny=32, device="cuda", dtype="float32",
+            Re=Re, nx=n, ny=n, device="cuda", dtype="float32",
             corner_treatment=corner, corner_smoothing=0.15, tolerance=1e-30,
             max_iterations=300, chunk_size=100,
             convergence_metric="rel_iter")
@@ -638,7 +651,7 @@ class TestOnCard:
         self._reset_counts()
         results = TB.run_batched(solvers)
         torch.cuda.synchronize()
-        assert sgl.LAUNCHES["sg_lanes_aligned"] > 0
+        assert sgl.LAUNCHES[kernel] > 0
         assert self._plain_calls() == {}
         for p, s, r in zip(ps, solvers, results):
             one = SGSolver(params=p)

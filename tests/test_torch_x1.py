@@ -918,7 +918,7 @@ class TestOnCard:
         # steps, control on the 18 others, dt once
         assert sgk.LAUNCHES == {"sg_stage": 0, "sg_diag": 1,
                                 "sg_control": 18, "sg_stage_x1": 80,
-                                "sg_diag_x1": 2}
+                                "sg_diag_x1": 2, "sg_resident": 0}
         assert sgk.PLAIN_CALLS["sg_chunk"] == 0
 
     @pytest.mark.parametrize("n", [32, 128])
